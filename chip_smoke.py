@@ -4,14 +4,21 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from prosper_tpu_torch/csrc with nvcc, holds
-each kernel against its plain PyTorch version on the card, recovers the
-bars through ``EM.run`` on CUDA, then drives the main path at the width of
-the repo's headline configuration (BSC on 16x16 patches: D=256, H=300,
-H'=8, gamma=4, 154 multi states) -- an annealed EM run on 131072 planted-
-dictionary rows and a decode of 8192 held-out rows -- and checks that the
-run went through both kernels.  Every phase raises on failure.  Prints one
-JSON line of per-kernel results and ends with
-{"ok": true, "device": {"platform": "gpu", ...}}.
+each kernel against its plain PyTorch version on the card, and drives the
+port's two paths:
+
+* the linear family: the bars through ``EM.run`` on CUDA, then BSC at the
+  width of the repo's headline configuration (16x16 patches: D=256, H=300,
+  H'=8, gamma=4, 154 multi states) -- an annealed EM run on 131072
+  planted-dictionary rows and a decode of 8192 held-out rows;
+* the max family: MCA bars through ``EM.run`` on CUDA, one softened-max
+  step (rho > 0, the plain version on the card) against the CPU, then MCA
+  and MMCA at the patches width of bench.py (D=256, H=300, H'=6, gamma=3,
+  35 multi states) on 131072 rows, each with a decode of 8192 rows.
+
+Each path's launch counts are set to 0 just before it and checked just
+after.  Every phase raises on failure.  Prints one JSON line of per-kernel
+results and ends with {"ok": true, "device": {"platform": "gpu", ...}}.
 Exits non-zero without a result when no CUDA device is present.
 """
 
@@ -21,6 +28,7 @@ import sys
 import time
 
 BARS_SEED = 0          # a seed whose noisy bars run recovers all 10 bars
+MCA_BARS_SEED = 0      # a seed whose MCA bars run on CUDA recovers all 8
 
 
 def log(*a):
@@ -49,6 +57,212 @@ def interleaved_ms(torch, plain, kernel, reps):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def check_path(torch, np, tag, em, serve, H):
+    """A path's EM run and decodes: Q_mean finite and rising, F finite;
+    decode outputs finite, top_probs descending, the compact decode
+    densifying to the dense one."""
+    from prosper_tpu_torch.core.etstep import densify_top_states
+    Q = [h["Q_mean"] for h in em.history]
+    log(f"{tag} Q_mean by iteration: " + " ".join(f"{q:.3f}" for q in Q))
+    log(f"{tag} n_used by iteration: "
+        + " ".join(f"{h['n_used']:.0f}" for h in em.history))
+    if not (np.isfinite(Q).all() and Q[-1] > Q[0]):
+        raise AssertionError(f"{tag} Q_mean is not finite or did not rise")
+    if not torch.isfinite(em.data["F_prev"]).all():
+        raise AssertionError(f"{tag} non-finite F")
+    compact, dense = serve[False], serve[True]
+    for out in (compact, dense):
+        for k in ("F", "s_mean", "recon", "top_probs"):
+            if not torch.isfinite(out[k]).all():
+                raise AssertionError(f"{tag} non-finite {k} in the decode")
+        if (out["top_probs"][:, 1:] > out["top_probs"][:, :-1]).any():
+            raise AssertionError(f"{tag} top_probs not in descending order")
+    if not torch.equal(densify_top_states(compact, H), dense["top_states"]):
+        raise AssertionError(f"{tag} compact decode does not densify to the "
+                             "dense")
+    if dense["top_states"].shape != (8192, 10, H):
+        raise AssertionError(f"{tag} dense top_states has the wrong shape")
+
+
+def max_family(torch, np, dev, smi, err, patches_anneal):
+    """Phases 7-10: the max kernel against its plain version, MCA bars on
+    the card, one softened-max step, and the MCA / MMCA path at patches
+    width.  Returns the max kernel's launches and times for the JSON line."""
+    from prosper_tpu_torch import EM, LinearAnnealing
+    from prosper_tpu_torch.core import etstep, maxstep
+    from prosper_tpu_torch.core.states import binary_state_space
+    from prosper_tpu_torch.data.bars import (bars_gt_params,
+                                             count_recovered_bars,
+                                             planted_dictionary)
+    from prosper_tpu_torch.io.weights import params_from_numpy
+    from prosper_tpu_torch.models import MCA, MMCA
+    from prosper_tpu_torch.models.base import make_blank_data, sched_floats
+    from prosper_tpu_torch.ops import cuda_lib, max_cuda
+
+    def quarters(a):
+        return np.round(np.asarray(a, np.float64) * 4) / 4
+
+    # ---- 7. the max kernel against its plain version --------------------------
+    # inputs quantised to multiples of 1/4: P, y.ybar and ||ybar||^2 are then
+    # exact in float32, so candidates and winners (ties included) must agree
+    rng = np.random.default_rng(5)
+    for name, N, D, H in (("bars", 1000, 16, 8), ("mca_small", 4096, 64, 100),
+                          ("patches", 16384, 256, 300)):
+        Hp, gamma = 6, 3
+        sa = etstep.state_arrays_from(binary_state_space(Hp, gamma), dev)
+        for magnitude in (False, True):
+            W_np = quarters(rng.standard_normal((D, H)) * 2)
+            if not magnitude:
+                W_np = np.abs(W_np)
+            y = torch.tensor(quarters(rng.standard_normal((N, D)) * 2),
+                             dtype=torch.float32, device=dev)
+            W = torch.tensor(W_np, dtype=torch.float32, device=dev)
+            w = torch.tensor(rng.random(N) > 0.2, dtype=torch.float32,
+                             device=dev)
+            w[:40] = 0.0
+            lo = torch.tensor(float(np.log(2.0 / H) - np.log1p(-2.0 / H)),
+                              device=dev)
+            sigma2 = torch.tensor(2.0, device=dev)
+            for beta in (0.6, 1.0):
+                args = (y, w, W, sigma2, lo, sa, Hp, magnitude, beta, 1.0)
+                F0, ref = maxstep.max_et_estep(*args, chunk=2048)
+                F1, on = max_cuda.max_et_estep_cuda(*args, collect_true=True)
+                _, off = max_cuda.max_et_estep_cuda(*args, collect_true=False)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(F1, F0, rtol=1e-4, atol=1e-4)
+                err["max_estep"] = max(err["max_estep"],
+                                       (F1 - F0).abs().max().item())
+                for k in ref:
+                    torch.testing.assert_close(on[k], ref[k], rtol=1e-3,
+                                               atol=1e-3, msg=f"{name} {k}")
+                    err["max_estep"] = max(err["max_estep"],
+                                           (on[k] - ref[k]).abs().max().item())
+                    if beta == 1.0 and k != "F_true" and not torch.equal(
+                            on[k], off[k]):
+                        raise AssertionError(f"{name}: {k} differs with "
+                                             "collect_true off at beta=1")
+        log(f"[max kernel] {name} (N={N}, D={D}, H={H}): MCA and MMCA agree "
+            "with the plain version (beta 0.6 and 1, collect_true on/off "
+            "bit-identical)")
+
+    # ---- 8. MCA bars on the card ----------------------------------------------
+    def bars_anneal():
+        a = LinearAnnealing(60)
+        a["T"] = [(0.0, 2.0), (0.7, 1.0)]
+        a["W_noise"] = [(0.0, 1.0), (0.7, 0.0)]
+        a["Ncut_factor"] = [(0.5, 0.0), (0.8, 1.0)]
+        return a
+
+    model = MCA(16, 8, 6, 3, chunk=1000)
+    gt = bars_gt_params(model, intensity=10.0, sigma=1.0)
+    data = model.generate_data(gt, 1000, seed=21)
+    cuda_lib.LAUNCHES.update(estep=0, decode=0, max_estep=0)
+    params = EM(model, bars_anneal(), {"y": data["y"]}, seed=MCA_BARS_SEED,
+                device=dev).run()
+    n_rec = count_recovered_bars(params["W"].cpu().numpy(), gt["W"], 0.8)
+    sig = float(params["sigma"])
+    log(f"[mca bars] {n_rec}/8 bars, sigma {sig:.4f}, launches "
+        f"{dict(cuda_lib.LAUNCHES)}")
+    if n_rec != 8 or abs(sig - 1.0) >= 0.3:
+        raise AssertionError("MCA bars not recovered on the card")
+    if cuda_lib.LAUNCHES != {"estep": 0, "decode": 0, "max_estep": 60}:
+        raise AssertionError("the MCA bars run did not take the max kernel "
+                             "once per iteration")
+
+    # ---- 9. one softened-max step on CUDA against the CPU ---------------------
+    yq = quarters(data["y"]).astype(np.float32)
+    p0 = {"W": quarters(gt["W"] * 0.8 + 1.0), "pi": np.float32(0.2),
+          "sigma": np.float32(1.5)}
+    a = LinearAnnealing(10)
+    a["T"] = 1.5
+    a["rho"] = 4.0
+    sched = sched_floats(a)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        before = cuda_lib.LAUNCHES["max_estep"]
+        out[d.type] = model.step_fn(params_from_numpy(p0, d),
+                                    make_blank_data(yq, device=d), sched,
+                                    torch.Generator(device=d))
+        if cuda_lib.LAUNCHES["max_estep"] != before:
+            raise AssertionError("a softened-max step launched the kernel")
+    for k, v in out["cpu"][0].items():
+        torch.testing.assert_close(out[dev.type][0][k].cpu(), v, rtol=1e-4,
+                                   atol=1e-6, msg=f"softened-max step {k}")
+    torch.testing.assert_close(out[dev.type][1].cpu(), out["cpu"][1],
+                               rtol=1e-4, atol=1e-4)
+    log("[mca rho=4] one softened-max step on CUDA (plain version, no kernel "
+        "launch) matches the CPU")
+
+    # ---- 10. MCA and MMCA at patches width -----------------------------------
+    D, H, Hp, gamma, N = 256, 300, 6, 3, 131072
+    W_gt = planted_dictionary(D, H, seed=0)
+    result = {}
+    for cls, iters in ((MCA, 6), (MMCA, 4)):
+        model = cls(D, H, Hp, gamma)
+        W_c = W_gt.copy()
+        if cls is MMCA:
+            W_c[:, 1::2] *= -1.0
+        gt = {"W": W_c, "pi": np.float32(2.0 / H), "sigma": np.float32(1.0)}
+        data = model.generate_data(gt, N, seed=1)
+        held_out = model.generate_data(gt, 8192, seed=2)
+        init = model.standard_init(data, seed=3, device=dev)
+        y_dev = torch.tensor(data["y"], device=dev)
+        torch.cuda.synchronize()
+        cuda_lib.LAUNCHES.update(estep=0, decode=0, max_estep=0)
+        em = EM(model, patches_anneal(iters), {"y": y_dev}, params=init,
+                seed=4, device=dev)
+        params = em.run()
+        serve = {dense: model.inference(params, held_out, top_L=10,
+                                        dense_states=dense)
+                 for dense in (False, True)}
+        torch.cuda.synchronize()
+        launches = dict(cuda_lib.LAUNCHES)
+        tag = f"[{cls.__name__.lower()} patches]"
+        log(f"{tag} launches on the path: {launches}")
+        if launches != {"estep": 0, "decode": 0, "max_estep": iters}:
+            raise AssertionError(f"{tag} launches {launches}, expected "
+                                 f"{iters} max E-steps")
+        check_path(torch, np, tag, em, serve, H)
+        result[cls.__name__] = (em, model, params, init, y_dev, iters,
+                                launches)
+
+    # timing at N = 131072 (MCA): the kernel against the plain version, and
+    # the EM iteration both ways
+    em, model, params, init, y_dev, iters, launches = result["MCA"]
+    em_ms = float(np.median([h["dt"] for h in em.history[1:]])) * 1e3
+    sa = model.state_arrays(dev)
+
+    def plain_estep_sums(params, y, weight, sched, saturated=False):
+        return maxstep.max_et_estep(
+            y, weight, params["W"], params["sigma"] ** 2,
+            model._log_odds(params), sa, Hp, False, sched["beta"],
+            sched["prior_beta"], chunk=model.chunk,
+            collect_true=not saturated)
+
+    plain_model = MCA(D, H, Hp, gamma)
+    plain_model.estep_sums = plain_estep_sums
+    em_p = EM(plain_model, patches_anneal(iters), {"y": y_dev}, params=init,
+              seed=4, device=dev)
+    em_p.run()
+    em_plain_ms = float(np.median([h["dt"] for h in em_p.history[1:]])) * 1e3
+    log(f"[mca patches] EM iteration (N={N}): kernel path {em_ms:.3f} ms, "
+        f"plain version {em_plain_ms:.3f} ms  [{smi}]")
+    W, sig2, lo = params["W"], params["sigma"] ** 2, model._log_odds(params)
+    y_all, weight = em.data["y"], em.data["valid"]
+    est = interleaved_ms(
+        torch,
+        lambda: maxstep.max_et_estep(y_all, weight, W, sig2, lo, sa, Hp,
+                                     False, 1.0, 1.0, chunk=model.chunk),
+        lambda: max_cuda.max_et_estep_cuda(y_all, weight, W, sig2, lo, sa, Hp,
+                                           False, 1.0, 1.0),
+        reps=3)
+    log(f"[mca patches] max E-step kernel {est[0]:.3f} ms vs plain "
+        f"{est[1]:.3f} ms (N={N}) = {N / est[0] * 1e3:.0f} vs "
+        f"{N / est[1] * 1e3:.0f} datapoints/s  [{smi}]")
+    return {"launches": launches["max_estep"], "ms": est[0],
+            "plain_ms": est[1]}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -63,7 +277,7 @@ def main() -> int:
                                              count_recovered_bars,
                                              planted_dictionary)
     from prosper_tpu_torch.models import BSC
-    from prosper_tpu_torch.ops import linear_cuda
+    from prosper_tpu_torch.ops import cuda_lib, linear_cuda
 
     dev = torch.device("cuda")
     # ---- 1. environment ------------------------------------------------------
@@ -81,9 +295,9 @@ def main() -> int:
 
     # ---- 2. build -------------------------------------------------------------
     t0 = time.perf_counter()
-    linear_cuda.load_library()
+    cuda_lib.load_library()
     log(f"[build] kernels built and loaded in {time.perf_counter() - t0:.1f} s")
-    for line in linear_cuda.BUILD_LOG.splitlines():
+    for line in cuda_lib.BUILD_LOG.splitlines():
         if "registers" in line or "spill" in line:
             log("[build]", line.strip())
 
@@ -97,7 +311,7 @@ def main() -> int:
         ("dsc_bars", 1000, 25, 16, 6, 3, (-1.0, 1.0, 2.0), True),
         ("bsc_patches", 16384, 256, 300, 8, 4, (1.0,), False),
     ]
-    err = {"estep": 0.0, "decode": 0.0}
+    err = {"estep": 0.0, "decode": 0.0, "max_estep": 0.0}
     rng = np.random.default_rng(0)
     for name, N, D, H, Hp, gamma, values, signed in shapes:
         if D == 256:
@@ -162,7 +376,7 @@ def main() -> int:
     anneal["T"] = [(0.0, 2.0), (0.7, 1.0)]
     anneal["Ncut_factor"] = [(0.0, 0.0), (0.5, 0.0), (0.9, 1.0)]
     anneal["W_noise"] = [(0.0, 1.0), (0.7, 0.0)]
-    linear_cuda.LAUNCHES.update(estep=0, decode=0)
+    cuda_lib.LAUNCHES.update(estep=0, decode=0, max_estep=0)
     em = EM(model, anneal, {"y": data["y"]}, seed=BARS_SEED, device=dev)
     params = em.run()
     n_rec = count_recovered_bars(params["W"].cpu().numpy(), gt["W"], 0.85)
@@ -187,7 +401,7 @@ def main() -> int:
     log(f"[patches] generated {N} + 8192 rows in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    def patches_anneal():
+    def patches_anneal(iters=iters):
         a = LinearAnnealing(iters)
         a["T"] = [(0.0, 2.0), (0.6, 1.0)]
         a["W_noise"] = [(0.0, 0.5), (0.6, 0.0)]
@@ -196,7 +410,7 @@ def main() -> int:
 
     y_dev = torch.tensor(data["y"], device=dev)
     torch.cuda.synchronize()
-    linear_cuda.LAUNCHES.update(estep=0, decode=0)
+    cuda_lib.LAUNCHES.update(estep=0, decode=0, max_estep=0)
     em = EM(model, patches_anneal(), {"y": y_dev}, params=init, seed=4,
             device=dev)
     params = em.run()
@@ -204,31 +418,12 @@ def main() -> int:
                                     dense_states=dense)
              for dense in (False, True)}
     torch.cuda.synchronize()
-    launches = dict(linear_cuda.LAUNCHES)
+    launches = dict(cuda_lib.LAUNCHES)
     log(f"[patches] launches on the main path: {launches}")
-    if launches != {"estep": iters, "decode": 2}:
+    if launches != {"estep": iters, "decode": 2, "max_estep": 0}:
         raise AssertionError(f"main path launches {launches}, expected "
                              f"{iters} E-steps and 2 decodes")
-    Q = [h["Q_mean"] for h in em.history]
-    log("[patches] Q_mean by iteration: " + " ".join(f"{q:.3f}" for q in Q))
-    log("[patches] n_used by iteration: "
-        + " ".join(f"{h['n_used']:.0f}" for h in em.history))
-    if not (np.isfinite(Q).all() and Q[-1] > Q[0]):
-        raise AssertionError("Q_mean is not finite or did not rise")
-    if not torch.isfinite(em.data["F_prev"]).all():
-        raise AssertionError("non-finite F")
-    compact, dense = serve[False], serve[True]
-    for out in (compact, dense):
-        for k in ("F", "s_mean", "recon", "top_probs"):
-            if not torch.isfinite(out[k]).all():
-                raise AssertionError(f"non-finite {k} in the decode")
-        if (out["top_probs"][:, 1:] > out["top_probs"][:, :-1]).any():
-            raise AssertionError("top_probs not in descending order")
-    if not torch.equal(etstep.densify_top_states(compact, H),
-                       dense["top_states"]):
-        raise AssertionError("compact decode does not densify to the dense")
-    if dense["top_states"].shape != (8192, 10, H):
-        raise AssertionError("dense top_states has the wrong shape")
+    check_path(torch, np, "[patches]", em, serve, H)
 
     # timing: kernel path against the plain version on the card
     em_ms = float(np.median([h["dt"] for h in em.history[1:]])) * 1e3
@@ -273,6 +468,9 @@ def main() -> int:
         f"(N=8192) = {8192 / dec[0] * 1e3:.0f} vs {8192 / dec[1] * 1e3:.0f} "
         f"rows/s  [{smi}]")
 
+    # ---- 7.-10. the max family -----------------------------------------------
+    mx = max_family(torch, np, dev, smi, err, patches_anneal)
+
     kernels = [
         {"name": "linear_et_estep", "route": "cuda",
          "source": "prosper_tpu_torch/csrc/linear_et_estep.cu",
@@ -284,6 +482,12 @@ def main() -> int:
          "replaces": "prosper_tpu/ops/linear_pallas.py:435",
          "launches": launches["decode"], "max_abs_err": err["decode"],
          "ms": dec[0], "plain_ms": dec[1]},
+        {"name": "max_et_estep", "route": "cuda",
+         "source": "prosper_tpu_torch/csrc/max_et_estep.cu",
+         "replaces": "prosper_tpu/ops/max_pallas.py:559; "
+                     "prosper_tpu/ops/max_pallas.py:433",
+         "launches": mx["launches"], "max_abs_err": err["max_estep"],
+         "ms": mx["ms"], "plain_ms": mx["plain_ms"]},
     ]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

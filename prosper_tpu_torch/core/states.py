@@ -89,3 +89,8 @@ def discrete_state_space(Hp: int, gamma: int, values, min_active: int = 2,
         S, Hp * Hp).astype(dtype)
     return StateSpace(states=states, abs_states=abs_states,
                       value_counts=value_counts, values=values, outer=outer)
+
+
+def binary_state_space(Hp: int, gamma: int, min_active: int = 2) -> StateSpace:
+    """Binary {0,1} states (BSC supports, MCA, MMCA)."""
+    return discrete_state_space(Hp, gamma, values=[1.0], min_active=min_active)

@@ -171,17 +171,6 @@ estep_kernel(const float* __restrict__ y, const float* __restrict__ weight,
   for (int i = tid; i < K + 5; i += THREADS) wmisc[i] = sm.misc[i];
 }
 
-// out[j] = sum over blocks b, in order, of ws[b][j]
-__global__ void reduce_blocks(const float* __restrict__ ws,
-                              float* __restrict__ out, int nb,
-                              size_t stride) {
-  const size_t j = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= stride) return;
-  float acc = 0.f;
-  for (int b = 0; b < nb; ++b) acc += ws[(size_t)b * stride + j];
-  out[j] = acc;
-}
-
 template <int HC>
 cudaError_t launch_estep(const float* y, const float* weight, Tables t,
                          Dims d, float* F, float* ws, float* sums, int nb,

@@ -1,7 +1,9 @@
-// Shared front end of the linear-family ET kernels (BSC / TSC / DSC) for
-// sm_90a: projection GEMM, top-H' candidate selection, candidate Gram
-// gather, truncated-union logits and the annealed softmax, for a tile of
-// TILE datapoints held in shared memory.
+// Shared front end of the ET kernels for sm_90a: projection GEMM, top-H'
+// candidate selection, candidate Gram gather, truncated-union logits and
+// the annealed softmax, for a tile of TILE datapoints held in shared
+// memory.  The linear family (BSC / TSC / DSC) uses all of it; the max
+// family's kernel (max_et_estep.cu) the projection, the selection, the
+// scalars and the block reduction.
 //
 // Replaces prosper_tpu/ops/linear_pallas.py::_frontend and _union_softmax,
 // the front end of the TPU kernels linear_et_estep_pallas and
@@ -224,6 +226,41 @@ __device__ void tile_projection(const float* __restrict__ y, int row0,
   __syncthreads();
 }
 
+// One warp, one datapoint r of the tile: the top-H' candidates, Hp
+// iterated argmaxes of P / ||W_h|| (of |P| / ||W_h|| when d.signed_select),
+// ties to the lowest index, into sm.cand + r*Hp.  sm.work + r*H is scratch.
+__device__ inline void select_candidates(int r, int lane, const Dims& d,
+                                         const Smem& sm) {
+  const int H = d.H, Hp = d.Hp;
+  const float* P = sm.Ps + (size_t)r * H;
+  float* sc = sm.work + (size_t)r * H;
+  int* cand = sm.cand + r * Hp;
+  for (int h = lane; h < H; h += 32) {
+    const float s = P[h] / sm.wn[h];
+    sc[h] = d.signed_select ? fabsf(s) : s;
+  }
+  __syncwarp();
+  for (int a = 0; a < Hp; ++a) {
+    float b;
+    const int bi = row_argmax(sc, H, lane, &b);
+    __syncwarp();
+    if (lane == 0) { cand[a] = bi; sc[bi] = -CUDART_INF_F; }
+    __syncwarp();
+  }
+}
+
+// out[j] = sum over blocks b, in order, of ws[b][j]: the second pass of the
+// E-step kernels, which sum into one workspace slice per persistent block
+static __global__ void reduce_blocks(const float* __restrict__ ws,
+                                     float* __restrict__ out, int nb,
+                                     size_t stride) {
+  const size_t j = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= stride) return;
+  float acc = 0.f;
+  for (int b = 0; b < nb; ++b) acc += ws[(size_t)b * stride + j];
+  out[j] = acc;
+}
+
 struct RowOut {
   float logZ;    // log of the annealed union mass
   float logZt;   // log of the un-annealed union mass (collect_true only)
@@ -255,22 +292,8 @@ __device__ inline RowOut frontend_row(int r, int lane, const Dims& d,
                                float inv2s2, float beta, float pb) {
   const int H = d.H, K = d.K, Hp = d.Hp, S = d.S, U = d.U, HK = d.H * d.K;
   const float* P = sm.Ps + (size_t)r * H;
-  float* sc = sm.work + (size_t)r * H;
-  int* cand = sm.cand + r * Hp;
-
-  // ---- top-H' candidates: Hp iterated argmaxes of P / ||W_h|| ----------
-  for (int h = lane; h < H; h += 32) {
-    const float s = P[h] / sm.wn[h];
-    sc[h] = d.signed_select ? fabsf(s) : s;
-  }
-  __syncwarp();
-  for (int a = 0; a < Hp; ++a) {
-    float b;
-    const int bi = row_argmax(sc, H, lane, &b);
-    __syncwarp();
-    if (lane == 0) { cand[a] = bi; sc[bi] = -CUDART_INF_F; }
-    __syncwarp();
-  }
+  const int* cand = sm.cand + r * Hp;
+  select_candidates(r, lane, d, sm);
 
   // ---- candidate projections and Gram entries --------------------------
   float* pr = sm.proj + r * Hp;

@@ -37,7 +37,7 @@ class EM:
 
     Parameters
     ----------
-    model : a LinearETModel (BSC, TSC, DSC)
+    model : an ET model of the port (BSC, TSC, DSC, MCA, MMCA)
     anneal : LinearAnnealing
     data : dict with 'y' (N, D) (and optional 'valid', 'F_prev'), numpy or
         tensors; moved to ``device`` and padded with weight-0 rows to a

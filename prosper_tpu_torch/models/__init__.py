@@ -1,3 +1,4 @@
 from prosper_tpu_torch.models.linear import BSC, DSC, TSC
+from prosper_tpu_torch.models.mca import MCA, MMCA
 
-__all__ = ["BSC", "TSC", "DSC"]
+__all__ = ["BSC", "TSC", "DSC", "MCA", "MMCA"]

@@ -200,6 +200,9 @@ def sched_floats(anneal) -> Dict[str, float]:
         "W_noise": float(s.get("W_noise", 0.0)),
         "pi_noise": float(s.get("pi_noise", 0.0)),
         "sigma_noise": float(s.get("sigma_noise", 0.0)),
+        "mu_noise": float(s.get("mu_noise", 0.0)),
+        # softened-max exponent for MCA/MMCA responsibilities; <= 0 = hard max
+        "rho": float(s.get("rho", 0.0)),
     }
 
 
