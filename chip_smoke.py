@@ -5,7 +5,7 @@
 
 Builds the port's CUDA kernels from prosper_tpu_torch/csrc with nvcc, holds
 each kernel against its plain PyTorch version on the card, and drives the
-port's two paths:
+port's three paths:
 
 * the linear family: the bars through ``EM.run`` on CUDA, then BSC at the
   width of the repo's headline configuration (16x16 patches: D=256, H=300,
@@ -14,7 +14,11 @@ port's two paths:
 * the max family: MCA bars through ``EM.run`` on CUDA, one softened-max
   step (rho > 0, the plain version on the card) against the CPU, then MCA
   and MMCA at the patches width of bench.py (D=256, H=300, H'=6, gamma=3,
-  35 multi states) on 131072 rows, each with a decode of 8192 rows.
+  35 multi states) on 131072 rows, each with a decode of 8192 rows;
+* the big-S linear E-step (``s_block > 0``): TSC at the width of bench.py's
+  tsc_bigs (D=64, H=32, H'=10, gamma=5, 12564 multi states, s_block=1024),
+  an annealed EM run on 131072 planted-dictionary rows through the big-S
+  kernel and a plain decode of 8192 held-out rows.
 
 Each path's launch counts are set to 0 just before it and checked just
 after.  Every phase raises on failure.  Prints one JSON line of per-kernel
@@ -156,7 +160,7 @@ def max_family(torch, np, dev, smi, err, patches_anneal):
     model = MCA(16, 8, 6, 3, chunk=1000)
     gt = bars_gt_params(model, intensity=10.0, sigma=1.0)
     data = model.generate_data(gt, 1000, seed=21)
-    cuda_lib.LAUNCHES.update(estep=0, decode=0, max_estep=0)
+    cuda_lib.LAUNCHES.update(estep=0, decode=0, max_estep=0, bigs=0)
     params = EM(model, bars_anneal(), {"y": data["y"]}, seed=MCA_BARS_SEED,
                 device=dev).run()
     n_rec = count_recovered_bars(params["W"].cpu().numpy(), gt["W"], 0.8)
@@ -165,7 +169,8 @@ def max_family(torch, np, dev, smi, err, patches_anneal):
         f"{dict(cuda_lib.LAUNCHES)}")
     if n_rec != 8 or abs(sig - 1.0) >= 0.3:
         raise AssertionError("MCA bars not recovered on the card")
-    if cuda_lib.LAUNCHES != {"estep": 0, "decode": 0, "max_estep": 60}:
+    if cuda_lib.LAUNCHES != {"estep": 0, "decode": 0, "max_estep": 60,
+                             "bigs": 0}:
         raise AssertionError("the MCA bars run did not take the max kernel "
                              "once per iteration")
 
@@ -208,7 +213,7 @@ def max_family(torch, np, dev, smi, err, patches_anneal):
         init = model.standard_init(data, seed=3, device=dev)
         y_dev = torch.tensor(data["y"], device=dev)
         torch.cuda.synchronize()
-        cuda_lib.LAUNCHES.update(estep=0, decode=0, max_estep=0)
+        cuda_lib.LAUNCHES.update(estep=0, decode=0, max_estep=0, bigs=0)
         em = EM(model, patches_anneal(iters), {"y": y_dev}, params=init,
                 seed=4, device=dev)
         params = em.run()
@@ -219,7 +224,8 @@ def max_family(torch, np, dev, smi, err, patches_anneal):
         launches = dict(cuda_lib.LAUNCHES)
         tag = f"[{cls.__name__.lower()} patches]"
         log(f"{tag} launches on the path: {launches}")
-        if launches != {"estep": 0, "decode": 0, "max_estep": iters}:
+        if launches != {"estep": 0, "decode": 0, "max_estep": iters,
+                        "bigs": 0}:
             raise AssertionError(f"{tag} launches {launches}, expected "
                                  f"{iters} max E-steps")
         check_path(torch, np, tag, em, serve, H)
@@ -261,6 +267,194 @@ def max_family(torch, np, dev, smi, err, patches_anneal):
         f"{N / est[1] * 1e3:.0f} datapoints/s  [{smi}]")
     return {"launches": launches["max_estep"], "ms": est[0],
             "plain_ms": est[1]}
+
+
+def bigs_path(torch, np, dev, smi, err, patches_anneal):
+    """Phases 11-12: the big-S kernel against its plain version, and the
+    big-S TSC path at the width of bench.py's tsc_bigs.  Returns the
+    kernel's launches and times for the JSON line."""
+    from prosper_tpu_torch import EM
+    from prosper_tpu_torch.core import etstep
+    from prosper_tpu_torch.core.states import discrete_state_space
+    from prosper_tpu_torch.data.bars import planted_dictionary
+    from prosper_tpu_torch.models import TSC
+    from prosper_tpu_torch.ops import bigs_cuda, cuda_lib, linear_cuda
+
+    def multi_args(y, W, lo, sa, Hp, signed, sigma2, s_block, beta,
+                   prior_beta):
+        """The operands the big-S E-step hands the recurrence, the tables
+        padded to a multiple of ``s_block`` (1: unpadded, as on CUDA)."""
+        gram = W.T @ W
+        _, _, tables = etstep.bigs_front(y, W, gram, torch.diagonal(gram),
+                                         lo, sa, Hp, signed, s_block)
+        return (*tables, 0.5 / sigma2, beta, prior_beta, s_block)
+
+    # ---- 11. the big-S kernel against its plain version --------------------
+    # inputs quantised to multiples of 1/4, so candidates agree exactly; the
+    # logits and moments are sums in another order than cuBLAS's, hence F
+    # (and the running max) within rtol 1e-4, every sum within rtol 1e-3
+    rng = np.random.default_rng(11)
+    shapes = [  # (name, N, D, H, Hp, gamma, values, signed, s_block)
+        ("bsc", 1000, 16, 12, 6, 4, (1.0,), False, 48),
+        ("tsc", 1000, 16, 12, 6, 4, (-1.0, 1.0), True, 48),
+        ("dsc", 999, 16, 12, 6, 4, (-1.0, 1.0, 2.0), True, 48),
+        ("tsc_bigs", 16384, 64, 32, 10, 5, (-1.0, 1.0), True, 1024),
+    ]
+    for name, N, D, H, Hp, gamma, values, signed, s_block in shapes:
+        sa = etstep.state_arrays_from(discrete_state_space(Hp, gamma, values),
+                                      dev)
+        S = sa.states.shape[0]
+        W_np = np.round(rng.standard_normal((D, H)) * 4) / 4
+        W_np[:, 2] = 0.0                                    # a dead unit
+        W = torch.tensor(W_np, dtype=torch.float32, device=dev)
+        y = torch.tensor(np.round(rng.standard_normal((N, D)) * 6) / 4,
+                         dtype=torch.float32, device=dev)
+        w = torch.tensor(rng.random(N) > 0.2, dtype=torch.float32, device=dev)
+        w[:40] = 0.0                                        # zero-weight rows
+        K = len(values)
+        lo = torch.full((K,), float(np.log(2.0 / (H * K))
+                                    - np.log1p(-2.0 / H)), device=dev)
+        sigma2 = torch.tensor(2.0, device=dev)
+        for beta in (0.6, 1.0):
+            for prior_beta in (1.0, 0.8, 0.0):
+                margs = multi_args(y, W, lo, sa, Hp, signed, sigma2, s_block,
+                                   beta, prior_beta)
+                ref = etstep.bigs_multi(*margs, collect_true=True)
+                on = bigs_cuda.bigs_multi_cuda(*margs, collect_true=True)
+                off = bigs_cuda.bigs_multi_cuda(*margs, collect_true=False)
+                again = bigs_cuda.bigs_multi_cuda(*margs, collect_true=True)
+                torch.cuda.synchronize()
+                for i, field in enumerate(("m", "l", "m_t", "l_t", "a_abs",
+                                           "a_s", "a_ss", "a_vc")):
+                    tol = 1e-4 if field in ("m", "m_t") else 1e-3
+                    torch.testing.assert_close(
+                        on[i], ref[i], rtol=tol, atol=tol,
+                        msg=f"{name} beta={beta} prior_beta={prior_beta} "
+                            f"{field}")
+                    err["bigs"] = max(err["bigs"],
+                                      (on[i] - ref[i]).abs().max().item())
+                    if not torch.equal(on[i], again[i]):
+                        raise AssertionError(f"{name}: {field} differs "
+                                             "between two calls")
+                    if field not in ("m_t", "l_t") and not torch.equal(
+                            on[i], off[i]):
+                        raise AssertionError(f"{name}: {field} differs with "
+                                             "collect_true off")
+                args = (y, w, W, sigma2, lo, sa, Hp, signed, beta, prior_beta)
+                F0, sums0 = etstep.linear_et_estep(*args, chunk=N,
+                                                   s_block=s_block)
+                F1, sums1 = linear_cuda.linear_et_estep(*args,
+                                                        s_block=s_block)
+                _, sums_off = linear_cuda.linear_et_estep(
+                    *args, s_block=s_block, collect_true=False)
+                _, sums_again = linear_cuda.linear_et_estep(*args,
+                                                            s_block=s_block)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(F1, F0, rtol=1e-4, atol=1e-4)
+                for k in sums0:
+                    torch.testing.assert_close(
+                        sums1[k], sums0[k], rtol=1e-3, atol=1e-3,
+                        msg=f"{name} beta={beta} prior_beta={prior_beta} {k}")
+                    if not torch.equal(sums1[k], sums_again[k]):
+                        raise AssertionError(f"{name}: sum {k} differs "
+                                             "between two calls")
+                    if beta == 1.0 and prior_beta == 1.0 and k != "F_true" \
+                            and not torch.equal(sums1[k], sums_off[k]):
+                        raise AssertionError(f"{name}: sum {k} differs with "
+                                             "collect_true off at beta=1")
+        log(f"[bigs kernel] {name} (N={N}, D={D}, H={H}, H'={Hp}, "
+            f"gamma={gamma}, S={S}, s_block={s_block}): the recurrence and "
+            "the E-step agree with the plain versions (beta 0.6 and 1, "
+            "prior_beta 1, 0.8 and 0; repeated calls and collect_true off "
+            "bit-identical)")
+
+    # ---- 12. big-S TSC at the width of bench.py's tsc_bigs -----------------
+    D, H, Hp, gamma, N, iters, s_block = 64, 32, 10, 5, 131072, 6, 1024
+    model = TSC(D, H, Hp, gamma, chunk=8192, s_block=s_block)
+    gt = {"W": planted_dictionary(D, H, seed=0), "pi": np.float32(0.1),
+          "sigma": np.float32(1.0)}
+    data = model.generate_data(gt, N, seed=1)
+    held_out = model.generate_data(gt, 8192, seed=2)
+    init = model.standard_init(data, seed=3, device=dev)
+    y_dev = torch.tensor(data["y"], device=dev)
+    torch.cuda.synchronize()
+    cuda_lib.LAUNCHES.update(estep=0, decode=0, max_estep=0, bigs=0)
+    em = EM(model, patches_anneal(iters), {"y": y_dev}, params=init, seed=4,
+            device=dev)
+    params = em.run()
+    serve = {dense: model.inference(params, held_out, top_L=10,
+                                    dense_states=dense)
+             for dense in (False, True)}
+    torch.cuda.synchronize()
+    launches = dict(cuda_lib.LAUNCHES)
+    tag = "[tsc bigs]"
+    S = model.space.states.shape[0]
+    log(f"{tag} S={S} multi states; launches on "
+        f"the path: {launches}")
+    if launches != {"estep": 0, "decode": 0, "max_estep": 0, "bigs": iters}:
+        raise AssertionError(f"{tag} launches {launches}, expected {iters} "
+                             "big-S launches and nothing else")
+    check_path(torch, np, tag, em, serve, H)
+
+    # timing at N = 131072: the EM iteration through the kernel and through
+    # the plain version, and the kernel against bigs_multi
+    em_ms = float(np.median([h["dt"] for h in em.history[1:]])) * 1e3
+    sa = model.state_arrays(dev)
+
+    def plain_estep_sums(params, y, weight, sched, saturated=False):
+        return etstep.linear_et_estep(
+            y, weight, params["W"], params["sigma"] ** 2,
+            model.log_odds(params), sa, Hp, True, sched["beta"],
+            sched["prior_beta"], chunk=model.chunk,
+            collect_true=not saturated, s_block=s_block)
+
+    plain_model = TSC(D, H, Hp, gamma, chunk=8192, s_block=s_block)
+    plain_model.estep_sums = plain_estep_sums
+    em_p = EM(plain_model, patches_anneal(iters), {"y": y_dev}, params=init,
+              seed=4, device=dev)
+    em_p.run()
+    em_plain_ms = float(np.median([h["dt"] for h in em_p.history[1:]])) * 1e3
+    log(f"{tag} EM iteration (N={N}): kernel path {em_ms:.3f} ms, plain "
+        f"version {em_plain_ms:.3f} ms  [{smi}]")
+    for name, run in (("kernel path", em), ("plain version", em_p)):
+        log(f"{tag} {name}, ms by iteration (T): " + " ".join(
+            f"{h['dt'] * 1e3:.3f} ({h['T']:.3f})" for h in run.history))
+    # the kernel on the operands of the main path (the unpadded tables the
+    # E-step hands it), the plain version on the same ones padded to s_block
+    # (the padded states are masked, so the results agree); tolerances and
+    # bit-identities as in phase 11
+    ops = (em.data["y"], params["W"], model.log_odds(params), sa, Hp, True,
+           params["sigma"] ** 2)
+    kargs = multi_args(*ops, 1, 1.0, 1.0)
+    pargs = multi_args(*ops, s_block, 1.0, 1.0)
+    on, off = (bigs_cuda.bigs_multi_cuda(*kargs, collect_true=c)
+               for c in (True, False))
+    ref = etstep.bigs_multi(*pargs, collect_true=True)
+    torch.cuda.synchronize()
+    for i, field in enumerate(("m", "l", "m_t", "l_t", "a_abs", "a_s", "a_ss",
+                               "a_vc")):
+        tol = 1e-4 if field in ("m", "m_t") else 1e-3
+        torch.testing.assert_close(on[i], ref[i], rtol=tol, atol=tol,
+                                   msg=f"{tag} N={N} {field}")
+        err["bigs"] = max(err["bigs"], (on[i] - ref[i]).abs().max().item())
+        if field not in ("m_t", "l_t") and not torch.equal(on[i], off[i]):
+            raise AssertionError(f"{tag} N={N}: {field} differs with "
+                                 "collect_true off")
+    del on, off, ref
+    log(f"{tag} the kernel on the main path's operands (N={N}, S={S}, "
+        "unpadded) agrees with the plain version; collect_true off "
+        "bit-identical")
+    est = interleaved_ms(
+        torch, lambda: etstep.bigs_multi(*pargs, collect_true=True),
+        lambda: bigs_cuda.bigs_multi_cuda(*kargs, collect_true=True), reps=3)
+    sat = interleaved_ms(
+        torch, lambda: etstep.bigs_multi(*pargs, collect_true=False),
+        lambda: bigs_cuda.bigs_multi_cuda(*kargs, collect_true=False), reps=3)
+    log(f"{tag} big-S kernel {est[0]:.3f} ms vs plain {est[1]:.3f} ms with "
+        f"the un-annealed channel, {sat[0]:.3f} vs {sat[1]:.3f} ms without "
+        f"(N={N}) = {N / est[0] * 1e3:.0f} vs {N / est[1] * 1e3:.0f} "
+        f"datapoints/s  [{smi}]")
+    return {"launches": launches["bigs"], "ms": est[0], "plain_ms": est[1]}
 
 
 def main() -> int:
@@ -311,7 +505,7 @@ def main() -> int:
         ("dsc_bars", 1000, 25, 16, 6, 3, (-1.0, 1.0, 2.0), True),
         ("bsc_patches", 16384, 256, 300, 8, 4, (1.0,), False),
     ]
-    err = {"estep": 0.0, "decode": 0.0, "max_estep": 0.0}
+    err = {"estep": 0.0, "decode": 0.0, "max_estep": 0.0, "bigs": 0.0}
     rng = np.random.default_rng(0)
     for name, N, D, H, Hp, gamma, values, signed in shapes:
         if D == 256:
@@ -376,7 +570,7 @@ def main() -> int:
     anneal["T"] = [(0.0, 2.0), (0.7, 1.0)]
     anneal["Ncut_factor"] = [(0.0, 0.0), (0.5, 0.0), (0.9, 1.0)]
     anneal["W_noise"] = [(0.0, 1.0), (0.7, 0.0)]
-    cuda_lib.LAUNCHES.update(estep=0, decode=0, max_estep=0)
+    cuda_lib.LAUNCHES.update(estep=0, decode=0, max_estep=0, bigs=0)
     em = EM(model, anneal, {"y": data["y"]}, seed=BARS_SEED, device=dev)
     params = em.run()
     n_rec = count_recovered_bars(params["W"].cpu().numpy(), gt["W"], 0.85)
@@ -385,7 +579,8 @@ def main() -> int:
         f"E-step launches {linear_cuda.LAUNCHES['estep']}")
     if n_rec != 10 or abs(sig - 2.0) >= 0.3 or abs(pi - 0.2) >= 0.08:
         raise AssertionError("bars not recovered on the card")
-    if linear_cuda.LAUNCHES["estep"] != 60:
+    if linear_cuda.LAUNCHES != {"estep": 60, "decode": 0, "max_estep": 0,
+                                "bigs": 0}:
         raise AssertionError("the bars run did not take the E-step kernel "
                              "once per iteration")
 
@@ -410,7 +605,7 @@ def main() -> int:
 
     y_dev = torch.tensor(data["y"], device=dev)
     torch.cuda.synchronize()
-    cuda_lib.LAUNCHES.update(estep=0, decode=0, max_estep=0)
+    cuda_lib.LAUNCHES.update(estep=0, decode=0, max_estep=0, bigs=0)
     em = EM(model, patches_anneal(), {"y": y_dev}, params=init, seed=4,
             device=dev)
     params = em.run()
@@ -420,7 +615,8 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = dict(cuda_lib.LAUNCHES)
     log(f"[patches] launches on the main path: {launches}")
-    if launches != {"estep": iters, "decode": 2, "max_estep": 0}:
+    if launches != {"estep": iters, "decode": 2, "max_estep": 0,
+                    "bigs": 0}:
         raise AssertionError(f"main path launches {launches}, expected "
                              f"{iters} E-steps and 2 decodes")
     check_path(torch, np, "[patches]", em, serve, H)
@@ -471,6 +667,9 @@ def main() -> int:
     # ---- 7.-10. the max family -----------------------------------------------
     mx = max_family(torch, np, dev, smi, err, patches_anneal)
 
+    # ---- 11.-12. the big-S linear E-step ------------------------------------
+    bg = bigs_path(torch, np, dev, smi, err, patches_anneal)
+
     kernels = [
         {"name": "linear_et_estep", "route": "cuda",
          "source": "prosper_tpu_torch/csrc/linear_et_estep.cu",
@@ -488,6 +687,11 @@ def main() -> int:
                      "prosper_tpu/ops/max_pallas.py:433",
          "launches": mx["launches"], "max_abs_err": err["max_estep"],
          "ms": mx["ms"], "plain_ms": mx["plain_ms"]},
+        {"name": "bigs_multi", "route": "cuda",
+         "source": "prosper_tpu_torch/csrc/bigs_multi.cu",
+         "replaces": "prosper_tpu/ops/bigs_pallas.py:155",
+         "launches": bg["launches"], "max_abs_err": err["bigs"],
+         "ms": bg["ms"], "plain_ms": bg["plain_ms"]},
     ]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

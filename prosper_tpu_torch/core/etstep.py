@@ -11,9 +11,11 @@ the H' candidates}``, and
 so the E-step needs ``P = y @ W``, the candidates' projections
 ``proj = P[n, cand]`` and Gram entries ``gram[cand, cand]``; nothing of size
 (N, S, D) exists.  Gathers and scatters use indices (``gather``,
-``scatter_add_``, ``index_add_``).  These functions are the plain versions
-that the CUDA kernels in ``ops/linear_cuda.py`` are held to, and the path
-that runs on the CPU.
+``scatter_add_``, ``index_add_``).  At a large S (``s_block > 0``) the S
+multi states go through ``bigs_multi`` in tiles with an online logsumexp,
+so no (N, S) tensor exists either.  These functions are the plain versions
+that the CUDA kernels in ``ops/linear_cuda.py`` and ``ops/bigs_cuda.py``
+are held to, and the path that runs on the CPU.
 """
 
 from __future__ import annotations
@@ -46,6 +48,24 @@ def state_arrays_from(space, device) -> LinearStateArrays:
                              values=t(space.values))
 
 
+def _candidates(y, W, gram, gram_diag, Hp: int, signed_select: bool):
+    """P = y @ W, the top-Hp candidates, their projections and Gram entries:
+    (P (C, H), cand (C, Hp), proj (C, Hp), Gf (C, Hp^2))."""
+    C = y.shape[0]
+    P = y @ W
+    w_norm = torch.sqrt(torch.clamp(gram_diag, min=1e-30))
+    cand = top_hprime_candidates(P, w_norm, Hp, signed_select)
+    proj = torch.gather(P, 1, cand)
+    Gf = gram[cand[:, :, None], cand[:, None, :]].reshape(C, Hp * Hp)
+    return P, cand, proj, Gf
+
+
+def _lik_single(P, gram_diag, values, inv2s2):
+    """(C, H, K) log-likelihood terms of the singleton states."""
+    return (2.0 * P[:, :, None] * values[None, None, :]
+            - gram_diag[None, :, None] * (values ** 2)[None, None, :]) * inv2s2
+
+
 def _union_logits(y, W, gram, gram_diag, sigma2, log_odds,
                   sa: LinearStateArrays, Hp: int, signed_select: bool,
                   beta, prior_beta):
@@ -58,18 +78,11 @@ def _union_logits(y, W, gram, gram_diag, sigma2, log_odds,
     H = W.shape[1]
     K = sa.values.shape[0]
     inv2s2 = 0.5 / sigma2
-    P = y @ W                                                        # (C, H)
-    w_norm = torch.sqrt(torch.clamp(gram_diag, min=1e-30))
-    cand = top_hprime_candidates(P, w_norm, Hp, signed_select)      # (C, Hp)
-    proj = torch.gather(P, 1, cand)                                  # (C, Hp)
-    Gf = gram[cand[:, :, None], cand[:, None, :]].reshape(C, Hp * Hp)
-
+    P, cand, proj, Gf = _candidates(y, W, gram, gram_diag, Hp, signed_select)
     lik_multi = (2.0 * (proj @ sa.states.T) - Gf @ sa.outer.T) * inv2s2
     prior_multi = sa.value_counts @ log_odds                         # (S,)
     logits_multi = beta * lik_multi + prior_beta * prior_multi[None, :]
-    v = sa.values
-    lik_single = (2.0 * P[:, :, None] * v[None, None, :]
-                  - gram_diag[None, :, None] * (v ** 2)[None, None, :]) * inv2s2
+    lik_single = _lik_single(P, gram_diag, sa.values, inv2s2)
     logits_single = (beta * lik_single
                      + prior_beta * log_odds[None, None, :]).reshape(C, H * K)
     logits = torch.cat([torch.zeros((C, 1), dtype=P.dtype, device=P.device),
@@ -86,6 +99,17 @@ def _free_energy_const(y2, D: int, H: int, sigma2, log_odds, beta,
     log_p0 = -torch.log1p(torch.exp(log_odds).sum())
     log_norm = 0.5 * D * torch.log(2.0 * math.pi * sigma2)
     return -beta * (y2 * inv2s2) - beta * log_norm + prior_beta * H * log_p0
+
+
+def _weighted_sums(y, y2, wv, s_full, sum_ss, abs_n, vc_n, F, F_true):
+    """A chunk's sufficient statistics, each row weighted by ``wv``;
+    ``sum_ss`` comes weighted already."""
+    sw = s_full * wv[:, None]
+    return dict(
+        xs=y.T @ sw, ss=sum_ss, s=sw.sum(dim=0),
+        abs=(abs_n * wv).sum(), vc=(vc_n * wv[:, None]).sum(dim=0),
+        y2=(y2 * wv).sum(), n=wv.sum(), F=(F * wv).sum(),
+        F_true=(F_true * wv).sum())
 
 
 def _chunk_estats(y, w, W, gram, gram_diag, sigma2, log_odds,
@@ -135,25 +159,202 @@ def _chunk_estats(y, w, W, gram, gram_diag, sigma2, log_odds,
     ss_val = (ss_cand.reshape(C, Hp, Hp) * wv[:, None, None]).reshape(-1)
     sum_ss = torch.zeros(H * H, dtype=torch.float32, device=y.device)
     sum_ss = sum_ss.index_add_(0, ss_idx, ss_val).reshape(H, H)
-    sw = s_full * wv[:, None]
     sum_ss = sum_ss + torch.diag((ss_diag_single * wv[:, None]).sum(dim=0))
 
     abs_n = q_single.sum(dim=(1, 2)) + q_multi @ sa.abs_states
     vc_n = q_single.sum(dim=1) + q_multi @ sa.value_counts           # (C, K)
-    sums = dict(
-        xs=y.T @ sw, ss=sum_ss, s=sw.sum(dim=0),
-        abs=(abs_n * wv).sum(), vc=(vc_n * wv[:, None]).sum(dim=0),
-        y2=(y2 * wv).sum(), n=wv.sum(), F=(F * wv).sum(),
-        F_true=(F_true * wv).sum())
-    return F, sums
+    return F, _weighted_sums(y, y2, wv, s_full, sum_ss, abs_n, vc_n, F,
+                             F_true)
+
+
+# ---- big S: the multi states in s_block tiles, online logsumexp -------------
+
+def bigs_operands(proj, Gf, states_p, outer_p, vcounts_p, prior, valid,
+                  absst_p, inv2s2, beta, prior_beta, collect_true=True):
+    """The two GEMM operands of the big-S recurrence, in the merged form of
+    the JAX scan (``prosper_tpu/core/etstep.py:508-524``):
+
+      logits  = Xa @ A.T   A  = [st | ot | prior | mask]   (S_pad, nA)
+                           Xa = [2 b i proj | -b i Gf | prior_beta | 1]
+      moments = p @ B      B  = [st | ot | vcounts | abs | 1]  (S_pad, nB)
+
+    with b = beta and i = 1/(2 sigma^2); the un-annealed channel uses
+    Xt = [2 i proj | -i Gf | 1 | 1].  A padded state is masked through its
+    own column (0 valid, NEG padded) against a constant 1, never through the
+    prior, so ``prior_beta = 0`` cannot unmask it.
+    Returns (Xa (C, nA), Xt (C, nA) or None, A, B)."""
+    ones = torch.ones((proj.shape[0], 1), dtype=torch.float32,
+                      device=proj.device)
+    mask = torch.where(valid > 0, torch.zeros_like(valid),
+                       torch.full_like(valid, NEG))
+    A = torch.cat([states_p, outer_p, prior[:, None], mask[:, None]], dim=1)
+    B = torch.cat([states_p, outer_p, vcounts_p, absst_p[:, None],
+                   torch.ones_like(absst_p)[:, None]], dim=1)
+    X = torch.cat([(2.0 * inv2s2) * proj, (-inv2s2) * Gf], dim=1)
+    Xa = torch.cat([beta * X, prior_beta * ones, ones], dim=1)
+    Xt = torch.cat([X, ones, ones], dim=1) if collect_true else None
+    return Xa, Xt, A, B
+
+
+def split_moments(m, m_t, l_t, acc, Hp: int, K: int):
+    """(m, l, m_t, l_t, a_abs, a_s, a_ss, a_vc) from the running maxima and
+    the (C, nB) moment accumulator, whose columns follow ``B``."""
+    nB = acc.shape[1]
+    return (m, acc[:, nB - 1], m_t, l_t, acc[:, nB - 2], acc[:, :Hp],
+            acc[:, Hp:Hp + Hp * Hp], acc[:, Hp + Hp * Hp:Hp + Hp * Hp + K])
+
+
+def bigs_multi(proj, Gf, states_p, outer_p, vcounts_p, prior, valid,
+               absst_p, inv2s2, beta, prior_beta, s_block: int,
+               collect_true: bool = True):
+    """The multi-state part of the big-S E-step, plain version of the
+    ``bigs_multi`` kernel (``ops/bigs_cuda.py``): per ``s_block`` tile of
+    the padded state tables one logits GEMM, the running max with its
+    rescale, and one moment GEMM; nothing of size (C, S_pad) exists.
+
+    proj (C, Hp), Gf (C, Hp^2); the state tables padded to S_pad rows, a
+    multiple of ``s_block``, with ``valid`` (S_pad,) marking the real ones.
+    Returns (m, l, m_t, l_t, a_abs, a_s, a_ss, a_vc), datapoint first; with
+    ``collect_true`` off, m_t = NEG and l_t = 0."""
+    C, Hp = proj.shape
+    S_pad, K = vcounts_p.shape
+    if S_pad % s_block:
+        raise ValueError(f"{S_pad} padded states are not a multiple of "
+                         f"s_block={s_block}")
+    Xa, Xt, A, B = bigs_operands(proj, Gf, states_p, outer_p, vcounts_p,
+                                 prior, valid, absst_p, inv2s2, beta,
+                                 prior_beta, collect_true)
+    m = torch.full((C,), NEG, dtype=torch.float32, device=proj.device)
+    m_t = m.clone()
+    l_t = torch.zeros_like(m)
+    acc = torch.zeros((C, B.shape[1]), dtype=torch.float32,
+                      device=proj.device)
+    for j in range(0, S_pad, s_block):
+        A_b, B_b = A[j:j + s_block], B[j:j + s_block]
+        logits = Xa @ A_b.T
+        m_new = torch.maximum(m, logits.max(dim=1).values)
+        p = torch.exp(logits - m_new[:, None])
+        acc = acc * torch.exp(m - m_new)[:, None] + p @ B_b
+        m = m_new
+        if collect_true:
+            logits_t = Xt @ A_b.T
+            m_tn = torch.maximum(m_t, logits_t.max(dim=1).values)
+            l_t = (l_t * torch.exp(m_t - m_tn)
+                   + torch.exp(logits_t - m_tn[:, None]).sum(dim=1))
+            m_t = m_tn
+    return split_moments(m, m_t, l_t, acc, Hp, K)
+
+
+def slot_sum_ss(ssw, cand, H: int):
+    """sum_ss[h, k] = sum_n sum_ab [cand_na = h] ssw[n, a*Hp+b] [cand_nb = k]
+    without atomics, so that it is the same in every run on every device:
+    ``scatter_`` writes each row's Hp distinct candidates once, and the sum
+    over rows and slots is one (H, C*Hp) x (C*Hp, H) GEMM (the per-slot
+    product form of the JAX package's ``slot_scatter_mat``).  It costs
+    C*Hp*H^2 multiply-adds: little at the H of big-S models, more than the
+    atomic ``index_add_`` of ``_chunk_estats`` at H in the hundreds."""
+    C, Hp = cand.shape
+    z = torch.zeros((C, Hp, H), dtype=torch.float32, device=cand.device)
+    hot = z.scatter(2, cand[:, :, None], 1.0)
+    vals = z.scatter(2, cand[:, None, :].expand(C, Hp, Hp),
+                     ssw.reshape(C, Hp, Hp))
+    return hot.reshape(C * Hp, H).T @ vals.reshape(C * Hp, H)
+
+
+def bigs_front(y, W, gram, gram_diag, log_odds, sa: LinearStateArrays,
+               Hp: int, signed_select: bool, s_block: int):
+    """The big-S front end: ``P = y @ W``, the candidates, and the operands
+    of ``bigs_multi`` before its scalars: proj (C, Hp), Gf (C, Hp^2) and the
+    state tables padded to a multiple of ``s_block``, with the prior and
+    the validity of each padded state.
+    Returns (P, cand, (proj, Gf, states_p, outer_p, vcounts_p, prior,
+    valid, absst_p))."""
+    S = sa.states.shape[0]
+    P, cand, proj, Gf = _candidates(y, W, gram, gram_diag, Hp, signed_select)
+    pad = -S % s_block
+
+    def padded(t):
+        return torch.nn.functional.pad(
+            t, (0, 0, 0, pad) if t.dim() == 2 else (0, pad))
+    vcounts_p = padded(sa.value_counts)
+    valid = (torch.arange(S + pad, device=y.device) < S).float()
+    return P, cand, (proj, Gf, padded(sa.states), padded(sa.outer),
+                     vcounts_p, vcounts_p @ log_odds, valid,
+                     padded(sa.abs_states))
+
+
+def _chunk_estats_bigs(y, w, W, gram, gram_diag, sigma2, log_odds,
+                       sa: LinearStateArrays, Hp: int, signed_select: bool,
+                       beta, prior_beta, s_block: int,
+                       collect_true: bool = True, multi=bigs_multi):
+    """Big-S E-statistics for one chunk: the zero and singleton states in
+    closed form, the S multi states through ``multi`` (``bigs_multi`` or its
+    kernel), the two partial softmaxes combined.  Same (F, sums) as
+    ``_chunk_estats``; no (C, S) tensor exists."""
+    C, D = y.shape
+    H = W.shape[1]
+    K = sa.values.shape[0]
+    inv2s2 = 0.5 / sigma2
+    P, cand, tables = bigs_front(y, W, gram, gram_diag, log_odds, sa, Hp,
+                                 signed_select, s_block)
+
+    # zero + singleton part (1 + H*K columns) in closed form
+    v = sa.values
+    lik_single = _lik_single(P, gram_diag, v, inv2s2)
+
+    def part_a(logits_single):
+        m_a = torch.clamp(logits_single.max(dim=1).values, min=0.0)
+        return m_a, (torch.exp(-m_a) + torch.exp(
+            logits_single - m_a[:, None]).sum(dim=1))
+
+    logits_single = (beta * lik_single
+                     + prior_beta * log_odds[None, None, :]).reshape(C, H * K)
+    m_a, l_a = part_a(logits_single)
+
+    # the multi states, over the tables padded to a multiple of s_block
+    m_b, l_b, m_bt, l_bt, a_abs, a_s, a_ss, a_vc = multi(
+        *tables, inv2s2, beta, prior_beta, s_block, collect_true)
+
+    # combine the two partial softmaxes
+    M = torch.maximum(m_a, m_b)
+    Z = l_a * torch.exp(m_a - M) + l_b * torch.exp(m_b - M)
+    y2 = (y * y).sum(dim=1)
+    F = M + torch.log(Z) + _free_energy_const(y2, D, H, sigma2, log_odds,
+                                              beta, prior_beta)
+    if collect_true:
+        m_at, l_at = part_a((lik_single
+                             + log_odds[None, None, :]).reshape(C, H * K))
+        M_t = torch.maximum(m_at, m_bt)
+        Z_t = l_at * torch.exp(m_at - M_t) + l_bt * torch.exp(m_bt - M_t)
+        F_true = M_t + torch.log(Z_t) + _free_energy_const(
+            y2, D, H, sigma2, log_odds, 1.0, 1.0)
+    else:
+        F_true = F
+
+    # sufficient statistics, the algebra of _chunk_estats
+    q_single = (torch.exp(logits_single - M[:, None])
+                / Z[:, None]).reshape(C, H, K)
+    scale_b = (torch.exp(m_b - M) / Z)[:, None]
+    wv = w.to(torch.float32)
+    s_full = (q_single @ v).scatter_add(1, cand, a_s * scale_b)     # (C, H)
+    sum_ss = slot_sum_ss(a_ss * scale_b * wv[:, None], cand, H)
+    sum_ss = sum_ss + torch.diag(
+        ((q_single @ (v ** 2)) * wv[:, None]).sum(dim=0))
+    abs_n = q_single.sum(dim=(1, 2)) + a_abs * scale_b[:, 0]
+    vc_n = q_single.sum(dim=1) + a_vc * scale_b
+    return F, _weighted_sums(y, y2, wv, s_full, sum_ss, abs_n, vc_n, F,
+                             F_true)
 
 
 def linear_et_estep(y: torch.Tensor, weight: torch.Tensor, W: torch.Tensor,
                     sigma2, log_odds: torch.Tensor, sa: LinearStateArrays,
                     Hp: int, signed_select: bool, beta, prior_beta,
-                    chunk: int = 2048, collect_true: bool = True
+                    chunk: int = 2048, collect_true: bool = True,
+                    s_block: int = 0
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full E-step with chunked accumulation.  Returns (F (N,), sums).
+    ``s_block > 0`` takes the big-S path (``_chunk_estats_bigs``, the plain
+    ``bigs_multi``).
 
     N must be a multiple of ``chunk`` unless N <= chunk (pad with
     ``weight == 0`` rows; ``EM`` does)."""
@@ -162,6 +363,10 @@ def linear_et_estep(y: torch.Tensor, weight: torch.Tensor, W: torch.Tensor,
     gram_diag = torch.diagonal(gram)
 
     def body(y_i, w_i):
+        if s_block > 0:
+            return _chunk_estats_bigs(y_i, w_i, W, gram, gram_diag, sigma2,
+                                      log_odds, sa, Hp, signed_select, beta,
+                                      prior_beta, s_block, collect_true)
         return _chunk_estats(y_i, w_i, W, gram, gram_diag, sigma2, log_odds,
                              sa, Hp, signed_select, beta, prior_beta,
                              collect_true)

@@ -8,8 +8,9 @@ prior; they differ in the per-unit value set and the prior:
   TSC:  s_h in {-1, 0, +1},  p(s_h=±1) = pi/2                 (scalar pi)
   DSC:  s_h in {0} ∪ Phi,    p(s_h=phi_k) = pi_k              (vector pi)
 
-The E-step runs the fused CUDA kernel on a CUDA tensor and its plain
-version on a CPU tensor (``ops/linear_cuda.py``); the M-step is closed form:
+The E-step runs a CUDA kernel on a CUDA tensor (the fused E-step, or with
+``s_block > 0`` the big-S one) and its plain version on a CPU tensor
+(``ops/linear_cuda.py``); the M-step is closed form:
 
   W     <- (sum_n y <s>^T) (sum_n <s s^T>)^-1
   pi    <- pi * (A_gamma/B_gamma) * mean<|s|>        (ET truncation correction)
@@ -25,6 +26,7 @@ import torch
 
 from prosper_tpu_torch.core import states as states_mod
 from prosper_tpu_torch.core.etstep import (LinearStateArrays,
+                                           linear_et_posterior,
                                            linear_et_posterior_kernel,
                                            state_arrays_from,
                                            truncated_prior_logmass)
@@ -54,8 +56,10 @@ class LinearETModel(ETModel):
                  chunk=2048, min_active: int = 2, ncut_current: bool = False,
                  s_block: int = 0, compute_dtype=None):
         super().__init__(D, H, Hprime, gamma, to_learn, chunk)
-        if s_block:
-            raise not_ported("s_block (big-S E-step)", "big-S")
+        #: big-S mode: the S multi states in s_block tiles with an online
+        #: logsumexp (core/etstep.py::_chunk_estats_bigs), for state spaces
+        #: too large for the fused kernel; 0 = off
+        self.s_block = int(s_block)
         if compute_dtype is not None:
             raise not_ported("compute_dtype",
                              "DSC learned Phi, compute_dtype and partial "
@@ -94,14 +98,15 @@ class LinearETModel(ETModel):
                    state_axis=None, n_state_shards: int = 1):
         """E-step over one block of data: (F (N,), sums).  ``params`` are
         already noisified; the caller owns the weight mask.  On a CUDA
-        tensor this always launches the fused kernel."""
+        tensor this always launches a kernel: the fused E-step, or the big-S
+        one when ``s_block > 0``."""
         _no_state_sharding(state_axis, n_state_shards)
         W = params["W"]
         return linear_et_estep(
             y, weight, W, params["sigma"] ** 2, self.log_odds(params),
             self.state_arrays(W.device), self.Hprime, self.signed_select,
             sched["beta"], sched["prior_beta"], chunk=self.chunk,
-            collect_true=not saturated)
+            collect_true=not saturated, s_block=self.s_block)
 
     def finalize_mstep(self, params, sums, N_total):
         """Closed-form M-step and the per-iteration scalars (0-d tensors).
@@ -168,7 +173,10 @@ class LinearETModel(ETModel):
                   dense_states=None, runtime=None):
         """Posterior decode on held-out data: top states, probabilities,
         posterior mean, reconstruction and F, on the device of
-        ``params['W']``; on a CUDA device through the fused decode kernel.
+        ``params['W']``; on a CUDA device through the fused decode kernel,
+        except for a big-S model (``s_block > 0``), which decodes through
+        the plain ``linear_et_posterior`` on any device, as the JAX package
+        keeps big-S models off its fused decode.
         ``dense_states``: True returns ``top_states (N, L, H)``, False the
         compact fields (``core.etstep.densify_top_states`` rebuilds the
         dense tensor), None picks by output size."""
@@ -185,7 +193,9 @@ class LinearETModel(ETModel):
              else torch.as_tensor(np.asarray(y, np.float32), device=W.device))
         dense_states = self.resolve_dense_states(y.shape[0], top_L,
                                                  dense_states)
-        return linear_et_posterior_kernel(
+        decode = (linear_et_posterior if self.s_block > 0
+                  else linear_et_posterior_kernel)
+        return decode(
             y.contiguous(), W, params["sigma"] ** 2, self.log_odds(params),
             self.state_arrays(W.device), self.Hprime, self.signed_select,
             top_L, beta, prior_beta, dense_states=dense_states)

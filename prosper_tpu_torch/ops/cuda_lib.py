@@ -5,8 +5,9 @@ object file (one ``nvcc`` process per source, all started together), and
 the objects are linked into one shared library with a plain C interface,
 named by a hash of the sources and flags, in ``prosper_tpu_torch/build/``.
 This happens at first CUDA use, never at import; the library is loaded
-with ``ctypes``.  The wrappers (``ops/linear_cuda.py``, ``ops/max_cuda.py``)
-share the input checks below and the launch counts in ``LAUNCHES``.
+with ``ctypes``.  The wrappers (``ops/linear_cuda.py``, ``ops/max_cuda.py``,
+``ops/bigs_cuda.py``) share the input checks below and the launch counts
+in ``LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -24,11 +25,13 @@ import torch
 
 #: kernel launches by kernel name; a run resets and reads it to show that
 #: its main path went through the kernels
-LAUNCHES: Dict[str, int] = {"estep": 0, "decode": 0, "max_estep": 0}
+LAUNCHES: Dict[str, int] = {"estep": 0, "decode": 0, "max_estep": 0,
+                             "bigs": 0}
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
-SOURCES = ("linear_et_estep.cu", "linear_et_decode.cu", "max_et_estep.cu")
+SOURCES = ("linear_et_estep.cu", "linear_et_decode.cu", "max_et_estep.cu",
+           "bigs_multi.cu")
 HEADERS = ("linear_et_frontend.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC")
@@ -100,6 +103,8 @@ def load_library() -> ctypes.CDLL:
             ("max_et_estep", [p] * 14 + [i] * 8 + [p], i),
             ("max_et_estep_ws_stride", [i, i], z),
             ("max_et_smem_bytes", [i] * 4, z),
+            ("bigs_multi", [p] * 6 + [i] * 5 + [p], i),
+            ("bigs_multi_smem_bytes", [i] * 3, z),
             ("linear_et_error_string", [i], ctypes.c_char_p)):
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = argtypes, restype

@@ -24,6 +24,7 @@ import torch
 
 from prosper_tpu_torch.core import etstep
 from prosper_tpu_torch.core.etstep import LinearStateArrays
+from prosper_tpu_torch.ops.bigs_cuda import linear_et_estep_bigs_cuda
 from prosper_tpu_torch.ops.cuda_lib import (LAUNCHES, SMEM_LIMIT, check,
                                             load_library, n_blocks, raise_on,
                                             scalars)
@@ -60,8 +61,11 @@ def _check_common(y, W, log_odds, sa: LinearStateArrays, Hp: int):
     lib = load_library()
     smem = lib.linear_et_smem_bytes(D, H, Hp, S, K)
     if smem > SMEM_LIMIT:
-        raise ValueError(f"a tile needs {smem} bytes of shared memory, more "
-                         f"than the {SMEM_LIMIT} a block may use")
+        raise ValueError(
+            f"the enumerated state space (S={S} multi states) is too large "
+            f"for the fused kernel: a tile needs {smem} bytes of shared "
+            f"memory, more than the {SMEM_LIMIT} a block may use; train "
+            "such a model with s_block > 0 (the big-S E-step)")
     return lib, N, D, H, S, K, smem
 
 
@@ -141,13 +145,19 @@ def linear_et_decode_cuda(y, W, sigma2, log_odds, sa: LinearStateArrays,
 
 def linear_et_estep(y, weight, W, sigma2, log_odds, sa: LinearStateArrays,
                     Hp: int, signed_select: bool, beta, prior_beta,
-                    chunk: int = 2048, collect_true: bool = True):
-    """E-step: the kernel on a CUDA tensor, its plain version
+                    chunk: int = 2048, collect_true: bool = True,
+                    s_block: int = 0):
+    """E-step: a kernel on a CUDA tensor, the fused E-step kernel or, with
+    ``s_block > 0``, the big-S one (``ops/bigs_cuda.py``); its plain version
     (``core.etstep.linear_et_estep``, chunked by ``chunk``) on a CPU one."""
     if y.device.type == "cpu":
         return etstep.linear_et_estep(y, weight, W, sigma2, log_odds, sa, Hp,
                                       signed_select, beta, prior_beta, chunk,
-                                      collect_true)
+                                      collect_true, s_block)
+    if s_block > 0:
+        return linear_et_estep_bigs_cuda(y, weight, W, sigma2, log_odds, sa,
+                                         Hp, signed_select, beta, prior_beta,
+                                         s_block, collect_true)
     return linear_et_estep_cuda(y, weight, W, sigma2, log_odds, sa, Hp,
                                 signed_select, beta, prior_beta, collect_true)
 

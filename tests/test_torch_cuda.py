@@ -1,5 +1,6 @@
 """The CUDA kernels of the port (the linear E-step and decode, the max
-family's E-step) against their plain versions, on the card.
+family's E-step, the big-S recurrence) against their plain versions, on
+the card.
 
 Marked ``cuda``: they skip where no CUDA device is present.  On a machine
 with a card:  python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -16,7 +17,7 @@ import torch
 from prosper_tpu_torch.core import etstep, maxstep
 from prosper_tpu_torch.core.states import (binary_state_space,
                                            discrete_state_space)
-from prosper_tpu_torch.ops import linear_cuda, max_cuda
+from prosper_tpu_torch.ops import bigs_cuda, linear_cuda, max_cuda
 
 pytestmark = pytest.mark.cuda
 
@@ -158,3 +159,121 @@ def test_max_wrapper_rejects_cpu_tensors_bad_shapes_and_limits(device):
     with pytest.raises(ValueError):                # H' beyond the kernel's
         max_cuda.max_et_estep_cuda(y, w, W9, 1.0, lo, big, 9, False, 1.0,
                                    1.0)
+
+
+# ---- the big-S recurrence (s_block > 0) -------------------------------------
+
+BIGS_CASES = [  # (N, D, H, Hp, gamma, values, signed, s_block)
+    (1000, 16, 12, 6, 4, (1.0,), False, 48),
+    (1000, 16, 12, 6, 4, (-1.0, 1.0), True, 48),
+    (999, 16, 12, 6, 4, (-1.0, 1.0, 2.0), True, 48),
+    (4096, 64, 32, 10, 5, (-1.0, 1.0), True, 1024),
+]
+MULTI_OUT = ("m", "l", "m_t", "l_t", "a_abs", "a_s", "a_ss", "a_vc")
+
+
+def _bigs_inputs(case, beta, prior_beta, device, seed=0):
+    """E-step arguments with a dead unit and zero-weight rows, and the
+    operands the E-step hands the recurrence."""
+    N, D, H, Hp, gamma, values, signed, s_block = case
+    y, w, W, lo, sa, Hp, signed = _inputs(
+        (N, D, H, Hp, gamma, values, signed), device, seed)
+    W[:, 2] = 0.0
+    sigma2 = torch.tensor(2.5, device=device)
+    gram = W.T @ W
+    _, _, tables = etstep.bigs_front(y, W, gram, torch.diagonal(gram), lo,
+                                     sa, Hp, signed, s_block)
+    margs = (*tables, 0.5 / sigma2, beta, prior_beta, s_block)
+    return (y, w, W, sigma2, lo, sa, Hp, signed, beta, prior_beta), margs
+
+
+@pytest.mark.parametrize("case", BIGS_CASES,
+                         ids=lambda c: f"H{c[2]}Hp{c[3]}K{len(c[5])}")
+@pytest.mark.parametrize("beta,prior_beta", [(0.6, 1.0), (1.0, 1.0),
+                                             (1.0, 0.8), (0.6, 0.0)])
+def test_bigs_kernel_matches_plain(case, beta, prior_beta, device):
+    """The running max within rtol 1e-4, the masses and moments within
+    1e-3 (another summation order than cuBLAS's); repeated calls, and
+    everything but the un-annealed pair with collect_true off, are
+    bit-identical."""
+    _, margs = _bigs_inputs(case, beta, prior_beta, device)
+    ref = etstep.bigs_multi(*margs, collect_true=True)
+    on = bigs_cuda.bigs_multi_cuda(*margs, collect_true=True)
+    off = bigs_cuda.bigs_multi_cuda(*margs, collect_true=False)
+    again = bigs_cuda.bigs_multi_cuda(*margs, collect_true=True)
+    torch.cuda.synchronize()
+    for name, a, b, c, d in zip(MULTI_OUT, on, ref, off, again):
+        tol = 1e-4 if name in ("m", "m_t") else 1e-3
+        torch.testing.assert_close(a, b, rtol=tol, atol=tol, msg=name)
+        assert torch.equal(a, d), name
+        if name not in ("m_t", "l_t"):
+            assert torch.equal(a, c), name
+
+
+@pytest.mark.parametrize("case", BIGS_CASES,
+                         ids=lambda c: f"H{c[2]}Hp{c[3]}K{len(c[5])}")
+@pytest.mark.parametrize("beta,prior_beta", [(0.6, 1.0), (1.0, 1.0),
+                                             (1.0, 0.0)])
+def test_bigs_estep_kernel_matches_plain(case, beta, prior_beta, device):
+    args, _ = _bigs_inputs(case, beta, prior_beta, device, seed=1)
+    s_block = case[-1]
+    F0, ref = etstep.linear_et_estep(*args, chunk=args[0].shape[0],
+                                     s_block=s_block)
+    F1, on = linear_cuda.linear_et_estep(*args, s_block=s_block)
+    _, off = linear_cuda.linear_et_estep(*args, s_block=s_block,
+                                         collect_true=False)
+    _, again = linear_cuda.linear_et_estep(*args, s_block=s_block)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(F1, F0, rtol=1e-4, atol=1e-4)
+    for k in ref:
+        torch.testing.assert_close(on[k], ref[k], rtol=1e-3, atol=1e-3,
+                                   msg=k)
+        assert torch.equal(on[k], again[k]), k
+        if beta == prior_beta == 1.0 and k != "F_true":
+            assert torch.equal(on[k], off[k]), k
+
+
+def test_bigs_wrapper_rejects_cpu_tensors_bad_shapes_and_layouts(device):
+    _, margs = _bigs_inputs(BIGS_CASES[1], 1.0, 1.0, device)
+    proj, Gf, st, ot, vc, prior, valid, ab = margs[:8]
+    rest = margs[8:]
+    with pytest.raises(ValueError):                          # CPU tensors
+        bigs_cuda.bigs_multi_cuda(*(t.cpu() for t in margs[:8]), *rest)
+    with pytest.raises(ValueError):                          # a wrong shape
+        bigs_cuda.bigs_multi_cuda(proj, Gf[:, :-1].contiguous(),
+                                  *margs[2:8], *rest)
+    with pytest.raises(ValueError):                          # non-contiguous
+        bigs_cuda.bigs_multi_cuda(proj.T.contiguous().T, *margs[1:8], *rest)
+
+
+@pytest.mark.parametrize("case", BIGS_CASES,
+                         ids=lambda c: f"H{c[2]}Hp{c[3]}K{len(c[5])}")
+def test_bigs_kernel_takes_unpadded_tables(case, device):
+    """The kernel masks states past the table itself: on the unpadded
+    tables the E-step hands it, it gives what the plain version gives on
+    tables padded to s_block."""
+    args, margs = _bigs_inputs(case, 0.6, 0.0, device, seed=2)
+    y, _, W, _, lo, sa, Hp, signed = args[:8]
+    gram = W.T @ W
+    _, _, tables = etstep.bigs_front(y, W, gram, torch.diagonal(gram), lo,
+                                     sa, Hp, signed, 1)
+    assert tables[2].shape[0] == sa.states.shape[0]
+    ref = etstep.bigs_multi(*margs, collect_true=True)
+    on = bigs_cuda.bigs_multi_cuda(*tables, *margs[8:], collect_true=True)
+    torch.cuda.synchronize()
+    for name, a, b in zip(MULTI_OUT, on, ref):
+        tol = 1e-4 if name in ("m", "m_t") else 1e-3
+        torch.testing.assert_close(a, b, rtol=tol, atol=tol, msg=name)
+
+
+def test_fused_estep_names_s_block_for_a_big_state_space(device):
+    """At the tsc_bigs width the fused kernel's tile outgrows shared memory;
+    the error says so and names the big-S route, and that route runs."""
+    case = (256, 64, 32, 10, 5, (-1.0, 1.0), True)
+    y, w, W, lo, sa, Hp, signed = _inputs(case, device)
+    args = (y, w, W, torch.tensor(2.5, device=device), lo, sa, Hp, signed,
+            1.0, 1.0)
+    with pytest.raises(ValueError, match="s_block"):
+        linear_cuda.linear_et_estep_cuda(*args)
+    F, _ = linear_cuda.linear_et_estep(*args, s_block=1024)
+    assert torch.isfinite(F).all()

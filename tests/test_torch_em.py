@@ -209,8 +209,6 @@ def test_bad_configs_raise_value_error(args):
 def test_unported_options_raise():
     y = np.zeros((8, 25), np.float32)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BSC(25, 10, 6, 3, s_block=64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         TSC(25, 10, 6, 3, compute_dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DSC(25, 10, 6, 3, to_learn=("W", "pi", "sigma", "phi"))
