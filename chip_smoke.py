@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from prosper_tpu_torch/csrc with nvcc, holds
-each kernel against its plain PyTorch version on the card, and drives the
-port's three paths:
+each kernel against its plain PyTorch version on the card (the two GEMM
+kernels against float64 ``torch.matmul``, at the main path's shapes and at
+ragged ones), and drives the port's three paths:
 
 * the linear family: the bars through ``EM.run`` on CUDA, then BSC at the
   width of the repo's headline configuration (16x16 patches: D=256, H=300,
@@ -22,7 +23,9 @@ port's three paths:
 
 Each path's launch counts are set to 0 just before it and checked just
 after.  Every phase raises on failure.  Prints one JSON line of per-kernel
-results and ends with {"ok": true, "device": {"platform": "gpu", ...}}.
+results (time, plain version's time, the card's bound for the same work from
+the shapes, and a library call's time where one computes the same function)
+and ends with {"ok": true, "device": {"platform": "gpu", ...}}.
 Exits non-zero without a result when no CUDA device is present.
 """
 
@@ -33,6 +36,10 @@ import time
 
 BARS_SEED = 0          # a seed whose noisy bars run recovers all 10 bars
 MCA_BARS_SEED = 0      # a seed whose MCA bars run on CUDA recovers all 8
+# published peaks of one H100 SXM (NVIDIA's data sheet): float32 outside the
+# tensor cores, and device memory
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
 
 
 def log(*a):
@@ -59,6 +66,97 @@ def interleaved_ms(torch, plain, kernel, reps):
     k2 = cuda_ms(torch, kernel, reps)
     p2 = cuda_ms(torch, plain, reps)
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def bound(flops, nbytes):
+    """The least time the card could take: {"bound_ms", "bound_by"} from
+    the operations over the float32 peak and the bytes over the memory
+    rate."""
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def reset_launches(cuda_lib):
+    for k in cuda_lib.LAUNCHES:
+        cuda_lib.LAUNCHES[k] = 0
+
+
+def expect_launches(cuda_lib, tag, **want):
+    """The launch counts since the last reset are exactly ``want`` (every
+    kernel not named: 0).  Returns them."""
+    got = dict(cuda_lib.LAUNCHES)
+    if got != {k: want.get(k, 0) for k in got}:
+        raise AssertionError(f"{tag} launches {got}, expected {want} and "
+                             "nothing else")
+    return got
+
+
+def gemm_phase(torch, np, dev, smi, err):
+    """The two GEMM kernels against float64 ``torch.matmul``: exactly on
+    inputs quantised to 1/4 (every product and partial sum is then exact in
+    float32), within rounding on Gaussian ones, repeated calls
+    bit-identical; then their times at the main path's shape beside
+    ``torch.matmul`` in float32 (the library call, which the port never
+    makes).  Returns each kernel's times for the JSON line."""
+    from prosper_tpu_torch.ops import gemm_cuda
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    shapes = [(131072, 256, 300)] + [(N, D, H) for N in (1000, 16385)
+                                     for D in (25, 256) for H in (10, 300)]
+    for N, D, H in shapes:
+        for quantised in (True, False):
+            def draw(*shape):
+                a = torch.randn(shape, generator=gen, device=dev)
+                return torch.round(a * 4) / 4 if quantised else a
+            y, W, sw = draw(N, D), draw(D, H), draw(N, H)
+            y[3] = 0.0                                  # a row of zeros
+            base = draw(D, H)
+            for name, out, again, ref, depth in (
+                    ("sgemm_nn", gemm_cuda.sgemm_nn_cuda(y, W),
+                     gemm_cuda.sgemm_nn_cuda(y, W), y.double() @ W.double(),
+                     D),
+                    ("sgemm_tn", gemm_cuda.sgemm_tn_splitn_cuda(y, sw),
+                     gemm_cuda.sgemm_tn_splitn_cuda(y, sw),
+                     y.double().T @ sw.double(), N),
+                    ("sgemm_tn", gemm_cuda.sgemm_tn_splitn_cuda(
+                        y, sw, out=base.clone(), accumulate=True),
+                     gemm_cuda.sgemm_tn_splitn_cuda(
+                         y, sw, out=base.clone(), accumulate=True),
+                     base.double() + y.double().T @ sw.double(), N)):
+                torch.cuda.synchronize()
+                if not torch.equal(out, again):
+                    raise AssertionError(f"{name} {N}x{D}x{H}: two calls "
+                                         "differ")
+                e = (out.double() - ref).abs().max().item()
+                # a float32 fmaf chain of `depth` unit-variance products:
+                # error within 2e-7 per term, relative 1e-5
+                tol = 0.0 if quantised else 2e-7 * depth
+                if quantised and e != 0.0:
+                    raise AssertionError(f"{name} {N}x{D}x{H}: not exact on "
+                                         f"quantised inputs (max abs {e})")
+                torch.testing.assert_close(out.double(), ref, rtol=1e-5,
+                                           atol=tol, msg=f"{name} {N}x{D}x{H}")
+                err[name] = max(err[name], e)
+    log(f"[gemm] sgemm_nn and sgemm_tn_splitn agree with float64 matmul at "
+        f"{len(shapes)} shapes (exactly on quantised inputs; repeated calls "
+        "bit-identical)")
+
+    N, D, H = shapes[0]
+    y, W, sw = draw(N, D), draw(D, H), draw(N, H)
+    nn = interleaved_ms(torch, lambda: torch.matmul(y, W),
+                        lambda: gemm_cuda.sgemm_nn_cuda(y, W), reps=10)
+    tn = interleaved_ms(torch, lambda: torch.matmul(y.T, sw),
+                        lambda: gemm_cuda.sgemm_tn_splitn_cuda(y, sw), reps=10)
+    flops = 2.0 * N * D * H
+    log(f"[gemm] N={N}, D={D}, H={H}: sgemm_nn {nn[0]:.3f} ms "
+        f"({flops / nn[0] / 1e9:.1f} TFLOP/s) vs torch.matmul {nn[1]:.3f} ms; "
+        f"sgemm_tn_splitn {tn[0]:.3f} ms ({flops / tn[0] / 1e9:.1f} TFLOP/s) "
+        f"vs torch.matmul {tn[1]:.3f} ms  [{smi}]")
+    nbytes = 4.0 * (N * D + D * H + N * H)
+    return {name: {"ms": t[0], "plain_ms": t[1], "library_ms": t[1],
+                   **bound(flops, nbytes)}
+            for name, t in (("sgemm_nn", nn), ("sgemm_tn", tn))}
 
 
 def check_path(torch, np, tag, em, serve, H):
@@ -160,7 +258,7 @@ def max_family(torch, np, dev, smi, err, patches_anneal):
     model = MCA(16, 8, 6, 3, chunk=1000)
     gt = bars_gt_params(model, intensity=10.0, sigma=1.0)
     data = model.generate_data(gt, 1000, seed=21)
-    cuda_lib.LAUNCHES.update(estep=0, decode=0, max_estep=0, bigs=0)
+    reset_launches(cuda_lib)
     params = EM(model, bars_anneal(), {"y": data["y"]}, seed=MCA_BARS_SEED,
                 device=dev).run()
     n_rec = count_recovered_bars(params["W"].cpu().numpy(), gt["W"], 0.8)
@@ -169,10 +267,8 @@ def max_family(torch, np, dev, smi, err, patches_anneal):
         f"{dict(cuda_lib.LAUNCHES)}")
     if n_rec != 8 or abs(sig - 1.0) >= 0.3:
         raise AssertionError("MCA bars not recovered on the card")
-    if cuda_lib.LAUNCHES != {"estep": 0, "decode": 0, "max_estep": 60,
-                             "bigs": 0}:
-        raise AssertionError("the MCA bars run did not take the max kernel "
-                             "once per iteration")
+    expect_launches(cuda_lib, "[mca bars]", max_estep=60, sgemm_nn=60,
+                    sgemm_tn=60)
 
     # ---- 9. one softened-max step on CUDA against the CPU ---------------------
     yq = quarters(data["y"]).astype(np.float32)
@@ -213,7 +309,7 @@ def max_family(torch, np, dev, smi, err, patches_anneal):
         init = model.standard_init(data, seed=3, device=dev)
         y_dev = torch.tensor(data["y"], device=dev)
         torch.cuda.synchronize()
-        cuda_lib.LAUNCHES.update(estep=0, decode=0, max_estep=0, bigs=0)
+        reset_launches(cuda_lib)
         em = EM(model, patches_anneal(iters), {"y": y_dev}, params=init,
                 seed=4, device=dev)
         params = em.run()
@@ -221,13 +317,10 @@ def max_family(torch, np, dev, smi, err, patches_anneal):
                                         dense_states=dense)
                  for dense in (False, True)}
         torch.cuda.synchronize()
-        launches = dict(cuda_lib.LAUNCHES)
         tag = f"[{cls.__name__.lower()} patches]"
+        launches = expect_launches(cuda_lib, tag, max_estep=iters,
+                                   sgemm_nn=iters, sgemm_tn=iters)
         log(f"{tag} launches on the path: {launches}")
-        if launches != {"estep": 0, "decode": 0, "max_estep": iters,
-                        "bigs": 0}:
-            raise AssertionError(f"{tag} launches {launches}, expected "
-                                 f"{iters} max E-steps")
         check_path(torch, np, tag, em, serve, H)
         result[cls.__name__] = (em, model, params, init, y_dev, iters,
                                 launches)
@@ -265,8 +358,12 @@ def max_family(torch, np, dev, smi, err, patches_anneal):
     log(f"[mca patches] max E-step kernel {est[0]:.3f} ms vs plain "
         f"{est[1]:.3f} ms (N={N}) = {N / est[0] * 1e3:.0f} vs "
         f"{N / est[1] * 1e3:.0f} datapoints/s  [{smi}]")
-    return {"launches": launches["max_estep"], "ms": est[0],
-            "plain_ms": est[1]}
+    S = sa.states.shape[0]
+    # the two D x H products, and two passes over the (S, D) lattice per
+    # row: a compare-select and two FMAs, then a compare-select and an add
+    return {"launches": launches, "ms": est[0], "plain_ms": est[1],
+            **bound(4.0 * N * D * H + 8.0 * N * S * D,
+                    4.0 * (N * D + 2 * N + D * H + 2 * H * D))}
 
 
 def bigs_path(torch, np, dev, smi, err, patches_anneal):
@@ -378,7 +475,7 @@ def bigs_path(torch, np, dev, smi, err, patches_anneal):
     init = model.standard_init(data, seed=3, device=dev)
     y_dev = torch.tensor(data["y"], device=dev)
     torch.cuda.synchronize()
-    cuda_lib.LAUNCHES.update(estep=0, decode=0, max_estep=0, bigs=0)
+    reset_launches(cuda_lib)
     em = EM(model, patches_anneal(iters), {"y": y_dev}, params=init, seed=4,
             device=dev)
     params = em.run()
@@ -386,14 +483,11 @@ def bigs_path(torch, np, dev, smi, err, patches_anneal):
                                     dense_states=dense)
              for dense in (False, True)}
     torch.cuda.synchronize()
-    launches = dict(cuda_lib.LAUNCHES)
     tag = "[tsc bigs]"
+    launches = expect_launches(cuda_lib, tag, bigs=iters)
     S = model.space.states.shape[0]
     log(f"{tag} S={S} multi states; launches on "
         f"the path: {launches}")
-    if launches != {"estep": 0, "decode": 0, "max_estep": 0, "bigs": iters}:
-        raise AssertionError(f"{tag} launches {launches}, expected {iters} "
-                             "big-S launches and nothing else")
     check_path(torch, np, tag, em, serve, H)
 
     # timing at N = 131072: the EM iteration through the kernel and through
@@ -454,7 +548,13 @@ def bigs_path(torch, np, dev, smi, err, patches_anneal):
         f"the un-annealed channel, {sat[0]:.3f} vs {sat[1]:.3f} ms without "
         f"(N={N}) = {N / est[0] * 1e3:.0f} vs {N / est[1] * 1e3:.0f} "
         f"datapoints/s  [{smi}]")
-    return {"launches": launches["bigs"], "ms": est[0], "plain_ms": est[1]}
+    # logits, moments and the un-annealed logits per (row, state), over the
+    # operands the kernel is handed and the moments it returns
+    nA = kargs[0].shape[1] + kargs[1].shape[1] + 2
+    nB = nA + kargs[4].shape[1]
+    return {"launches": launches, "ms": est[0], "plain_ms": est[1],
+            **bound(2.0 * (2 * nA + nB) * N * S,
+                    4.0 * (N * (nA - 2) + S * (nA + nB) + N * (nB + 4)))}
 
 
 def main() -> int:
@@ -494,6 +594,14 @@ def main() -> int:
     for line in cuda_lib.BUILD_LOG.splitlines():
         if "registers" in line or "spill" in line:
             log("[build]", line.strip())
+    lib = cuda_lib.load_library()
+    for name, smem in (
+            ("linear E-step rows kernel (H=300, H'=8, S=154, K=1)",
+             lib.linear_et_rows_smem_bytes(300, 8, 154, 1)),
+            ("max E-step kernel (D=256, H=300, H'=6, S=35)",
+             lib.max_et_smem_bytes(256, 300, 6, 35))):
+        log(f"[build] {name}: {smem} bytes of shared memory a block, "
+            f"{cuda_lib.blocks_per_sm(smem)} blocks an SM")
 
     # ---- 3./4. kernels against their plain versions ---------------------------
     # inputs quantised to multiples of 1/4: P = y W and the Gram matrix are
@@ -505,7 +613,9 @@ def main() -> int:
         ("dsc_bars", 1000, 25, 16, 6, 3, (-1.0, 1.0, 2.0), True),
         ("bsc_patches", 16384, 256, 300, 8, 4, (1.0,), False),
     ]
-    err = {"estep": 0.0, "decode": 0.0, "max_estep": 0.0, "bigs": 0.0}
+    err = {"estep": 0.0, "decode": 0.0, "max_estep": 0.0, "bigs": 0.0,
+           "sgemm_nn": 0.0, "sgemm_tn": 0.0}
+    gm = gemm_phase(torch, np, dev, smi, err)
     rng = np.random.default_rng(0)
     for name, N, D, H, Hp, gamma, values, signed in shapes:
         if D == 256:
@@ -570,7 +680,7 @@ def main() -> int:
     anneal["T"] = [(0.0, 2.0), (0.7, 1.0)]
     anneal["Ncut_factor"] = [(0.0, 0.0), (0.5, 0.0), (0.9, 1.0)]
     anneal["W_noise"] = [(0.0, 1.0), (0.7, 0.0)]
-    cuda_lib.LAUNCHES.update(estep=0, decode=0, max_estep=0, bigs=0)
+    reset_launches(cuda_lib)
     em = EM(model, anneal, {"y": data["y"]}, seed=BARS_SEED, device=dev)
     params = em.run()
     n_rec = count_recovered_bars(params["W"].cpu().numpy(), gt["W"], 0.85)
@@ -579,10 +689,7 @@ def main() -> int:
         f"E-step launches {linear_cuda.LAUNCHES['estep']}")
     if n_rec != 10 or abs(sig - 2.0) >= 0.3 or abs(pi - 0.2) >= 0.08:
         raise AssertionError("bars not recovered on the card")
-    if linear_cuda.LAUNCHES != {"estep": 60, "decode": 0, "max_estep": 0,
-                                "bigs": 0}:
-        raise AssertionError("the bars run did not take the E-step kernel "
-                             "once per iteration")
+    expect_launches(cuda_lib, "[bars]", estep=60, sgemm_nn=60, sgemm_tn=60)
 
     # ---- 6. main path at patches width ----------------------------------------
     D, H, Hp, gamma, N, iters = 256, 300, 8, 4, 131072, 6
@@ -605,7 +712,7 @@ def main() -> int:
 
     y_dev = torch.tensor(data["y"], device=dev)
     torch.cuda.synchronize()
-    cuda_lib.LAUNCHES.update(estep=0, decode=0, max_estep=0, bigs=0)
+    reset_launches(cuda_lib)
     em = EM(model, patches_anneal(), {"y": y_dev}, params=init, seed=4,
             device=dev)
     params = em.run()
@@ -613,12 +720,9 @@ def main() -> int:
                                     dense_states=dense)
              for dense in (False, True)}
     torch.cuda.synchronize()
-    launches = dict(cuda_lib.LAUNCHES)
+    launches = expect_launches(cuda_lib, "[patches]", estep=iters, decode=2,
+                               sgemm_nn=iters, sgemm_tn=iters)
     log(f"[patches] launches on the main path: {launches}")
-    if launches != {"estep": iters, "decode": 2, "max_estep": 0,
-                    "bigs": 0}:
-        raise AssertionError(f"main path launches {launches}, expected "
-                             f"{iters} E-steps and 2 decodes")
     check_path(torch, np, "[patches]", em, serve, H)
 
     # timing: kernel path against the plain version on the card
@@ -670,29 +774,63 @@ def main() -> int:
     # ---- 11.-12. the big-S linear E-step ------------------------------------
     bg = bigs_path(torch, np, dev, smi, err, patches_anneal)
 
+    # the bounds, from this run's shapes: the two D x H products, the
+    # logits over [proj | Gram] and the moments over the state tables per
+    # (row, state); each input read once, each output written once
+    S, K = sa.value_counts.shape
+    NX = Hp + Hp * Hp
+    est_bound = bound(4.0 * N * D * H + 2.0 * N * S * (2 * NX + K + 1),
+                      4.0 * (N * D + 2 * N + 2 * D * H + H * H))
+    Nd, L = y_ho.shape[0], 10
+    dec_bound = bound(2.0 * Nd * D * H + 2.0 * Nd * S * (NX + Hp),
+                      4.0 * (Nd * D + D * H + Nd * (1 + H + 2 * L + Hp)))
+    mxl, bgl = mx.pop("launches"), bg.pop("launches")
+
+    def gemm_launches(name):
+        return launches[name] + mxl[name]
+
     kernels = [
         {"name": "linear_et_estep", "route": "cuda",
          "source": "prosper_tpu_torch/csrc/linear_et_estep.cu",
          "replaces": "prosper_tpu/ops/linear_pallas.py:244",
          "launches": launches["estep"], "max_abs_err": err["estep"],
-         "ms": est[0], "plain_ms": est[1]},
+         "ms": est[0], "plain_ms": est[1], **est_bound, "library_ms": None},
         {"name": "linear_et_decode", "route": "cuda",
          "source": "prosper_tpu_torch/csrc/linear_et_decode.cu",
          "replaces": "prosper_tpu/ops/linear_pallas.py:435",
          "launches": launches["decode"], "max_abs_err": err["decode"],
-         "ms": dec[0], "plain_ms": dec[1]},
+         "ms": dec[0], "plain_ms": dec[1], **dec_bound, "library_ms": None},
         {"name": "max_et_estep", "route": "cuda",
          "source": "prosper_tpu_torch/csrc/max_et_estep.cu",
          "replaces": "prosper_tpu/ops/max_pallas.py:559; "
                      "prosper_tpu/ops/max_pallas.py:433",
-         "launches": mx["launches"], "max_abs_err": err["max_estep"],
-         "ms": mx["ms"], "plain_ms": mx["plain_ms"]},
+         "launches": mxl["max_estep"], "max_abs_err": err["max_estep"],
+         **mx, "library_ms": None},
         {"name": "bigs_multi", "route": "cuda",
          "source": "prosper_tpu_torch/csrc/bigs_multi.cu",
          "replaces": "prosper_tpu/ops/bigs_pallas.py:155",
-         "launches": bg["launches"], "max_abs_err": err["bigs"],
-         "ms": bg["ms"], "plain_ms": bg["plain_ms"]},
+         "launches": bgl["bigs"], "max_abs_err": err["bigs"], **bg,
+         "library_ms": None},
+        # the two products inside the bodies of the E-step TPU kernels; one
+        # launch per E-step of the linear and of the MCA patches path
+        {"name": "sgemm_nn", "route": "cuda",
+         "source": "prosper_tpu_torch/csrc/sgemm.cu",
+         "replaces": "prosper_tpu/ops/linear_pallas.py:63; "
+                     "prosper_tpu/ops/max_pallas.py:65",
+         "launches": gemm_launches("sgemm_nn"),
+         "max_abs_err": err["sgemm_nn"], **gm["sgemm_nn"]},
+        {"name": "sgemm_tn_splitn", "route": "cuda",
+         "source": "prosper_tpu_torch/csrc/sgemm.cu",
+         "replaces": "prosper_tpu/ops/linear_pallas.py:179; "
+                     "prosper_tpu/ops/max_pallas.py:169",
+         "launches": gemm_launches("sgemm_tn"),
+         "max_abs_err": err["sgemm_tn"], **gm["sgemm_tn"]},
     ]
+    for k in kernels:
+        log(f"[kernels] {k['name']}: {k['ms']:.3f} ms, bound "
+            f"{k['bound_ms']:.3f} ms by {k['bound_by']} "
+            f"({100 * k['bound_ms'] / k['ms']:.1f} % of it), "
+            f"{k['launches']} launches  [{smi}]")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

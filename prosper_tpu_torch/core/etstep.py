@@ -48,11 +48,12 @@ def state_arrays_from(space, device) -> LinearStateArrays:
                              values=t(space.values))
 
 
-def _candidates(y, W, gram, gram_diag, Hp: int, signed_select: bool):
-    """P = y @ W, the top-Hp candidates, their projections and Gram entries:
-    (P (C, H), cand (C, Hp), proj (C, Hp), Gf (C, Hp^2))."""
+def _candidates(y, W, gram, gram_diag, Hp: int, signed_select: bool, P=None):
+    """P = y @ W (unless given), the top-Hp candidates, their projections and
+    Gram entries: (P (C, H), cand (C, Hp), proj (C, Hp), Gf (C, Hp^2))."""
     C = y.shape[0]
-    P = y @ W
+    if P is None:
+        P = y @ W
     w_norm = torch.sqrt(torch.clamp(gram_diag, min=1e-30))
     cand = top_hprime_candidates(P, w_norm, Hp, signed_select)
     proj = torch.gather(P, 1, cand)
@@ -68,7 +69,7 @@ def _lik_single(P, gram_diag, values, inv2s2):
 
 def _union_logits(y, W, gram, gram_diag, sigma2, log_odds,
                   sa: LinearStateArrays, Hp: int, signed_select: bool,
-                  beta, prior_beta):
+                  beta, prior_beta, P=None):
     """Shared front end: candidates and the annealed union logits
     ``[zero | H*K singletons | S multi]`` plus the un-annealed pieces.
 
@@ -78,7 +79,8 @@ def _union_logits(y, W, gram, gram_diag, sigma2, log_odds,
     H = W.shape[1]
     K = sa.values.shape[0]
     inv2s2 = 0.5 / sigma2
-    P, cand, proj, Gf = _candidates(y, W, gram, gram_diag, Hp, signed_select)
+    P, cand, proj, Gf = _candidates(y, W, gram, gram_diag, Hp, signed_select,
+                                    P)
     lik_multi = (2.0 * (proj @ sa.states.T) - Gf @ sa.outer.T) * inv2s2
     prior_multi = sa.value_counts @ log_odds                         # (S,)
     logits_multi = beta * lik_multi + prior_beta * prior_multi[None, :]
@@ -101,29 +103,37 @@ def _free_energy_const(y2, D: int, H: int, sigma2, log_odds, beta,
     return -beta * (y2 * inv2s2) - beta * log_norm + prior_beta * H * log_p0
 
 
-def _weighted_sums(y, y2, wv, s_full, sum_ss, abs_n, vc_n, F, F_true):
+def _weighted_sums(y, y2, wv, s_full, sum_ss, abs_n, vc_n, F, F_true,
+                   staged: bool = False):
     """A chunk's sufficient statistics, each row weighted by ``wv``;
-    ``sum_ss`` comes weighted already."""
+    ``sum_ss`` comes weighted already.  ``staged`` leaves the last product
+    to the caller: the sums then hold ``sw = w <s>`` (C, H) in place of
+    ``xs = y.T @ sw``."""
     sw = s_full * wv[:, None]
-    return dict(
-        xs=y.T @ sw, ss=sum_ss, s=sw.sum(dim=0),
+    sums = dict(
+        ss=sum_ss, s=sw.sum(dim=0),
         abs=(abs_n * wv).sum(), vc=(vc_n * wv[:, None]).sum(dim=0),
         y2=(y2 * wv).sum(), n=wv.sum(), F=(F * wv).sum(),
         F_true=(F_true * wv).sum())
+    if staged:
+        return dict(sw=sw, **sums)
+    return dict(xs=y.T @ sw, **sums)
 
 
 def _chunk_estats(y, w, W, gram, gram_diag, sigma2, log_odds,
                   sa: LinearStateArrays, Hp: int, signed_select: bool,
-                  beta, prior_beta, collect_true: bool = True):
+                  beta, prior_beta, collect_true: bool = True, P=None):
     """E-statistics for one chunk: y (C, D), w (C,) accumulation weights.
     Returns (F (C,), sums).  F is the per-datapoint truncated
-    log-pseudo-likelihood with every constant term."""
+    log-pseudo-likelihood with every constant term.  Given ``P = y @ W``
+    it is the middle stage alone (``linear_et_estep_rows``)."""
     C, D = y.shape
     H = W.shape[1]
     K = sa.values.shape[0]
+    staged = P is not None
     (P, cand, proj, Gf, logits, lik_single, lik_multi,
      prior_multi) = _union_logits(y, W, gram, gram_diag, sigma2, log_odds,
-                                  sa, Hp, signed_select, beta, prior_beta)
+                                  sa, Hp, signed_select, beta, prior_beta, P)
     m = logits.max(dim=1, keepdim=True).values
     p = torch.exp(logits - m)
     Z = p.sum(dim=1, keepdim=True)
@@ -164,7 +174,21 @@ def _chunk_estats(y, w, W, gram, gram_diag, sigma2, log_odds,
     abs_n = q_single.sum(dim=(1, 2)) + q_multi @ sa.abs_states
     vc_n = q_single.sum(dim=1) + q_multi @ sa.value_counts           # (C, K)
     return F, _weighted_sums(y, y2, wv, s_full, sum_ss, abs_n, vc_n, F,
-                             F_true)
+                             F_true, staged)
+
+
+def linear_et_estep_rows(y, weight, P, W, sigma2, log_odds,
+                         sa: LinearStateArrays, Hp: int, signed_select: bool,
+                         beta, prior_beta, collect_true: bool = True):
+    """The per-datapoint stage of the E-step alone, plain version of the
+    rows kernel (``csrc/linear_et_estep.cu``): from ``P = y @ W`` it returns
+    (F (N,), sw = w <s> (N, H), sums without xs).  The E-step is
+    ``P = y @ W``, this, then ``xs = y.T @ sw``."""
+    gram = W.T @ W
+    F, sums = _chunk_estats(y, weight, W, gram, torch.diagonal(gram), sigma2,
+                            log_odds, sa, Hp, signed_select, beta, prior_beta,
+                            collect_true, P=P)
+    return F, sums.pop("sw"), sums
 
 
 # ---- big S: the multi states in s_block tiles, online logsumexp -------------

@@ -180,12 +180,15 @@ def _soft_resp(qa, Wc, states, plan: DPPlan, magnitude: bool, rho: float):
 
 
 def _union_terms(y, W, gram_diag, sigma2, log_odds, sa: LinearStateArrays,
-                 Hp: int, magnitude: bool, beta, prior_beta, plan: DPPlan):
+                 Hp: int, magnitude: bool, beta, prior_beta, plan: DPPlan,
+                 P=None):
     """Candidates, winner tile and the annealed union logits
-    [zero | H singletons | S multi] of one chunk."""
+    [zero | H singletons | S multi] of one chunk (from P = y @ W, if
+    given)."""
     C = y.shape[0]
     inv2s2 = 0.5 / sigma2
-    P = y @ W                                                        # (C, H)
+    if P is None:
+        P = y @ W                                                    # (C, H)
     w_norm = torch.sqrt(torch.clamp(gram_diag, min=1e-30))
     cand = top_hprime_candidates(P, w_norm, Hp, magnitude)          # (C, Hp)
     Wc = W.T[cand]                                                   # (C,Hp,D)
@@ -208,13 +211,16 @@ def _union_terms(y, W, gram_diag, sigma2, log_odds, sa: LinearStateArrays,
 def _chunk_max_estats(y, w, W, gram_diag, sigma2, log_odds,
                       sa: LinearStateArrays, Hp: int, magnitude: bool,
                       beta, prior_beta, plan: DPPlan, rho: float = 0.0,
-                      collect_true: bool = True):
+                      collect_true: bool = True, P=None):
     """E-statistics for one chunk: y (C, D), w (C,) weights.
-    Returns (F (C,), sums)."""
+    Returns (F (C,), sums).  Given ``P = y @ W`` it is the middle stage
+    alone (``max_et_estep_rows``): the sums then hold ``qsw = w q_single``
+    (C, H), and numer lacks its singleton part ``qsw.T @ y``."""
     C, D = y.shape
     H = W.shape[1]
+    staged = P is not None
     u = _union_terms(y, W, gram_diag, sigma2, log_odds, sa, Hp, magnitude,
-                     beta, prior_beta, plan)
+                     beta, prior_beta, plan, P)
     logits = u["logits"]
     m = logits.max(dim=1, keepdim=True).values
     p = torch.exp(logits - m)
@@ -251,7 +257,8 @@ def _chunk_max_estats(y, w, W, gram_diag, sigma2, log_odds,
     numer.index_add_(0, idx, (accA * y[:, None, :]).reshape(C * Hp, D))
     qsw = q_single * wv[:, None]
     denom = denom + qsw.sum(dim=0)[:, None]
-    numer = numer + qsw.T @ y
+    if not staged:
+        numer = numer + qsw.T @ y
 
     resid_multi = (q_multi * (y2[:, None] - 2 * u["y_dot"]
                               + u["ybar2"])).sum(dim=1)
@@ -262,7 +269,23 @@ def _chunk_max_estats(y, w, W, gram_diag, sigma2, log_odds,
                 abs=(abs_n * wv).sum(), resid=(resid * wv).sum(),
                 y2=(y2 * wv).sum(), n=wv.sum(), F=(F * wv).sum(),
                 F_true=(F_true * wv).sum())
+    if staged:
+        sums["qsw"] = qsw
     return F, sums
+
+
+def max_et_estep_rows(y, weight, P, W, sigma2, log_odds,
+                      sa: LinearStateArrays, Hp: int, magnitude: bool, beta,
+                      prior_beta, collect_true: bool = True):
+    """The per-datapoint stage of the hard-winner E-step alone, plain
+    version of the kernel in ``csrc/max_et_estep.cu``: from ``P = y @ W`` it
+    returns (F (N,), qsw = w q_single (N, H), sums whose numer lacks
+    ``qsw.T @ y``).  The E-step is ``P = y @ W``, this, then
+    ``numer += qsw.T @ y``."""
+    F, sums = _chunk_max_estats(y, weight, W, (W * W).sum(dim=0), sigma2,
+                                log_odds, sa, Hp, magnitude, beta, prior_beta,
+                                dp_plan(sa.states), 0.0, collect_true, P=P)
+    return F, sums.pop("qsw"), sums
 
 
 def _not_ported(what: str):

@@ -1,33 +1,34 @@
-// Shared front end of the ET kernels for sm_90a: projection GEMM, top-H'
-// candidate selection, candidate Gram gather, truncated-union logits and
-// the annealed softmax, for a tile of TILE datapoints held in shared
-// memory.  The linear family (BSC / TSC / DSC) uses all of it; the max
-// family's kernel (max_et_estep.cu) the projection, the selection, the
-// scalars and the block reduction.
+// Shared front end of the ET kernels for sm_90a: top-H' candidate
+// selection, the per-datapoint scalars of F, warp reductions and the
+// in-order sum over per-block workspace slices, which every E-step kernel
+// uses; and, for the decode kernel (linear_et_decode.cu), the in-tile
+// projection, the candidate Gram gather, the truncated-union logits and
+// the annealed softmax for a tile of TILE datapoints in shared memory.
+// The E-step kernels (linear_et_estep.cu, max_et_estep.cu) take their
+// projection P = y W from sgemm.cu instead and read its rows.
 //
 // Replaces prosper_tpu/ops/linear_pallas.py::_frontend and _union_softmax,
 // the front end of the TPU kernels linear_et_estep_pallas and
 // linear_et_decode_pallas.
 //
-// What bounds it on the H100: per datapoint the front end does 2*D*H flops
-// of projection GEMM (P = y W, in float32 on the CUDA cores: no tensor
-// cores, so that the kernel agrees with its plain version to float32
-// rounding) and S*(H'+H'^2) flops of union logits, each a short dependent
-// chain per lane; the data it reads (y: D floats per row) is small against
-// that.  Measured at the patches width (D=256, H=300, S=154), the
-// projection takes about a fifth of the E-step kernel and the rest of the
-// front end is latency-bound warp work.
+// What bounds it on the H100: per datapoint the decode's front end does
+// 2*D*H flops of projection (P = y W, in float32 on the CUDA cores: no
+// tensor cores, so that the kernel agrees with its plain version to
+// float32 rounding) and S*(H'+H'^2) flops of union logits, each a short
+// dependent chain per lane; the data it reads (y: D floats per row) is
+// small against that, so it is bound by operations and, in the per-row
+// part, by the latency of those chains.
 //
 // What the design does about it: W (D x H) does not fit in shared memory at
-// the patches width (256 x 300 floats), so it is streamed through shared
-// memory in DS-row slices while every thread keeps HC x TILE partial sums
-// of P in registers; y's tile is read once and broadcast from shared memory.
-// The H x H Gram matrix stays in global memory (the L2) and only the H'^2
-// entries each row needs are gathered.  One warp owns one datapoint for
-// selection and softmax, so every per-row reduction is a warp shuffle.
-// The lanes of that warp walk the S multi states, so the state tables come
-// in state-minor (transposed) layout: 32 lanes read 32 consecutive floats
-// instead of 32 rows of the table.
+// the patches width (256 x 300 floats), so tile_projection streams it
+// through shared memory in DS-row slices while every thread keeps
+// HC x TILE partial sums of P in registers; y's tile is read once and
+// broadcast from shared memory.  The H x H Gram matrix stays in global
+// memory (the L2) and only the H'^2 entries each row needs are gathered.
+// One warp owns one datapoint for selection and softmax, so every per-row
+// reduction is a warp shuffle.  The lanes of that warp walk the S multi
+// states, so the state tables come in state-minor (transposed) layout: 32
+// lanes read 32 consecutive floats instead of 32 rows of the table.
 //
 // Numerics: the file is compiled without fast math and with -fmad=false, so
 // every elementwise expression rounds as PyTorch's separate kernels do;
@@ -70,24 +71,14 @@ struct Tables {       // device pointers, all float32 and contiguous
 struct Smem {
   float* ys;      // TILE*D   the tile's datapoints
   float* Ps;      // TILE*H   P = y W
-  float* work;    // TILE*H   scores, then the posterior mean (times w)
+  float* work;    // TILE*H   scores, then the posterior mean
   float* buf;     // TILE*U   un-annealed likelihood terms, then q
   float* Wsl;     // DS*H     a slice of W
   float* proj;    // TILE*Hp
   float* Gf;      // TILE*Hp*Hp
-  float* sscand;  // TILE*Hp*Hp  w * <s s^T> over the candidates
   float* gd;      // H        diag(gram)
   float* wn;      // H        column norms, floored
   float* prior;   // S        value_counts @ log_odds
-  float* accs;    // H        block sums of w <s>
-  float* accd;    // H        block sums of w <s_h^2> from singletons
-  float* rowF;    // TILE
-  float* rowFt;   // TILE
-  float* rowAbs;  // TILE
-  float* rowY2;   // TILE
-  float* rowW;    // TILE
-  float* rowVc;   // TILE*KMAX
-  float* misc;    // KMAX+5
   int* cand;      // TILE*Hp
 };
 
@@ -95,8 +86,8 @@ __host__ __device__ inline size_t smem_floats(int D, int H, int Hp, int S,
                                               int K) {
   const size_t U = 1 + (size_t)H * K + S;
   return (size_t)TILE * D + 2 * (size_t)TILE * H + TILE * U + (size_t)DS * H
-         + (size_t)TILE * Hp + 2 * (size_t)TILE * Hp * Hp + 4 * (size_t)H + S
-         + 5 * TILE + TILE * KMAX + KMAX + 5 + (size_t)TILE * Hp;
+         + (size_t)TILE * Hp + (size_t)TILE * Hp * Hp + 2 * (size_t)H + S
+         + (size_t)TILE * Hp;
 }
 
 __device__ inline Smem carve(float* p, const Dims& d) {
@@ -108,19 +99,9 @@ __device__ inline Smem carve(float* p, const Dims& d) {
   s.Wsl = p;     p += (size_t)DS * d.H;
   s.proj = p;    p += (size_t)TILE * d.Hp;
   s.Gf = p;      p += (size_t)TILE * d.Hp * d.Hp;
-  s.sscand = p;  p += (size_t)TILE * d.Hp * d.Hp;
   s.gd = p;      p += d.H;
   s.wn = p;      p += d.H;
   s.prior = p;   p += d.S;
-  s.accs = p;    p += d.H;
-  s.accd = p;    p += d.H;
-  s.rowF = p;    p += TILE;
-  s.rowFt = p;   p += TILE;
-  s.rowAbs = p;  p += TILE;
-  s.rowY2 = p;   p += TILE;
-  s.rowW = p;    p += TILE;
-  s.rowVc = p;   p += TILE * KMAX;
-  s.misc = p;    p += KMAX + 5;
   s.cand = reinterpret_cast<int*>(p);
   return s;
 }
@@ -168,8 +149,6 @@ __device__ inline void block_setup(const Dims& d, const Tables& t,
     const float g = t.gram[(size_t)h * d.H + h];
     sm.gd[h] = g;
     sm.wn[h] = fmaxf(sqrtf(fmaxf(g, 1e-30f)), 1e-12f);
-    sm.accs[h] = 0.f;
-    sm.accd[h] = 0.f;
   }
   for (int s = threadIdx.x; s < d.S; s += THREADS) {
     float p = 0.f;
@@ -177,7 +156,6 @@ __device__ inline void block_setup(const Dims& d, const Tables& t,
       p = fmaf(t.vcounts[(size_t)k * d.S + s], t.log_odds[k], p);
     sm.prior[s] = p;
   }
-  for (int i = threadIdx.x; i < KMAX + 5; i += THREADS) sm.misc[i] = 0.f;
 }
 
 // Load the tile's rows of y (zeros past N) and compute P = y W into
@@ -228,7 +206,8 @@ __device__ void tile_projection(const float* __restrict__ y, int row0,
 
 // One warp, one datapoint r of the tile: the top-H' candidates, Hp
 // iterated argmaxes of P / ||W_h|| (of |P| / ||W_h|| when d.signed_select),
-// ties to the lowest index, into sm.cand + r*Hp.  sm.work + r*H is scratch.
+// ties to the lowest index, into sm.cand + r*Hp.  sm.work + r*H is scratch;
+// sm.Ps may point to rows of P in shared or in device memory.
 __device__ inline void select_candidates(int r, int lane, const Dims& d,
                                          const Smem& sm) {
   const int H = d.H, Hp = d.Hp;
@@ -249,14 +228,15 @@ __device__ inline void select_candidates(int r, int lane, const Dims& d,
   }
 }
 
-// out[j] = sum over blocks b, in order, of ws[b][j]: the second pass of the
-// E-step kernels, which sum into one workspace slice per persistent block
+// out[j] = sum over blocks b, in order, of ws[b][j] (added to what out[j]
+// holds when accumulate is set): the second pass of the kernels that sum
+// into one workspace slice per block or per split
 static __global__ void reduce_blocks(const float* __restrict__ ws,
                                      float* __restrict__ out, int nb,
-                                     size_t stride) {
+                                     size_t stride, int accumulate) {
   const size_t j = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= stride) return;
-  float acc = 0.f;
+  float acc = accumulate ? out[j] : 0.f;
   for (int b = 0; b < nb; ++b) acc += ws[(size_t)b * stride + j];
   out[j] = acc;
 }

@@ -1,24 +1,37 @@
-// Fused max-superposition (MCA / MMCA) ET E-step, hard winner, for sm_90a.
+// Max-superposition (MCA / MMCA) ET E-step, hard winner, for sm_90a: the
+// per-datapoint part and the multi-state routing.
 //
-// Replaces both TPU kernels of prosper_tpu/ops/max_pallas.py:
-// max_et_estep_pallas (the (S, D, Ct) winner lattice resident in VMEM) and
-// max_et_estep_pallas_dtiled (the same lattice in D blocks, two phases).
-// It computes what core/maxstep.py::max_et_estep computes for rho <= 0:
-// per datapoint the top-H' candidates by P / ||W_h|| (|P| for MMCA), the
-// winner lattice ybar_s[d] over the S multi states by the subset-lattice
-// DP, the union softmax over [zero | H singletons | S multi states], F (and
-// the un-annealed F_true), and the weight-masked sums numer (H, D) and
+// With sgemm.cu it replaces both TPU kernels of
+// prosper_tpu/ops/max_pallas.py: max_et_estep_pallas (the (S, D, Ct) winner
+// lattice resident in VMEM) and max_et_estep_pallas_dtiled (the same
+// lattice in D blocks, two phases).  Together they compute what
+// core/maxstep.py::max_et_estep computes for rho <= 0: per datapoint the
+// top-H' candidates by P / ||W_h|| (|P| for MMCA), the winner lattice
+// ybar_s[d] over the S multi states by the subset-lattice DP, the union
+// softmax over [zero | H singletons | S multi states], F (and the
+// un-annealed F_true), and the weight-masked sums numer (H, D) and
 // denom (H, D) of the hard-winner responsibilities, s (H) and
-// misc = [abs, resid, y2, n, F, F_true].
+// misc = [abs, resid, y2, n, F, F_true].  The wrapper
+// (ops/max_cuda.py::max_et_estep_cuda) runs three stages:
 //
-// What bounds it on the H100: per datapoint the projection P = y W
-// (2 D H flops, float32 on the CUDA cores), the lattice (2 passes of
-// S x D compare-selects) and, per tile of TILE datapoints, the singleton
-// part of numer, numer[h][d] += sum_n w_n q_nh y_nd: a (D x TILE) x
-// (TILE x H) product into the block's (H, D) slice in device memory, as
-// the xs update of the linear E-step.
+//   1. sgemm_nn          P = y W                         (N, H), sgemm.cu
+//   2. max_estep_kernel  here: everything per datapoint; turns the row of
+//      P into w q_single in place, and sums the multi states' part of
+//      numer and denom, the singleton part of denom, s and misc
+//   3. sgemm_tn_splitn   numer += (w q_single)^T y       (H, D), sgemm.cu
+//
+// What bounds this kernel on the H100: operations, in the lattice.  Per
+// datapoint it reads a row of P and of y (H + D floats) and walks the
+// lattice twice (2 passes of S x D compare-selects, plus S x D FMAs for
+// y.ybar_s and ||ybar_s||^2 in the first pass): about 10 Gop for 131072
+// rows at the patches width, against 0.3 GB of reads.  Each pass is a
+// chain of dependent shared-memory lookups per dimension, so it runs well
+// below that rate.
 //
 // What the design does about it:
+// * The two D x H products are not here: they run as register-tiled GEMMs
+//   over all N rows (sgemm.cu), so the block holds no slice of W and no
+//   tile of P, and two blocks fit an SM where one did.
 // * The lattice never exists whole.  A state's winner is its parent's
 //   winner or its added slot, so only the winning slot is kept per state
 //   (one byte), and its value is looked up among the H' candidate values of
@@ -63,7 +76,7 @@ constexpr int LS = 33;     // row stride of a warp's strip lattice
 constexpr int NMISC = 6;   // abs, resid, y2, n, F, F_true
 
 struct MaxSmem {
-  Smem base;            // ys, Ps, work, Wsl, wn, cand of the shared front end
+  Smem base;            // ys, work, wn, cand of the shared front end
   float* q;             // TILE*U   posterior [zero | H singles | S multi]
   float* gd;            // H        ||W_h||^2
   float* accs;          // H        block sums of w <s>
@@ -85,8 +98,8 @@ struct MaxSmem {
 
 __host__ __device__ inline size_t smem_bytes(int D, int H, int Hp, int S) {
   const size_t U = 1 + (size_t)H + S;
-  const size_t floats = (size_t)TILE * D + 2 * (size_t)TILE * H
-                        + (size_t)let::DS * H + H + TILE * U + 3 * (size_t)H
+  const size_t floats = (size_t)TILE * D + (size_t)TILE * H + H
+                        + TILE * U + 3 * (size_t)H
                         + 6 * TILE + NMISC + (size_t)WARPS * Hp * LS
                         + (size_t)Hp * THREADS;
   const size_t ints = (size_t)TILE * Hp + 2 * (size_t)S;
@@ -98,9 +111,7 @@ __device__ inline MaxSmem carve_max(float* p, const Dims& d) {
   MaxSmem s{};
   const size_t U = d.U;
   s.base.ys = p;     p += (size_t)TILE * d.D;
-  s.base.Ps = p;     p += (size_t)TILE * d.H;
   s.base.work = p;   p += (size_t)TILE * d.H;
-  s.base.Wsl = p;    p += (size_t)let::DS * d.H;
   s.base.wn = p;     p += d.H;
   s.q = p;           p += TILE * U;
   s.gd = p;          p += d.H;
@@ -148,10 +159,11 @@ __host__ __device__ inline size_t ws_stride(int D, int H) {
   return 2 * (size_t)D * H + H + NMISC;
 }
 
-template <int HC>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 2)
 max_estep_kernel(const float* __restrict__ y,
                  const float* __restrict__ weight,
+                 float* P,            // (N, H): y W on entry, w q_single
+                                      // on exit
                  const float* __restrict__ WT,     // (H, D)
                  const float* __restrict__ gdiag,  // (H,)
                  const int* __restrict__ plan,     // par (S,) | add (S,)
@@ -188,15 +200,22 @@ max_estep_kernel(const float* __restrict__ y,
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int row0 = tile * TILE;
     const int nrows = min(TILE, d.N - row0);
-    let::tile_projection<HC>(y, row0, nrows, d, t, sm.base);
+    for (int i = tid; i < TILE * D; i += THREADS) {
+      const int r = i / D;
+      sm.base.ys[i] =
+          r < nrows ? y[(size_t)(row0 + r) * D + (i - r * D)] : 0.f;
+    }
+    Smem sel = sm.base;               // candidates from P's rows in device
+    sel.Ps = P + (size_t)row0 * H;    // memory
+    __syncthreads();
 
     // ---- one warp per datapoint: selection, phase 0, softmax, row stats
     for (int r = warp; r < nrows; r += WARPS) {
       const float w = weight[row0 + r];
-      let::select_candidates(r, lane, d, sm.base);
+      let::select_candidates(r, lane, d, sel);
       const int* cand = sm.base.cand + r * Hp;
       const float* yr = sm.base.ys + (size_t)r * D;
-      const float* P = sm.base.Ps + (size_t)r * H;
+      float* Prow = P + ((size_t)row0 + r) * H;
 
       // phase 0: y.ybar_s and ||ybar_s||^2, lane k*32+lane owns state s
       float yd[SPL], yb2[SPL];
@@ -229,7 +248,7 @@ max_estep_kernel(const float* __restrict__ y,
       float* q = sm.q + (size_t)r * U;
       float mx = 0.f, mxt = 0.f;             // the zero state's logit is 0
       for (int h = lane; h < H; h += 32) {
-        const float lik = (2.f * P[h] - sm.gd[h]) * c.inv2s2;
+        const float lik = (2.f * Prow[h] - sm.gd[h]) * c.inv2s2;
         q[1 + h] = lik;
         mx = fmaxf(mx, c.beta * lik + c.pb * lo);
         mxt = fmaxf(mxt, lik + lo);
@@ -287,7 +306,8 @@ max_estep_kernel(const float* __restrict__ y,
       float qs = 0.f, res = 0.f;
       for (int h = lane; h < H; h += 32) {
         qs += q[1 + h];
-        res = fmaf(q[1 + h], (y2 - 2.f * P[h]) + sm.gd[h], res);
+        res = fmaf(q[1 + h], (y2 - 2.f * Prow[h]) + sm.gd[h], res);
+        Prow[h] = q[1 + h] * w;          // P's row becomes w q_single
       }
       float am = 0.f;
 #pragma unroll
@@ -350,19 +370,13 @@ max_estep_kernel(const float* __restrict__ y,
       }
     }
 
-    // ---- phase 1: each thread owns its dimensions dd
+    // ---- phase 1: each thread owns its dimensions dd (the singleton part
+    // of numer, (w q_single)^T y, is a GEMM over P's rows after the kernel)
     for (int dd = tid; dd < D; dd += THREADS) {
       float ycol[TILE];
 #pragma unroll
       for (int r = 0; r < TILE; ++r)
         ycol[r] = r < nrows ? sm.base.ys[(size_t)r * D + dd] : 0.f;
-      // singletons: numer[h][dd] += sum_r (w_r q_rh) y_r[dd]
-      for (int h = 0; h < H; ++h) {
-        float acc = wnum[(size_t)h * D + dd];
-        for (int r = 0; r < nrows; ++r)
-          acc = fmaf(sm.q[(size_t)r * U + 1 + h] * sm.rowW[r], ycol[r], acc);
-        wnum[(size_t)h * D + dd] = acc;
-      }
       // multi states: rebuild the winners, route w q_s to the winning slot
       for (int r = 0; r < nrows; ++r) {
         const float w = sm.rowW[r];
@@ -401,24 +415,28 @@ max_estep_kernel(const float* __restrict__ y,
   if (tid < NMISC) wmisc[tid] = sm.misc[tid];
 }
 
-template <int HC>
-cudaError_t launch(const float* y, const float* weight, const float* WT,
+cudaError_t launch(const float* y, const float* weight, float* P,
+                   const float* WT,
                    const float* gdiag, const int* plan, Tables t, Dims d,
                    int magnitude, float* F, float* ws, float* sums, int nb,
                    cudaStream_t stream) {
   const size_t smem = smem_bytes(d.D, d.H, d.Hp, d.S);
   cudaError_t e = cudaFuncSetAttribute(
-      max_estep_kernel<HC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      max_estep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(max_estep_kernel,
+                           cudaFuncAttributePreferredSharedMemoryCarveout,
+                           cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return e;
   const int n_tiles = (d.N + TILE - 1) / TILE;
-  max_estep_kernel<HC><<<nb, THREADS, smem, stream>>>(
-      y, weight, WT, gdiag, plan, t, d, magnitude, F, ws, n_tiles);
+  max_estep_kernel<<<nb, THREADS, smem, stream>>>(
+      y, weight, P, WT, gdiag, plan, t, d, magnitude, F, ws, n_tiles);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const size_t stride = ws_stride(d.D, d.H);
   let::reduce_blocks<<<(unsigned)((stride + 255) / 256), 256, 0, stream>>>(
-      ws, sums, nb, stride);
+      ws, sums, nb, stride, 0);
   return cudaGetLastError();
 }
 
@@ -434,31 +452,25 @@ size_t max_et_smem_bytes(int D, int H, int Hp, int S) {
   return mxe::smem_bytes(D, H, Hp, S);
 }
 
-// sums = [numer (H*D) | denom (H*D) | s (H) | abs | resid | y2 | n | F |
-// F_true].  WT is W transposed (H, D); states is (Hp, S) state-minor;
-// plan holds the DP's parents and added slots (2*S int32); log_odds has
-// one entry and values is [1.0].
-int max_et_estep(const float* y, const float* weight, const float* W,
+// P (N, H) holds y W and leaves as w q_single.  sums = [numer (H*D) |
+// denom (H*D) | s (H) | abs | resid | y2 | n | F | F_true]; numer lacks
+// its singleton part (w q_single)^T y, which the caller adds.  WT is W
+// transposed (H, D); states is (Hp, S) state-minor; plan holds the DP's
+// parents and added slots (2*S int32); log_odds has one entry and values
+// is [1.0].
+int max_et_estep(const float* y, const float* weight, float* P,
                  const float* WT, const float* gdiag, const float* states,
                  const float* absst, const int* plan, const float* values,
                  const float* log_odds, const float* scal, float* F,
                  float* ws, float* sums, int N, int D, int H, int Hp, int S,
                  int magnitude, int collect_true, int n_blocks,
                  void* stream) {
-  let::Tables t{W, nullptr, states, nullptr, nullptr, absst, values,
+  let::Tables t{nullptr, nullptr, states, nullptr, nullptr, absst, values,
                 log_odds, scal};
   let::Dims d{N, D, H, Hp, S, 1, 1 + H + S, magnitude, collect_true};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int hc = (H + let::THREADS - 1) / let::THREADS;
-  cudaError_t e;
-  switch (hc) {
-    case 1: e = mxe::launch<1>(y, weight, WT, gdiag, plan, t, d, magnitude, F, ws, sums, n_blocks, s); break;
-    case 2: e = mxe::launch<2>(y, weight, WT, gdiag, plan, t, d, magnitude, F, ws, sums, n_blocks, s); break;
-    case 3: e = mxe::launch<3>(y, weight, WT, gdiag, plan, t, d, magnitude, F, ws, sums, n_blocks, s); break;
-    case 4: e = mxe::launch<4>(y, weight, WT, gdiag, plan, t, d, magnitude, F, ws, sums, n_blocks, s); break;
-    default: e = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(e);
+  return static_cast<int>(mxe::launch(
+      y, weight, P, WT, gdiag, plan, t, d, magnitude, F, ws, sums, n_blocks,
+      static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

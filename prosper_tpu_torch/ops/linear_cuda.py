@@ -2,9 +2,14 @@
 
 Two kernels share one front end (``csrc/linear_et_frontend.cuh``):
 
-* ``linear_et_estep``  (``csrc/linear_et_estep.cu``) replaces
+* ``linear_et_estep`` replaces
   ``prosper_tpu/ops/linear_pallas.py::linear_et_estep_pallas``: F per
-  datapoint and the weight-masked sufficient statistics (training).
+  datapoint and the weight-masked sufficient statistics (training).  It
+  runs in three stages: ``P = y W`` by the ``sgemm_nn`` kernel
+  (``ops/gemm_cuda.py``), the per-datapoint kernel
+  (``csrc/linear_et_estep.cu``), which turns P's rows into ``w <s>`` in
+  place, and ``xs = y^T (w <s>)`` by the ``sgemm_tn_splitn`` kernel.  One
+  call counts once in ``LAUNCHES["estep"]``.
 * ``linear_et_decode`` (``csrc/linear_et_decode.cu``) replaces
   ``linear_et_decode_pallas``: F, the posterior mean, the top-L states in
   canonical union indices and the candidates (serving).
@@ -26,19 +31,21 @@ from prosper_tpu_torch.core import etstep
 from prosper_tpu_torch.core.etstep import LinearStateArrays
 from prosper_tpu_torch.ops.bigs_cuda import linear_et_estep_bigs_cuda
 from prosper_tpu_torch.ops.cuda_lib import (LAUNCHES, SMEM_LIMIT, check,
-                                            load_library, n_blocks, raise_on,
-                                            scalars)
+                                            in_row_chunks, load_library,
+                                            n_blocks, raise_on, scalars)
+from prosper_tpu_torch.ops.gemm_cuda import (sgemm_nn_cuda,
+                                             sgemm_tn_splitn_cuda)
 
 __all__ = ["LAUNCHES", "load_library", "linear_et_estep",
            "linear_et_estep_cuda", "linear_et_decode", "linear_et_decode_cuda"]
 
 HP_MAX, K_MAX, H_MAX = 32, 8, 1024
-TILE = 16                    # datapoints per tile, as TILE in the sources
+ROWS_TILE = 8                # datapoints per tile of the E-step's rows kernel
 
 
 def _check_common(y, W, log_odds, sa: LinearStateArrays, Hp: int):
     """Validate the shared inputs, then build/load the kernels.
-    Returns (lib, N, D, H, S, K, smem bytes)."""
+    Returns (lib, N, D, H, S, K)."""
     if y.device.type != "cuda":
         raise ValueError(f"the CUDA kernels take CUDA tensors, got {y.device}")
     N, D = y.shape
@@ -58,15 +65,16 @@ def _check_common(y, W, log_odds, sa: LinearStateArrays, Hp: int):
     if not (Hp <= HP_MAX and K <= K_MAX and H <= H_MAX):
         raise ValueError(f"kernel limits: Hp <= {HP_MAX}, K <= {K_MAX}, "
                          f"H <= {H_MAX}; got {Hp=} {K=} {H=}")
-    lib = load_library()
-    smem = lib.linear_et_smem_bytes(D, H, Hp, S, K)
+    return load_library(), N, D, H, S, K
+
+
+def _check_smem(smem: int, S: int):
     if smem > SMEM_LIMIT:
         raise ValueError(
             f"the enumerated state space (S={S} multi states) is too large "
-            f"for the fused kernel: a tile needs {smem} bytes of shared "
-            f"memory, more than the {SMEM_LIMIT} a block may use; train "
-            "such a model with s_block > 0 (the big-S E-step)")
-    return lib, N, D, H, S, K, smem
+            f"for the fused kernel: a block needs {smem} bytes of shared "
+            f"memory, more than the {SMEM_LIMIT} it may use; train such a "
+            "model with s_block > 0 (the big-S E-step)")
 
 
 def _state_minor(sa: LinearStateArrays):
@@ -76,32 +84,50 @@ def _state_minor(sa: LinearStateArrays):
             sa.value_counts.T.contiguous())
 
 
+def _estep_rows(lib, y, weight, W, gram, scal, log_odds, tables,
+                sa: LinearStateArrays, Hp: int, signed_select: bool,
+                collect_true: bool, smem: int):
+    """The three stages on one chunk of rows: (F, sums (D*H + stride,))."""
+    (N, D), H = y.shape, W.shape[1]
+    S, K = sa.value_counts.shape
+    dev = y.device
+    states, outer, vcounts = tables
+    nb = n_blocks(dev, smem, -(-N // ROWS_TILE))
+    stride = lib.linear_et_estep_ws_stride(H, K)
+    F = torch.empty(N, dtype=torch.float32, device=dev)
+    ws = torch.empty(nb * stride, dtype=torch.float32, device=dev)
+    sums = torch.empty(D * H + stride, dtype=torch.float32, device=dev)
+    P = sgemm_nn_cuda(y, W)
+    err = lib.linear_et_estep_rows(
+        y.data_ptr(), weight.data_ptr(), P.data_ptr(), gram.data_ptr(),
+        states.data_ptr(), outer.data_ptr(), vcounts.data_ptr(),
+        sa.abs_states.data_ptr(), sa.values.data_ptr(), log_odds.data_ptr(),
+        scal.data_ptr(), F.data_ptr(), ws.data_ptr(),
+        sums[D * H:].data_ptr(), N, D, H, Hp, S, K, int(signed_select),
+        int(collect_true), nb, torch.cuda.current_stream(dev).cuda_stream)
+    raise_on(lib, err, "linear_et_estep_rows")
+    sgemm_tn_splitn_cuda(y, P, out=sums[:D * H].view(D, H))  # P holds w <s>
+    return F, sums
+
+
 def linear_et_estep_cuda(y, weight, W, sigma2, log_odds,
                          sa: LinearStateArrays, Hp: int, signed_select: bool,
                          beta, prior_beta, collect_true: bool = True
                          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """The fused E-step kernel on CUDA tensors; same contract as
-    ``core.etstep.linear_et_estep`` (any N, no chunking)."""
-    lib, N, D, H, S, K, smem = _check_common(y, W, log_odds, sa, Hp)
+    """The E-step kernels on CUDA tensors; same contract as
+    ``core.etstep.linear_et_estep`` (any N; rows are chunked only where the
+    (N, H) workspace for P would exceed ``cuda_lib.P_LIMIT_BYTES``)."""
+    lib, N, D, H, S, K = _check_common(y, W, log_odds, sa, Hp)
+    smem = lib.linear_et_rows_smem_bytes(H, Hp, S, K)
+    _check_smem(smem, S)
     dev = y.device
     check(weight, "weight", (N,), dev)
     gram = (W.T @ W).contiguous()
     scal = scalars(sigma2, beta, prior_beta, dev)
-    states, outer, vcounts = _state_minor(sa)
-    nb = n_blocks(dev, smem, -(-N // TILE))
-    stride = lib.linear_et_estep_ws_stride(D, H, K)
-    F = torch.empty(N, dtype=torch.float32, device=dev)
-    ws = torch.empty(nb * stride, dtype=torch.float32, device=dev)
-    sums = torch.empty(stride, dtype=torch.float32, device=dev)
-    err = lib.linear_et_estep(
-        y.data_ptr(), weight.data_ptr(), W.data_ptr(), gram.data_ptr(),
-        states.data_ptr(), outer.data_ptr(), vcounts.data_ptr(),
-        sa.abs_states.data_ptr(),
-        sa.values.data_ptr(), log_odds.data_ptr(), scal.data_ptr(),
-        F.data_ptr(), ws.data_ptr(), sums.data_ptr(),
-        N, D, H, Hp, S, K, int(signed_select), int(collect_true), nb,
-        torch.cuda.current_stream(dev).cuda_stream)
-    raise_on(lib, err, "linear_et_estep")
+    tables = _state_minor(sa)
+    F, sums = in_row_chunks(N, H, lambda i, j: _estep_rows(
+        lib, y[i:j], weight[i:j], W, gram, scal, log_odds, tables, sa, Hp,
+        signed_select, collect_true, smem))
     LAUNCHES["estep"] += 1
     o = D * H + H * H
     out = dict(xs=sums[:D * H].view(D, H), ss=sums[D * H:o].view(H, H),
@@ -116,7 +142,8 @@ def linear_et_decode_cuda(y, W, sigma2, log_odds, sa: LinearStateArrays,
                           prior_beta):
     """The fused decode kernel on CUDA tensors; same contract as
     ``core.etstep.linear_et_decode``."""
-    lib, N, D, H, S, K, _ = _check_common(y, W, log_odds, sa, Hp)
+    lib, N, D, H, S, K = _check_common(y, W, log_odds, sa, Hp)
+    _check_smem(lib.linear_et_smem_bytes(D, H, Hp, S, K), S)
     if top_L > 1 + H * K + S:
         raise ValueError(f"top_L={top_L} exceeds the {1 + H * K + S} "
                          "posterior columns")
@@ -147,7 +174,7 @@ def linear_et_estep(y, weight, W, sigma2, log_odds, sa: LinearStateArrays,
                     Hp: int, signed_select: bool, beta, prior_beta,
                     chunk: int = 2048, collect_true: bool = True,
                     s_block: int = 0):
-    """E-step: a kernel on a CUDA tensor, the fused E-step kernel or, with
+    """E-step: kernels on a CUDA tensor, the E-step's three stages or, with
     ``s_block > 0``, the big-S one (``ops/bigs_cuda.py``); its plain version
     (``core.etstep.linear_et_estep``, chunked by ``chunk``) on a CPU one."""
     if y.device.type == "cpu":

@@ -1,10 +1,15 @@
 """Hand-written CUDA kernel for the max-superposition (MCA / MMCA) E-step.
 
-``max_et_estep`` (``csrc/max_et_estep.cu``) replaces both TPU kernels of
+``max_et_estep`` replaces both TPU kernels of
 ``prosper_tpu/ops/max_pallas.py``, ``max_et_estep_pallas`` and
 ``max_et_estep_pallas_dtiled``: the hard-winner (rho <= 0) E-step, F per
-datapoint and the weight-masked M-step sums.  The library is built and
-loaded by ``ops/cuda_lib.py`` at first CUDA use.  On a CPU tensor the
+datapoint and the weight-masked M-step sums.  It runs in three stages:
+``P = y W`` by the ``sgemm_nn`` kernel (``ops/gemm_cuda.py``), the
+per-datapoint kernel (``csrc/max_et_estep.cu``), which turns P's rows into
+``w q_single`` in place, and the singleton part of numer,
+``(w q_single)^T y``, by the ``sgemm_tn_splitn`` kernel; one call counts
+once in ``LAUNCHES["max_estep"]``.  The library is built and loaded by
+``ops/cuda_lib.py`` at first CUDA use.  On a CPU tensor the
 wrapper runs the plain version (``core/maxstep.py``); on a CUDA tensor it
 launches the kernel or raises.
 """
@@ -18,24 +23,54 @@ import torch
 from prosper_tpu_torch.core import maxstep
 from prosper_tpu_torch.core.etstep import LinearStateArrays
 from prosper_tpu_torch.ops.cuda_lib import (LAUNCHES, SMEM_LIMIT, check,
-                                            load_library, n_blocks, raise_on,
-                                            scalars)
+                                            in_row_chunks, load_library,
+                                            n_blocks, raise_on, scalars)
+from prosper_tpu_torch.ops.gemm_cuda import (sgemm_nn_cuda,
+                                             sgemm_tn_splitn_cuda)
 
 __all__ = ["LAUNCHES", "max_et_estep", "max_et_estep_cuda"]
 
-#: kernel limits: H' candidate slots (HPM), multi states (32 * SPL) and
-#: units (the projection's register blocking), as in the source
-HP_MAX, S_MAX, H_MAX = 8, 128, 1024
+#: kernel limits: H' candidate slots (HPM) and multi states (32 * SPL), as
+#: in the source
+HP_MAX, S_MAX = 8, 128
 TILE = 16                    # datapoints per tile, as TILE in the source
 KEYS = ("abs", "resid", "y2", "n", "F", "F_true")
+
+
+def _estep_rows(lib, y, weight, W, WT, gdiag, states, plan, lo, scal,
+                sa: LinearStateArrays, Hp: int, magnitude: bool,
+                collect_true: bool, smem: int):
+    """The three stages on one chunk of rows: (F, sums (stride,))."""
+    (N, D), H = y.shape, W.shape[1]
+    S = sa.states.shape[0]
+    dev = y.device
+    nb = n_blocks(dev, smem, -(-N // TILE))
+    stride = lib.max_et_estep_ws_stride(D, H)
+    F = torch.empty(N, dtype=torch.float32, device=dev)
+    ws = torch.empty(nb * stride, dtype=torch.float32, device=dev)
+    sums = torch.empty(stride, dtype=torch.float32, device=dev)
+    P = sgemm_nn_cuda(y, W)
+    err = lib.max_et_estep(
+        y.data_ptr(), weight.data_ptr(), P.data_ptr(), WT.data_ptr(),
+        gdiag.data_ptr(), states.data_ptr(), sa.abs_states.data_ptr(),
+        plan.data_ptr(), sa.values.data_ptr(), lo.data_ptr(),
+        scal.data_ptr(), F.data_ptr(), ws.data_ptr(), sums.data_ptr(),
+        N, D, H, Hp, S, int(magnitude), int(collect_true), nb,
+        torch.cuda.current_stream(dev).cuda_stream)
+    raise_on(lib, err, "max_et_estep")
+    # P holds w q_single: the singleton part of numer, after the blocks'
+    sgemm_tn_splitn_cuda(P, y, out=sums[:H * D].view(H, D), accumulate=True)
+    return F, sums
 
 
 def max_et_estep_cuda(y, weight, W, sigma2, log_odds, sa: LinearStateArrays,
                       Hp: int, magnitude: bool, beta, prior_beta,
                       collect_true: bool = True
                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """The fused hard-winner E-step kernel on CUDA tensors; same contract
-    as ``core.maxstep.max_et_estep`` with rho <= 0 (any N, no chunking).
+    """The hard-winner E-step kernels on CUDA tensors; same contract as
+    ``core.maxstep.max_et_estep`` with rho <= 0 (any N; rows are chunked
+    only where the (N, H) workspace for P would exceed
+    ``cuda_lib.P_LIMIT_BYTES``).
     Returns (F (N,), sums) with numer, denom (H, D), s (H) and the scalars
     abs, resid, y2, n, F, F_true."""
     if y.device.type != "cuda":
@@ -55,9 +90,9 @@ def max_et_estep_cuda(y, weight, W, sigma2, log_odds, sa: LinearStateArrays,
     check(sa.values, "values", (1,), dev)     # binary states: values [1.0]
     if N < 1:
         raise ValueError("need at least one datapoint")
-    if not (Hp <= HP_MAX and S <= S_MAX and H <= H_MAX):
-        raise ValueError(f"kernel limits: Hp <= {HP_MAX}, S <= {S_MAX}, "
-                         f"H <= {H_MAX}; got {Hp=} {S=} {H=}")
+    if not (Hp <= HP_MAX and S <= S_MAX):
+        raise ValueError(f"kernel limits: Hp <= {HP_MAX}, S <= {S_MAX}; "
+                         f"got {Hp=} {S=}")
     lib = load_library()
     smem = lib.max_et_smem_bytes(D, H, Hp, S)
     if smem > SMEM_LIMIT:
@@ -69,19 +104,9 @@ def max_et_estep_cuda(y, weight, W, sigma2, log_odds, sa: LinearStateArrays,
     states = sa.states.T.contiguous()           # state-minor, as the lanes
     lo = lo.reshape(1).contiguous()
     scal = scalars(sigma2, beta, prior_beta, dev)
-    nb = n_blocks(dev, smem, -(-N // TILE))
-    stride = lib.max_et_estep_ws_stride(D, H)
-    F = torch.empty(N, dtype=torch.float32, device=dev)
-    ws = torch.empty(nb * stride, dtype=torch.float32, device=dev)
-    sums = torch.empty(stride, dtype=torch.float32, device=dev)
-    err = lib.max_et_estep(
-        y.data_ptr(), weight.data_ptr(), W.data_ptr(), WT.data_ptr(),
-        gdiag.data_ptr(), states.data_ptr(), sa.abs_states.data_ptr(),
-        plan.data_ptr(), sa.values.data_ptr(), lo.data_ptr(),
-        scal.data_ptr(), F.data_ptr(), ws.data_ptr(), sums.data_ptr(),
-        N, D, H, Hp, S, int(magnitude), int(collect_true), nb,
-        torch.cuda.current_stream(dev).cuda_stream)
-    raise_on(lib, err, "max_et_estep")
+    F, sums = in_row_chunks(N, H, lambda i, j: _estep_rows(
+        lib, y[i:j], weight[i:j], W, WT, gdiag, states, plan, lo, scal, sa,
+        Hp, magnitude, collect_true, smem))
     LAUNCHES["max_estep"] += 1
     HD = H * D
     out = dict(numer=sums[:HD].view(H, D), denom=sums[HD:2 * HD].view(H, D),

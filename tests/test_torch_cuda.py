@@ -1,6 +1,6 @@
-"""The CUDA kernels of the port (the linear E-step and decode, the max
-family's E-step, the big-S recurrence) against their plain versions, on
-the card.
+"""The CUDA kernels of the port (the two GEMMs, the linear E-step and
+decode, the max family's E-step, the big-S recurrence) against their plain
+versions, on the card.
 
 Marked ``cuda``: they skip where no CUDA device is present.  On a machine
 with a card:  python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -17,7 +17,8 @@ import torch
 from prosper_tpu_torch.core import etstep, maxstep
 from prosper_tpu_torch.core.states import (binary_state_space,
                                            discrete_state_space)
-from prosper_tpu_torch.ops import bigs_cuda, linear_cuda, max_cuda
+from prosper_tpu_torch.ops import (bigs_cuda, cuda_lib, gemm_cuda, linear_cuda,
+                                   max_cuda)
 
 pytestmark = pytest.mark.cuda
 
@@ -100,6 +101,86 @@ def test_wrapper_rejects_cpu_tensors_and_bad_shapes(device):
                                           10_000, 1.0, 1.0)
 
 
+def test_estep_wrapper_repeats_bit_identical_and_chunks_rows(device,
+                                                             monkeypatch):
+    """Two calls give the same bits (no atomics anywhere); a workspace limit
+    that cuts N into chunks of rows changes only the order of the sums."""
+    y, w, W, lo, sa, Hp, signed = _inputs(CASES[3], device)
+    args = (y, w, W, torch.tensor(2.5, device=device), lo, sa, Hp, signed,
+            1.0, 1.0)
+    F1, one = linear_cuda.linear_et_estep_cuda(*args)
+    F2, two = linear_cuda.linear_et_estep_cuda(*args)
+    monkeypatch.setattr(cuda_lib, "P_LIMIT_BYTES", 1024 * 4 * W.shape[1])
+    F3, cut = linear_cuda.linear_et_estep_cuda(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(F1, F2) and torch.equal(F1, F3)
+    for k in one:
+        assert torch.equal(one[k], two[k]), k
+        torch.testing.assert_close(cut[k], one[k], rtol=1e-4, atol=1e-4,
+                                   msg=k)
+
+
+# ---- the two GEMM kernels ---------------------------------------------------
+
+GEMM_SHAPES = [(131072, 256, 300)] + [(N, D, H) for N in (1000, 16385)
+                                      for D in (25, 256) for H in (10, 300)]
+
+
+@pytest.mark.parametrize("shape", GEMM_SHAPES,
+                         ids=lambda s: "N%dD%dH%d" % s)
+@pytest.mark.parametrize("quantised", [True, False], ids=["quarters", "randn"])
+def test_gemm_kernels_match_float64(shape, quantised, device):
+    """Both kernels against float64 matmul, N a multiple of no tile, rows of
+    zeros among the operands: exact on inputs quantised to 1/4 (every
+    partial sum is exact in float32), within 2e-7 per term of the chain
+    otherwise; two calls give the same bits."""
+    N, D, H = shape
+    rng = np.random.default_rng(N + D + H)
+
+    def draw(*sh):
+        a = rng.standard_normal(sh)
+        a = np.round(a * 4) / 4 if quantised else a
+        return torch.as_tensor(a.astype(np.float32), device=device)
+    y, W, sw, base = draw(N, D), draw(D, H), draw(N, H), draw(D, H)
+    y[:40] = 0.0
+    sw[-3:] = 0.0
+    for out, again, ref, depth in (
+            (gemm_cuda.sgemm_nn_cuda(y, W), gemm_cuda.sgemm_nn_cuda(y, W),
+             y.double() @ W.double(), D),
+            (gemm_cuda.sgemm_tn_splitn_cuda(y, sw),
+             gemm_cuda.sgemm_tn_splitn_cuda(y, sw),
+             y.double().T @ sw.double(), N),
+            (gemm_cuda.sgemm_tn_splitn_cuda(y, sw, out=base.clone(),
+                                            accumulate=True),
+             gemm_cuda.sgemm_tn_splitn_cuda(y, sw, out=base.clone(),
+                                            accumulate=True),
+             base.double() + y.double().T @ sw.double(), N)):
+        torch.cuda.synchronize()
+        assert torch.equal(out, again)
+        if quantised:
+            assert torch.equal(out.double(), ref)
+        else:
+            torch.testing.assert_close(out.double(), ref, rtol=1e-5,
+                                       atol=2e-7 * depth)
+
+
+def test_gemm_wrappers_reject_bad_outputs_and_dispatch(device):
+    a = torch.zeros(64, 8, device=device)
+    b = torch.zeros(8, 12, device=device)
+    with pytest.raises(ValueError):                  # out of the wrong shape
+        gemm_cuda.sgemm_tn_splitn_cuda(a, a, out=torch.zeros(8, 12,
+                                                             device=device))
+    with pytest.raises(ValueError):                  # accumulate into nothing
+        gemm_cuda.sgemm_tn_splitn_cuda(a, a, accumulate=True)
+    with pytest.raises(ValueError):                  # operands on two devices
+        gemm_cuda.sgemm_nn_cuda(a, b.cpu())
+    before = dict(gemm_cuda.LAUNCHES)
+    assert gemm_cuda.sgemm_nn(a, b).is_cuda
+    assert gemm_cuda.sgemm_tn_splitn(a, a).is_cuda
+    assert gemm_cuda.LAUNCHES["sgemm_nn"] == before["sgemm_nn"] + 1
+    assert gemm_cuda.LAUNCHES["sgemm_tn"] == before["sgemm_tn"] + 1
+
+
 # ---- the max-family E-step kernel (MCA / MMCA) ------------------------------
 
 MAX_CASES = [  # (N, D, H, Hp, gamma): bars, mca_small, patches
@@ -143,6 +224,23 @@ def test_max_estep_kernel_matches_plain(case, magnitude, beta, device):
                                    msg=k)
         if beta == 1.0 and k != "F_true":
             assert torch.equal(on[k], off[k]), k
+
+
+def test_max_wrapper_repeats_bit_identical_and_chunks_rows(device,
+                                                           monkeypatch):
+    y, w, W, lo, sa, Hp = _max_inputs(MAX_CASES[1], True, device)
+    args = (y, w, W, torch.tensor(2.5, device=device), lo, sa, Hp, True,
+            1.0, 1.0)
+    F1, one = max_cuda.max_et_estep_cuda(*args)
+    F2, two = max_cuda.max_et_estep_cuda(*args)
+    monkeypatch.setattr(cuda_lib, "P_LIMIT_BYTES", 1024 * 4 * W.shape[1])
+    F3, cut = max_cuda.max_et_estep_cuda(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(F1, F2) and torch.equal(F1, F3)
+    for k in one:
+        assert torch.equal(one[k], two[k]), k
+        torch.testing.assert_close(cut[k], one[k], rtol=1e-4, atol=1e-4,
+                                   msg=k)
 
 
 def test_max_wrapper_rejects_cpu_tensors_bad_shapes_and_limits(device):
