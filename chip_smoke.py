@@ -11,7 +11,8 @@ ragged ones), and drives the port's three paths:
 * the linear family: the bars through ``EM.run`` on CUDA, then BSC at the
   width of the repo's headline configuration (16x16 patches: D=256, H=300,
   H'=8, gamma=4, 154 multi states) -- an annealed EM run on 131072
-  planted-dictionary rows and a decode of 8192 held-out rows;
+  planted-dictionary rows and a decode of 8192 held-out rows (two stages a
+  decode: the ``sgemm_nn`` kernel, then the per-datapoint kernel);
 * the max family: MCA bars through ``EM.run`` on CUDA, one softened-max
   step (rho > 0, the plain version on the card) against the CPU, then MCA
   and MMCA at the patches width of bench.py (D=256, H=300, H'=6, gamma=3,
@@ -388,14 +389,17 @@ def bigs_path(torch, np, dev, smi, err, patches_anneal):
 
     # ---- 11. the big-S kernel against its plain version --------------------
     # inputs quantised to multiples of 1/4, so candidates agree exactly; the
-    # logits and moments are sums in another order than cuBLAS's, hence F
-    # (and the running max) within rtol 1e-4, every sum within rtol 1e-3
+    # logits and moments are sums in another order than cuBLAS's (and over
+    # the reduced operands: beta (x.a), not (beta x).a), hence F (and the
+    # running max) within rtol 1e-4, every sum within rtol 1e-3
     rng = np.random.default_rng(11)
     shapes = [  # (name, N, D, H, Hp, gamma, values, signed, s_block)
         ("bsc", 1000, 16, 12, 6, 4, (1.0,), False, 48),
         ("tsc", 1000, 16, 12, 6, 4, (-1.0, 1.0), True, 48),
         ("dsc", 999, 16, 12, 6, 4, (-1.0, 1.0, 2.0), True, 48),
         ("tsc_bigs", 16384, 64, 32, 10, 5, (-1.0, 1.0), True, 1024),
+        ("bsc_odd_S", 1000, 16, 13, 6, 3, (1.0,), False, 16),    # S = 35
+        ("tsc_hp3", 777, 16, 12, 3, 2, (-1.0, 1.0), True, 8),    # nL = 9
     ]
     for name, N, D, H, Hp, gamma, values, signed, s_block in shapes:
         sa = etstep.state_arrays_from(discrete_state_space(Hp, gamma, values),
@@ -548,13 +552,22 @@ def bigs_path(torch, np, dev, smi, err, patches_anneal):
         f"the un-annealed channel, {sat[0]:.3f} vs {sat[1]:.3f} ms without "
         f"(N={N}) = {N / est[0] * 1e3:.0f} vs {N / est[1] * 1e3:.0f} "
         f"datapoints/s  [{smi}]")
-    # logits, moments and the un-annealed logits per (row, state), over the
-    # operands the kernel is handed and the moments it returns
-    nA = kargs[0].shape[1] + kargs[1].shape[1] + 2
-    nB = nA + kargs[4].shape[1]
+    # what the function needs per (row, state): nL multiply-adds of logits
+    # (one dot product serves both channels; the Gram and outer blocks are
+    # symmetric) and nM of moments; its inputs (proj, Gf, the state tables)
+    # read once, its eight outputs written once
+    K = kargs[4].shape[1]
+    nX = Hp + Hp * Hp
+    nL = Hp + Hp * (Hp + 1) // 2
+    nM = nL + K + 2
+    merged = bound(2.0 * (2 * (nX + 2) + nX + K + 2) * N * S, 0.0)
+    log(f"{tag} bound by the function's {nL} + {nM} multiply-adds per "
+        f"(row, state): {2e3 * (nL + nM) * N * S / PEAK_F32_FLOPS:.3f} ms; by "
+        f"the merged-GEMM formulation's count (the earlier yardstick): "
+        f"{merged['bound_ms']:.3f} ms annealed")
     return {"launches": launches, "ms": est[0], "plain_ms": est[1],
-            **bound(2.0 * (2 * nA + nB) * N * S,
-                    4.0 * (N * (nA - 2) + S * (nA + nB) + N * (nB + 4)))}
+            **bound(2.0 * (nL + nM) * N * S,
+                    4.0 * (N * nX + S * (nX + K + 3) + N * (nX + K + 5)))}
 
 
 def main() -> int:
@@ -598,8 +611,13 @@ def main() -> int:
     for name, smem in (
             ("linear E-step rows kernel (H=300, H'=8, S=154, K=1)",
              lib.linear_et_rows_smem_bytes(300, 8, 154, 1)),
+            ("linear decode kernel (H=300, H'=8, S=154, K=1)",
+             lib.linear_et_decode_smem_bytes(300, 8, 154, 1)),
             ("max E-step kernel (D=256, H=300, H'=6, S=35)",
-             lib.max_et_smem_bytes(256, 300, 6, 35))):
+             lib.max_et_smem_bytes(256, 300, 6, 35)),
+            (f"big-S kernel (H'=10, K=2: 65 logit and 69 moment columns, "
+             f"{lib.bigs_multi_warps(65, 69)} warps a block)",
+             lib.bigs_multi_smem_bytes(65, 69))):
         log(f"[build] {name}: {smem} bytes of shared memory a block, "
             f"{cuda_lib.blocks_per_sm(smem)} blocks an SM")
 
@@ -658,7 +676,11 @@ def main() -> int:
             dargs = (y, W, sigma2, lo, sa, Hp, signed, 10, beta, 0.8)
             ref_d = etstep.linear_et_decode(*dargs)
             out_d = linear_cuda.linear_et_decode_cuda(*dargs)
+            again_d = linear_cuda.linear_et_decode_cuda(*dargs)
             torch.cuda.synchronize()
+            for a, b in zip(out_d, again_d):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{name}: two decode calls differ")
             for i, field in enumerate(("F", "s_mean", "top_q")):
                 torch.testing.assert_close(out_d[i], ref_d[i], rtol=1e-4,
                                            atol=1e-5, msg=f"{name} {field}")
@@ -670,7 +692,8 @@ def main() -> int:
                     raise AssertionError(f"{name}: {field} differs in {bad} "
                                          "rows")
         log(f"[kernels] {name}: E-step and decode agree with the plain "
-            "versions (beta 0.6 and 1, collect_true on/off bit-identical)")
+            "versions (beta 0.6 and 1; collect_true on/off and repeated "
+            "decodes bit-identical)")
 
     # ---- 5. bars on the card -------------------------------------------------
     model = BSC(25, 10, 6, 3)
@@ -721,7 +744,7 @@ def main() -> int:
              for dense in (False, True)}
     torch.cuda.synchronize()
     launches = expect_launches(cuda_lib, "[patches]", estep=iters, decode=2,
-                               sgemm_nn=iters, sgemm_tn=iters)
+                               sgemm_nn=iters + 2, sgemm_tn=iters)
     log(f"[patches] launches on the main path: {launches}")
     check_path(torch, np, "[patches]", em, serve, H)
 
@@ -811,8 +834,9 @@ def main() -> int:
          "replaces": "prosper_tpu/ops/bigs_pallas.py:155",
          "launches": bgl["bigs"], "max_abs_err": err["bigs"], **bg,
          "library_ms": None},
-        # the two products inside the bodies of the E-step TPU kernels; one
-        # launch per E-step of the linear and of the MCA patches path
+        # the two products inside the bodies of the TPU kernels; one launch
+        # per E-step of the linear and of the MCA patches path, and
+        # sgemm_nn once more per decode
         {"name": "sgemm_nn", "route": "cuda",
          "source": "prosper_tpu_torch/csrc/sgemm.cu",
          "replaces": "prosper_tpu/ops/linear_pallas.py:63; "

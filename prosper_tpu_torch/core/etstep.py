@@ -15,11 +15,13 @@ so the E-step needs ``P = y @ W``, the candidates' projections
 multi states go through ``bigs_multi`` in tiles with an online logsumexp,
 so no (N, S) tensor exists either.  These functions are the plain versions
 that the CUDA kernels in ``ops/linear_cuda.py`` and ``ops/bigs_cuda.py``
-are held to, and the path that runs on the CPU.
+are held to, and the path that runs on the CPU; ``bigs_operands_tri`` and
+``bigs_tables_tri`` build the reduced operands that the big-S kernel reads.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, NamedTuple, Tuple
 
@@ -226,6 +228,76 @@ def split_moments(m, m_t, l_t, acc, Hp: int, K: int):
     nB = acc.shape[1]
     return (m, acc[:, nB - 1], m_t, l_t, acc[:, nB - 2], acc[:, :Hp],
             acc[:, Hp:Hp + Hp * Hp], acc[:, Hp + Hp * Hp:Hp + Hp * Hp + K])
+
+
+def pad_last(t: torch.Tensor, width: int) -> torch.Tensor:
+    """``t`` with zero columns appended up to ``width``."""
+    return torch.nn.functional.pad(t, (0, width - t.shape[-1]))
+
+
+@functools.lru_cache(maxsize=None)
+def tri_columns(Hp: int, device):
+    """Flat indices into a row-major (Hp, Hp) matrix for its reduced form
+    ``[diagonal | upper triangle, a < b in row order]``: (diag (Hp,),
+    ab (P,), ba (P,), mirror (Hp*Hp,)) with P = Hp (Hp - 1) / 2, where
+    ``mirror`` takes the Hp + P reduced columns back to the full matrix
+    (entries (a, b) and (b, a) read the same column).  Built once per
+    (Hp, device)."""
+    a, b = torch.triu_indices(Hp, Hp, offset=1, device=device)
+    diag = torch.arange(Hp, device=device) * (Hp + 1)
+    mirror = torch.empty((Hp, Hp), dtype=torch.long, device=device)
+    mirror[a, b] = mirror[b, a] = Hp + torch.arange(a.shape[0], device=device)
+    mirror.view(-1)[diag] = torch.arange(Hp, device=device)
+    return diag, a * Hp + b, b * Hp + a, mirror.reshape(-1)
+
+
+def bigs_operands_tri(proj, Gf, inv2s2, lead: int = 1):
+    """The per-datapoint operand of the big-S recurrence in its reduced
+    form (the ``bigs_multi`` kernel's, ``ops/bigs_cuda.py``): the Gram
+    matrix enters s.G.s only through its diagonal and the sums
+    g_ab + g_ba, so
+
+      X = i [2 proj | -g_aa | -(g_ab + g_ba), a < b]    (C, nL)
+
+    with i = 1/(2 sigma^2) and nL = Hp + Hp (Hp + 1) / 2; beta, the prior
+    and the mask stay out of it (``X @ A`` serves both channels).  The row
+    length is padded with zeros to a multiple of ``lead``."""
+    Hp = proj.shape[1]
+    diag, ab, ba, _ = tri_columns(Hp, proj.device)
+    X = torch.cat([(2.0 * inv2s2) * proj, (-inv2s2) * Gf[:, diag],
+                   (-inv2s2) * (Gf[:, ab] + Gf[:, ba])], dim=1)
+    return pad_last(X, -(-X.shape[1] // lead) * lead)
+
+
+def bigs_tables_tri(states_p, outer_p, vcounts_p, absst_p, lead: int = 1,
+                    cols: int = 0):
+    """The state-table operands of the reduced form, which depend on the
+    state space alone:
+
+      A = [s_a | s_a^2 | s_a s_b, a < b]^T                (nL, S) state-minor
+      B = [s_a | s_a^2 | s_a s_b, a < b | vcounts | |s| | 1]   (S, nM)
+
+    with nM = nL + K + 2.  A's rows are padded with zeros to a multiple of
+    ``lead`` states and B's to ``cols`` columns (0: none)."""
+    Hp = states_p.shape[1]
+    diag, ab, _, _ = tri_columns(Hp, states_p.device)
+    tri = torch.cat([states_p, outer_p[:, diag], outer_p[:, ab]], dim=1)
+    B = torch.cat([tri, vcounts_p, absst_p[:, None],
+                   torch.ones_like(absst_p)[:, None]], dim=1)
+    S = tri.shape[0]
+    return (pad_last(tri.T, -(-S // lead) * lead).contiguous(),
+            pad_last(B, max(cols, B.shape[1])).contiguous())
+
+
+def split_moments_tri(m, m_t, l_t, acc, Hp: int, K: int):
+    """``split_moments`` for a moment accumulator whose columns follow the
+    reduced ``B`` of ``bigs_tables_tri`` (columns past nM are padding):
+    <s_a s_b> is mirrored from its triangle, so a_ss (C, Hp^2) is exactly
+    symmetric."""
+    nL = Hp + Hp * (Hp + 1) // 2
+    mirror = tri_columns(Hp, acc.device)[3]
+    return (m, acc[:, nL + K + 1], m_t, l_t, acc[:, nL + K], acc[:, :Hp],
+            acc[:, Hp:nL][:, mirror], acc[:, nL:nL + K])
 
 
 def bigs_multi(proj, Gf, states_p, outer_p, vcounts_p, prior, valid,

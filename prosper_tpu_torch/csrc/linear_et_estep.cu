@@ -53,8 +53,6 @@
 
 namespace let {
 
-constexpr int RWARPS = 8;              // datapoints per tile, one warp each
-constexpr int RTHREADS = 32 * RWARPS;
 constexpr int ROWV = 8 + KMAX;         // per-row scalars kept for the sums
 enum { RV_F, RV_FT, RV_ABS, RV_Y2, RV_W, RV_MX, RV_Z, RV_VC = 8 };
 
@@ -79,7 +77,7 @@ struct RowsSmem {
 __host__ __device__ inline size_t rows_smem_floats(int H, int Hp, int S,
                                                    int K) {
   const size_t NX = (size_t)Hp + (size_t)Hp * Hp, J = NX + K + 1;
-  return (J + 1) * (size_t)(S | 1) + 4 * (size_t)H
+  return state_table_floats(Hp, S, K) + 4 * (size_t)H
          + RWARPS * ((size_t)H + S + NX + J + ROWV + Hp) + 3 * KMAX + 5;
 }
 
@@ -107,11 +105,6 @@ __host__ __device__ inline size_t ws_stride(int H, int K) {
   return (size_t)H * H + H + K + 5;
 }
 
-// The singleton (h, k) likelihood term from P[h].
-__device__ inline float lik_single(float p, float g, float v, float inv2s2) {
-  return ((2.f * p) * v - g * (v * v)) * inv2s2;
-}
-
 __global__ void __launch_bounds__(RTHREADS, 3)
 rows_kernel(const float* __restrict__ y, const float* __restrict__ weight,
             float* P,               // (N, H): y W on entry, w <s> on exit
@@ -128,21 +121,7 @@ rows_kernel(const float* __restrict__ y, const float* __restrict__ weight,
   float* wmisc = wsv + H;
 
   // ---- per-block tables ---------------------------------------------------
-  for (int i = tid; i < J * S; i += RTHREADS) {
-    const int row = i / S, s = i - row * S;
-    float v;
-    if (row < Hp) v = t.states[(size_t)row * S + s];
-    else if (row < NX) v = t.outer[(size_t)(row - Hp) * S + s];
-    else if (row < NX + K) v = t.vcounts[(size_t)(row - NX) * S + s];
-    else v = t.absst[s];
-    sm.tab[(size_t)row * SP + s] = v;
-  }
-  for (int s = tid; s < S; s += RTHREADS) {
-    float p = 0.f;
-    for (int k = 0; k < K; ++k)
-      p = fmaf(t.vcounts[(size_t)k * S + s], t.log_odds[k], p);
-    sm.tab[(size_t)J * SP + s] = p;
-  }
+  load_state_table(sm.tab, d, t);
   for (int h = tid; h < H; h += RTHREADS) {
     const float g = t.gram[(size_t)h * H + h];
     sm.gd[h] = g;
@@ -186,49 +165,11 @@ rows_kernel(const float* __restrict__ y, const float* __restrict__ weight,
       select_candidates(warp, lane, d, sel);
 
       // ---- P's row, the candidates' projections and Gram entries ---------
-      for (int h = lane; h < H; h += 32) work[h] = Prow[h];
-      __syncwarp();
-      for (int a = lane; a < Hp; a += 32) X[a] = work[cand[a]];
-      for (int i = lane; i < HP2; i += 32)
-        X[Hp + i] = t.gram[(size_t)cand[i / Hp] * H + cand[i % Hp]];
-      __syncwarp();
+      gather_candidates(Prow, cand, work, X, d, t, lane);
 
       // ---- likelihood terms of the multi states, and the maxima ----------
       float mx = 0.f, mxt = 0.f;             // the zero state's logit is 0
-      int sb = 0;
-      for (; sb + 128 <= S; sb += 128) {     // four states a lane
-        float d1[4] = {0.f, 0.f, 0.f, 0.f}, d2[4] = {0.f, 0.f, 0.f, 0.f};
-        const float* tr = sm.tab + sb + lane;
-        for (int a = 0; a < Hp; ++a, tr += SP) {
-          const float x = X[a];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) d1[j] = fmaf(x, tr[32 * j], d1[j]);
-        }
-        for (int i = 0; i < HP2; ++i, tr += SP) {
-          const float x = X[Hp + i];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) d2[j] = fmaf(x, tr[32 * j], d2[j]);
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int s = sb + lane + 32 * j;
-          const float lik = (2.f * d1[j] - d2[j]) * inv2s2;
-          L[s] = lik;
-          mx = fmaxf(mx, beta * lik + pb * prior[s]);
-          mxt = fmaxf(mxt, lik + prior[s]);
-        }
-      }
-      for (int s = sb + lane; s < S; s += 32) {
-        float d1 = 0.f, d2 = 0.f;
-        const float* tr = sm.tab + s;
-        for (int a = 0; a < Hp; ++a, tr += SP) d1 = fmaf(X[a], *tr, d1);
-        for (int i = 0; i < HP2; ++i, tr += SP)
-          d2 = fmaf(X[Hp + i], *tr, d2);
-        const float lik = (2.f * d1 - d2) * inv2s2;
-        L[s] = lik;
-        mx = fmaxf(mx, beta * lik + pb * prior[s]);
-        mxt = fmaxf(mxt, lik + prior[s]);
-      }
+      multi_lik(sm.tab, X, L, d, inv2s2, beta, pb, lane, mx, mxt);
       // ---- the singletons' maxima ----------------------------------------
       for (int h = lane; h < H; h += 32) {
         const float p = work[h], g = sm.gd[h];
@@ -414,11 +355,6 @@ size_t linear_et_estep_ws_stride(int H, int K) {
   return let::ws_stride(H, K);
 }
 
-// Shared memory of the decode kernel's tile (linear_et_decode.cu).
-size_t linear_et_smem_bytes(int D, int H, int Hp, int S, int K) {
-  return let::smem_floats(D, H, Hp, S, K) * sizeof(float);
-}
-
 // Shared memory of a block of the E-step's rows kernel.
 size_t linear_et_rows_smem_bytes(int H, int Hp, int S, int K) {
   return let::rows_smem_floats(H, Hp, S, K) * sizeof(float);
@@ -438,7 +374,7 @@ int linear_et_estep_rows(const float* y, const float* weight, float* P,
                          float* ws, float* sums, int N, int D, int H, int Hp,
                          int S, int K, int signed_select, int collect_true,
                          int n_blocks, void* stream) {
-  let::Tables t{nullptr, gram, states, outer, vcounts, absst, values,
+  let::Tables t{gram, states, outer, vcounts, absst, values,
                 log_odds, scal};
   let::Dims d{N, D, H, Hp, S, K, 1 + H * K + S, signed_select, collect_true};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -465,7 +465,7 @@ int max_et_estep(const float* y, const float* weight, float* P,
                  float* ws, float* sums, int N, int D, int H, int Hp, int S,
                  int magnitude, int collect_true, int n_blocks,
                  void* stream) {
-  let::Tables t{nullptr, nullptr, states, nullptr, nullptr, absst, values,
+  let::Tables t{nullptr, states, nullptr, nullptr, absst, values,
                 log_odds, scal};
   let::Dims d{N, D, H, Hp, S, 1, 1 + H + S, magnitude, collect_true};
   return static_cast<int>(mxe::launch(

@@ -44,6 +44,7 @@
 
 #include <stdint.h>
 
+#include "cp_async.cuh"
 #include "linear_et_frontend.cuh"
 
 namespace sg {
@@ -53,29 +54,6 @@ constexpr int BN = 64;         // columns of the C tile
 constexpr int BK = 16;         // depth of a slab
 constexpr int THREADS = 128;   // 16 x 8 threads, an 8 x 8 register tile each
 constexpr int AS = BK + 4;     // row stride of sgemm_nn's A slab [m][k]
-
-__device__ inline void cp_async16(float* dst, const float* src, bool pred) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  const int n = pred ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(d), "l"(src), "r"(n));
-}
-
-__device__ inline void cp_async4(float* dst, const float* src, bool pred) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  const int n = pred ? 4 : 0;
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(d), "l"(src), "r"(n));
-}
-
-__device__ inline void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ inline void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
 
 // Copy a (rows x cols) slab, rows r0.. and columns c0.. of the row-major
 // matrix src (ld floats per row, n_rows x n_cols valid), into dst with

@@ -13,11 +13,13 @@ the launch counts in ``LAUNCHES``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
+import weakref
 from pathlib import Path
 from typing import Dict
 
@@ -33,7 +35,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 SOURCES = ("sgemm.cu", "linear_et_estep.cu", "linear_et_decode.cu",
            "max_et_estep.cu", "bigs_multi.cu")
-HEADERS = ("linear_et_frontend.cuh",)
+HEADERS = ("linear_et_frontend.cuh", "cp_async.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC")
 SMEM_LIMIT = 232448          # bytes of shared memory a block may use
@@ -103,15 +105,17 @@ def load_library() -> ctypes.CDLL:
             ("sgemm_nn", [p] * 3 + [i] * 3 + [p], i),
             ("sgemm_tn_splitn", [p] * 4 + [i] * 5 + [p], i),
             ("linear_et_estep_rows", [p] * 14 + [i] * 9 + [p], i),
-            ("linear_et_decode", [p] * 14 + [i] * 8 + [p], i),
+            ("linear_et_decode_rows", [p] * 15 + [i] * 9 + [p], i),
             ("linear_et_estep_ws_stride", [i, i], z),
-            ("linear_et_smem_bytes", [i] * 5, z),
             ("linear_et_rows_smem_bytes", [i] * 4, z),
+            ("linear_et_decode_smem_bytes", [i] * 4, z),
             ("max_et_estep", [p] * 14 + [i] * 8 + [p], i),
             ("max_et_estep_ws_stride", [i, i], z),
             ("max_et_smem_bytes", [i] * 4, z),
-            ("bigs_multi", [p] * 6 + [i] * 5 + [p], i),
-            ("bigs_multi_smem_bytes", [i] * 3, z),
+            ("bigs_multi", [p] * 7 + [i] * 7 + [p], i),
+            ("bigs_multi_cols", [i], i),
+            ("bigs_multi_warps", [i, i], i),
+            ("bigs_multi_smem_bytes", [i, i], z),
             ("linear_et_error_string", [i], ctypes.c_char_p)):
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = argtypes, restype
@@ -133,11 +137,44 @@ def check(t: torch.Tensor, name: str, shape, device, dtype=torch.float32):
         raise ValueError(f"{name} must be contiguous")
 
 
+@functools.lru_cache(maxsize=256)
+def _device_floats(values: tuple, device) -> torch.Tensor:
+    t = torch.tensor(values, dtype=torch.float32)
+    return t.to(device, non_blocking=True)
+
+
+def device_floats(values, device) -> torch.Tensor:
+    """Host numbers as a float32 tensor on ``device``, without a
+    synchronisation of the device.  Read-only: the same numbers give the
+    same tensor again (a schedule's (beta, prior_beta) repeat from call to
+    call), so the copy is made once."""
+    return _device_floats(tuple(float(v) for v in values),
+                          torch.device(device))
+
+
 def scalars(sigma2, beta, prior_beta, device) -> torch.Tensor:
     """[sigma2, beta, prior_beta] as a float32 tensor on ``device``."""
     s2 = torch.as_tensor(sigma2, dtype=torch.float32, device=device)
-    bp = torch.tensor([float(beta), float(prior_beta)], dtype=torch.float32)
-    return torch.cat([s2.reshape(1), bp.to(device, non_blocking=True)])
+    return torch.cat([s2.reshape(1),
+                      device_floats((beta, prior_beta), device)])
+
+
+_PER_TENSOR: Dict[tuple, tuple] = {}
+
+
+def cached_for(owner: torch.Tensor, name: str, build):
+    """``build()``, made once for the tensor ``owner`` (by identity) and
+    kept for as long as it lives: what a kernel derives from a model's
+    state tables alone (transposed or reduced copies) is not rebuilt on
+    every call."""
+    key = (id(owner), name)
+    hit = _PER_TENSOR.get(key)
+    if hit is not None and hit[0]() is owner:
+        return hit[1]
+    value = build()
+    _PER_TENSOR[key] = (weakref.ref(
+        owner, lambda _, key=key: _PER_TENSOR.pop(key, None)), value)
+    return value
 
 
 def blocks_per_sm(smem: int) -> int:
@@ -153,12 +190,18 @@ def n_blocks(device, smem: int, n_tiles: int) -> int:
     return min(n_tiles, props.multi_processor_count * blocks_per_sm(smem))
 
 
-def in_row_chunks(N: int, H: int, run):
-    """(F, sums) of ``run(i, j)`` over the rows [i, j): one call where the
-    (N, H) float32 workspace fits ``P_LIMIT_BYTES``, else chunks of a
-    multiple of 1024 rows, F concatenated and the sums added in order."""
+def row_chunks(N: int, H: int):
+    """The bounds (i, j) of the row chunks whose (j - i, H) float32
+    workspace fits ``P_LIMIT_BYTES``: all N rows where they fit, else a
+    multiple of 1024 rows each."""
     step = max(1024, P_LIMIT_BYTES // (4 * H) // 1024 * 1024)
-    parts = [run(i, min(N, i + step)) for i in range(0, N, step)]
+    return [(i, min(N, i + step)) for i in range(0, N, step)]
+
+
+def in_row_chunks(N: int, H: int, run):
+    """(F, sums) of ``run(i, j)`` over the ``row_chunks``: F concatenated
+    and the sums added in order."""
+    parts = [run(i, j) for i, j in row_chunks(N, H)]
     if len(parts) == 1:
         return parts[0]
     sums = parts[0][1]

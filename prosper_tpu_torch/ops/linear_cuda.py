@@ -1,18 +1,22 @@
 """Hand-written CUDA kernels for the linear-family ET E-step and decode.
 
-Two kernels share one front end (``csrc/linear_et_frontend.cuh``):
+Two per-datapoint kernels share one front end
+(``csrc/linear_et_frontend.cuh``) and the projection ``P = y W`` by the
+``sgemm_nn`` kernel (``ops/gemm_cuda.py``):
 
 * ``linear_et_estep`` replaces
   ``prosper_tpu/ops/linear_pallas.py::linear_et_estep_pallas``: F per
   datapoint and the weight-masked sufficient statistics (training).  It
-  runs in three stages: ``P = y W`` by the ``sgemm_nn`` kernel
-  (``ops/gemm_cuda.py``), the per-datapoint kernel
+  runs in three stages: ``P = y W``, the per-datapoint kernel
   (``csrc/linear_et_estep.cu``), which turns P's rows into ``w <s>`` in
   place, and ``xs = y^T (w <s>)`` by the ``sgemm_tn_splitn`` kernel.  One
   call counts once in ``LAUNCHES["estep"]``.
-* ``linear_et_decode`` (``csrc/linear_et_decode.cu``) replaces
-  ``linear_et_decode_pallas``: F, the posterior mean, the top-L states in
-  canonical union indices and the candidates (serving).
+* ``linear_et_decode`` replaces ``linear_et_decode_pallas``: F, the
+  posterior mean, the top-L states in canonical union indices and the
+  candidates (serving).  It runs in two stages: ``P = y W``, then the
+  per-datapoint kernel (``csrc/linear_et_decode.cu``), which keeps a row's
+  posterior in shared memory.  One call counts once in
+  ``LAUNCHES["decode"]``.
 
 The library is built and loaded by ``ops/cuda_lib.py`` at first CUDA use
 (never at import).  Each wrapper checks its inputs, allocates outputs and
@@ -30,9 +34,10 @@ import torch
 from prosper_tpu_torch.core import etstep
 from prosper_tpu_torch.core.etstep import LinearStateArrays
 from prosper_tpu_torch.ops.bigs_cuda import linear_et_estep_bigs_cuda
-from prosper_tpu_torch.ops.cuda_lib import (LAUNCHES, SMEM_LIMIT, check,
-                                            in_row_chunks, load_library,
-                                            n_blocks, raise_on, scalars)
+from prosper_tpu_torch.ops.cuda_lib import (LAUNCHES, SMEM_LIMIT, cached_for,
+                                            check, in_row_chunks,
+                                            load_library, n_blocks, raise_on,
+                                            row_chunks, scalars)
 from prosper_tpu_torch.ops.gemm_cuda import (sgemm_nn_cuda,
                                              sgemm_tn_splitn_cuda)
 
@@ -40,7 +45,7 @@ __all__ = ["LAUNCHES", "load_library", "linear_et_estep",
            "linear_et_estep_cuda", "linear_et_decode", "linear_et_decode_cuda"]
 
 HP_MAX, K_MAX, H_MAX = 32, 8, 1024
-ROWS_TILE = 8                # datapoints per tile of the E-step's rows kernel
+ROWS_TILE = 8                # datapoints per tile of the per-datapoint kernels
 
 
 def _check_common(y, W, log_odds, sa: LinearStateArrays, Hp: int):
@@ -79,9 +84,11 @@ def _check_smem(smem: int, S: int):
 
 def _state_minor(sa: LinearStateArrays):
     """The state tables as the kernels read them: transposed, so that the
-    lanes of a warp, which walk the states, read consecutive addresses."""
-    return (sa.states.T.contiguous(), sa.outer.T.contiguous(),
-            sa.value_counts.T.contiguous())
+    lanes of a warp, which walk the states, read consecutive addresses.
+    Made once per state space."""
+    return cached_for(sa.states, "state_minor", lambda: (
+        sa.states.T.contiguous(), sa.outer.T.contiguous(),
+        sa.value_counts.T.contiguous()))
 
 
 def _estep_rows(lib, y, weight, W, gram, scal, log_odds, tables,
@@ -140,10 +147,13 @@ def linear_et_estep_cuda(y, weight, W, sigma2, log_odds,
 def linear_et_decode_cuda(y, W, sigma2, log_odds, sa: LinearStateArrays,
                           Hp: int, signed_select: bool, top_L: int, beta,
                           prior_beta):
-    """The fused decode kernel on CUDA tensors; same contract as
-    ``core.etstep.linear_et_decode``."""
+    """The decode kernels on CUDA tensors; same contract as
+    ``core.etstep.linear_et_decode`` (any N; rows are chunked as the
+    E-step's).  Two stages: ``P = y W`` by ``sgemm_nn``, then the
+    per-datapoint kernel.  One call counts once in ``LAUNCHES["decode"]``."""
     lib, N, D, H, S, K = _check_common(y, W, log_odds, sa, Hp)
-    _check_smem(lib.linear_et_smem_bytes(D, H, Hp, S, K), S)
+    smem = lib.linear_et_decode_smem_bytes(H, Hp, S, K)
+    _check_smem(smem, S)
     if top_L > 1 + H * K + S:
         raise ValueError(f"top_L={top_L} exceeds the {1 + H * K + S} "
                          "posterior columns")
@@ -158,14 +168,19 @@ def linear_et_decode_cuda(y, W, sigma2, log_odds, sa: LinearStateArrays,
     F, s_mean, top_q = empty(N), empty(N, H), empty(N, top_L)
     top_u, cand = empty(N, top_L, dtype=torch.int32), empty(
         N, Hp, dtype=torch.int32)
-    err = lib.linear_et_decode(
-        y.data_ptr(), W.data_ptr(), gram.data_ptr(), states.data_ptr(),
-        outer.data_ptr(), vcounts.data_ptr(), sa.values.data_ptr(),
-        log_odds.data_ptr(), scal.data_ptr(), F.data_ptr(),
-        s_mean.data_ptr(), top_q.data_ptr(), top_u.data_ptr(),
-        cand.data_ptr(), N, D, H, Hp, S, K, top_L, int(signed_select),
-        torch.cuda.current_stream(dev).cuda_stream)
-    raise_on(lib, err, "linear_et_decode")
+    for i, j in row_chunks(N, H):
+        P = sgemm_nn_cuda(y[i:j], W)
+        err = lib.linear_et_decode_rows(
+            y[i:j].data_ptr(), P.data_ptr(), gram.data_ptr(),
+            states.data_ptr(), outer.data_ptr(), vcounts.data_ptr(),
+            sa.abs_states.data_ptr(), sa.values.data_ptr(),
+            log_odds.data_ptr(), scal.data_ptr(), F[i:j].data_ptr(),
+            s_mean[i:j].data_ptr(), top_q[i:j].data_ptr(),
+            top_u[i:j].data_ptr(), cand[i:j].data_ptr(), j - i, D, H, Hp, S,
+            K, top_L, int(signed_select),
+            n_blocks(dev, smem, -(-(j - i) // ROWS_TILE)),
+            torch.cuda.current_stream(dev).cuda_stream)
+        raise_on(lib, err, "linear_et_decode_rows")
     LAUNCHES["decode"] += 1
     return F, s_mean, top_q, top_u, cand
 

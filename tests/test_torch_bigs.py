@@ -309,3 +309,69 @@ def test_wrapper_takes_the_plain_version_on_cpu():
         bigs_cuda.bigs_multi_cuda(*args)
     with pytest.raises(ValueError):      # tables must be padded to s_block
         tet.bigs_multi(*args[:-1], 48)
+
+
+def _tri_reference(proj, Gf, st, ot, vc, prior, valid, ab, inv2s2, beta,
+                   prior_beta):
+    """The kernel's arithmetic in plain torch, one tile over all states: the
+    reduced operands, one dot product for both channels, the prior as an
+    add, the mask by ``valid``, the moments mirrored."""
+    Hp, K = st.shape[1], vc.shape[1]
+    X = tet.bigs_operands_tri(proj, Gf, inv2s2)
+    A, B = tet.bigs_tables_tri(st, ot, vc, ab)
+    d = X @ A
+    masked = torch.full_like(d, tet.NEG)
+    logits = torch.where(valid > 0, beta * d + prior_beta * prior, masked)
+    logits_t = torch.where(valid > 0, d + prior, masked)
+    m, m_t = logits.max(dim=1).values, logits_t.max(dim=1).values
+    acc = torch.exp(logits - m[:, None]) @ B
+    l_t = torch.exp(logits_t - m_t[:, None]).sum(dim=1)
+    return tet.split_moments_tri(m, m_t, l_t, acc, Hp, K)
+
+
+@pytest.mark.parametrize("family,Hp,gamma", [("bsc", 6, 4), ("tsc", 6, 4),
+                                             ("dsc", 6, 4), ("tsc", 3, 2)])
+@pytest.mark.parametrize("beta,prior_beta", [(0.6, 1.0), (1.0, 1.0),
+                                             (1.0, 0.8), (1.0, 0.0)])
+def test_reduced_operands_match_bigs_multi(family, Hp, gamma, beta,
+                                           prior_beta):
+    """``bigs_operands_tri`` and ``bigs_tables_tri`` (nL = Hp + Hp(Hp+1)/2
+    logit columns, one product for both channels) give the eight outputs of
+    ``bigs_multi`` within rtol 1e-5 (atol 1e-5 for moments that cancel to
+    near zero), padded states masked at every prior_beta, on a Gram matrix
+    that is not symmetric in its last bit; the mirrored second moments are
+    exactly symmetric."""
+    values = FAMILY[family][0]
+    C, D, H, s_block = 200, 16, 12, 48
+    rng = np.random.default_rng(5)
+    lo = np.full(len(values), np.log(0.2 / len(values) / 0.8), np.float32)
+    st, ot, vc, prior, valid, ab, S = _tables(Hp, gamma, values, s_block, lo)
+    assert S % s_block != 0
+    W = rng.standard_normal((D, H)).astype(np.float32)
+    y = (rng.standard_normal((C, D)) * 1.5).astype(np.float32)
+    P = y @ W
+    cand = np.argsort(-np.abs(P), axis=1, kind="stable")[:, :Hp]
+    G = (W.T @ W).astype(np.float32)
+    G[np.triu_indices(H, 1)] = np.nextafter(G[np.triu_indices(H, 1)],
+                                            np.float32(np.inf))
+    assert (G != G.T).any()
+    Gf = G[cand[:, :, None], cand[:, None, :]].reshape(C, Hp * Hp)
+    args = (torch.tensor(np.take_along_axis(P, cand, 1)), torch.tensor(Gf),
+            *map(torch.tensor, (st, ot, vc, prior, valid, ab)),
+            torch.tensor(np.float32(0.5 / 1.3)), beta, prior_beta)
+    ref = tet.bigs_multi(*args, s_block)
+    got = _tri_reference(*args)
+    for name, g, r in zip(OUT, got, ref):
+        np.testing.assert_allclose(g.numpy(), r.numpy(), rtol=1e-5,
+                                   atol=1e-5, err_msg=name)
+    a_ss = got[6].reshape(C, Hp, Hp)
+    assert torch.equal(a_ss, a_ss.transpose(1, 2))
+    nL = Hp + Hp * (Hp + 1) // 2
+    X = tet.bigs_operands_tri(args[0], args[1], args[8], lead=4)
+    A, B = tet.bigs_tables_tri(*map(torch.tensor, (st, ot, vc, ab)), lead=4,
+                               cols=nL + len(values) + 5)
+    assert X.shape == (C, -(-nL // 4) * 4) and not X[:, nL:].any()
+    assert A.shape == (nL, -(-st.shape[0] // 4) * 4)
+    assert A.is_contiguous() and not A[:, st.shape[0]:].any()
+    assert B.shape == (st.shape[0], nL + len(values) + 5)
+    assert not B[:, nL + len(values) + 2:].any()

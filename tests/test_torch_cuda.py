@@ -88,6 +88,48 @@ def test_decode_kernel_matches_plain(case, beta, device):
     assert torch.equal(out[4], ref[4]), "cand"
 
 
+def test_decode_kernel_ragged_rows_full_top_L_and_repeats(device):
+    """N a multiple of no tile of 8 rows and top_L = 1 + H*K + S, every
+    posterior entry ranked: the decode agrees with the plain version (ties
+    to the lowest index, taken entries knocked out), and two calls give the
+    same bits."""
+    case = (1003, 25, 10, 6, 3, (-1.0, 1.0), True)
+    y, _, W, lo, sa, Hp, signed = _inputs(case, device, seed=3)
+    full = 1 + W.shape[1] * 2 + sa.states.shape[0]
+    sigma2 = torch.tensor(2.5, device=device)
+    for top_L in (10, full):
+        args = (y, W, sigma2, lo, sa, Hp, signed, top_L, 0.6, 0.8)
+        ref = etstep.linear_et_decode(*args)
+        before = dict(cuda_lib.LAUNCHES)
+        out = linear_cuda.linear_et_decode_cuda(*args)
+        again = linear_cuda.linear_et_decode_cuda(*args)
+        torch.cuda.synchronize()
+        assert cuda_lib.LAUNCHES["decode"] == before["decode"] + 2
+        assert cuda_lib.LAUNCHES["sgemm_nn"] == before["sgemm_nn"] + 2
+        for name, a, b in zip(("F", "s_mean", "top_q"), out[:3], ref[:3]):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5, msg=name)
+        assert torch.equal(out[3], ref[3]), "top_u"
+        assert torch.equal(out[4], ref[4]), "cand"
+        for a, b in zip(out, again):
+            assert torch.equal(a, b)
+    with pytest.raises(ValueError):
+        linear_cuda.linear_et_decode_cuda(*args[:7], full + 1, 0.6, 0.8)
+
+
+def test_decode_wrapper_chunks_rows(device, monkeypatch):
+    """A workspace limit that cuts N into chunks of rows changes nothing:
+    the rows are independent."""
+    y, _, W, lo, sa, Hp, signed = _inputs(CASES[3], device, seed=1)
+    args = (y, W, torch.tensor(2.5, device=device), lo, sa, Hp, signed, 10,
+            1.0, 1.0)
+    one = linear_cuda.linear_et_decode_cuda(*args)
+    monkeypatch.setattr(cuda_lib, "P_LIMIT_BYTES", 1024 * 4 * W.shape[1])
+    cut = linear_cuda.linear_et_decode_cuda(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(one, cut):
+        assert torch.equal(a, b)
+
+
 def test_wrapper_rejects_cpu_tensors_and_bad_shapes(device):
     y, w, W, lo, sa, Hp, signed = _inputs(CASES[0], device)
     with pytest.raises(ValueError):
@@ -266,6 +308,11 @@ BIGS_CASES = [  # (N, D, H, Hp, gamma, values, signed, s_block)
     (1000, 16, 12, 6, 4, (-1.0, 1.0), True, 48),
     (999, 16, 12, 6, 4, (-1.0, 1.0, 2.0), True, 48),
     (4096, 64, 32, 10, 5, (-1.0, 1.0), True, 1024),
+    (1000, 16, 13, 6, 3, (1.0,), False, 16),            # S = 35, odd
+    (777, 16, 12, 3, 2, (-1.0, 1.0), True, 8),          # H' = 3: nL = 9
+    (500, 16, 12, 4, 3, (1.0,), False, 8),      # 17 moment columns: 3 single
+    (600, 16, 20, 12, 3, (1.0,), False, 64),    # 93: blocks of 8 warps
+    (600, 16, 20, 15, 2, (1.0,), False, 32),    # 138: the widest tile
 ]
 MULTI_OUT = ("m", "l", "m_t", "l_t", "a_abs", "a_s", "a_ss", "a_vc")
 
@@ -331,10 +378,25 @@ def test_bigs_estep_kernel_matches_plain(case, beta, prior_beta, device):
             assert torch.equal(on[k], off[k]), k
 
 
+def test_bigs_second_moments_come_out_symmetric(device):
+    """The kernel sums one triangle of <s_a s_b> and the wrapper mirrors
+    it."""
+    _, margs = _bigs_inputs(BIGS_CASES[3], 0.6, 1.0, device)
+    a_ss = bigs_cuda.bigs_multi_cuda(*margs)[6]
+    Hp = margs[0].shape[1]
+    a_ss = a_ss.reshape(-1, Hp, Hp)
+    assert torch.equal(a_ss, a_ss.transpose(1, 2))
+
+
 def test_bigs_wrapper_rejects_cpu_tensors_bad_shapes_and_layouts(device):
     _, margs = _bigs_inputs(BIGS_CASES[1], 1.0, 1.0, device)
     proj, Gf, st, ot, vc, prior, valid, ab = margs[:8]
     rest = margs[8:]
+    wide = etstep.state_arrays_from(discrete_state_space(16, 2, (1.0,)),
+                                    device)
+    with pytest.raises(ValueError, match="moment columns"):  # H' = 16
+        bigs_cuda.tri_tables(cuda_lib.load_library(), wide.states,
+                             wide.outer, wide.value_counts, wide.abs_states)
     with pytest.raises(ValueError):                          # CPU tensors
         bigs_cuda.bigs_multi_cuda(*(t.cpu() for t in margs[:8]), *rest)
     with pytest.raises(ValueError):                          # a wrong shape

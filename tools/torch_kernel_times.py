@@ -6,19 +6,24 @@ D=64, H=32, H'=10, gamma=5, s_block=1024; decode of 8192 rows).
 
     python3 tools/torch_kernel_times.py times [--repo DIR]
         CUDA-event times of the E-step, decode, max E-step and big-S E-step
-        wrappers of the package found in DIR (default: this checkout); one
-        JSON line.
+        wrappers, and of the big-S kernel alone (with and without the
+        un-annealed channel), of the package found in DIR (default: this
+        checkout), each timing started on an idle card; the decode also
+        with its calls queued behind other device work, where the host's
+        share does not show; one JSON line.
     python3 tools/torch_kernel_times.py compare --parent DIR
         `times` of an unpacked parent commit in DIR and of this checkout, in
         turns (parent, change, change, parent), one process each.
     python3 tools/torch_kernel_times.py profile
-        torch.profiler over EM iterations of BSC and MCA: device time by
-        kernel, the device's busy time and its idle share of the window.
-    python3 tools/torch_kernel_times.py ablate
+        torch.profiler over EM iterations of BSC, MCA and big-S TSC and
+        over BSC inference calls of 8192 rows: device time by kernel, the
+        device's busy time and its idle share of the window.
+    python3 tools/torch_kernel_times.py ablate [--only TEXT]
         Builds edited copies of the sources with one part of the linear
-        rows kernel or of the max kernel switched off (the results are then
-        wrong; only the time is read) and prints what each part saves; then
-        the GEMM kernels with a register cap for 4 and 5 blocks an SM.
+        rows kernel, of the max kernel or of the big-S kernel switched off
+        (the results are then wrong; only the time is read) and prints what
+        each part saves; then the GEMM kernels with a register cap for 4
+        and 5 blocks an SM.
 
 Every line of output ends with the card's name and power limit.
 """
@@ -41,8 +46,8 @@ ABLATIONS = [
      "linear_et_frontend.cuh",
      "const int bi = row_argmax(sc, H, lane, &b);",
      "const int bi = a; b = 0.f;"),
-    ("rows: multi-state logits", "linear_et_estep.cu", "int sb = 0;",
-     "int sb = S;"),
+    ("rows: multi-state logits (also the decode's)",
+     "linear_et_frontend.cuh", "int sb = 0;", "int sb = S;"),
     ("rows: multi-state moments", "linear_et_estep.cu", "int jb = 0;",
      "int jb = J;"),
     ("rows: ss scatter", "linear_et_estep.cu",
@@ -54,12 +59,27 @@ ABLATIONS = [
     ("max: phase 1 (routing)", "max_et_estep.cu",
      "for (int dd = tid; dd < D; dd += THREADS) {",
      "for (int dd = tid; dd < 0; dd += THREADS) {"),
+    ("bigs: logits product", "bigs_multi.cu",
+     "for (int k = 0; k < nL; ++k) {", "for (int k = 0; k < 0; ++k) {"),
+    ("bigs: expf (an add in its place)", "bigs_multi.cu", "expf(",
+     "(1.f + "),
+    ("bigs: moment product", "bigs_multi.cu",
+     "for (int s4 = 0; s4 < T; s4 += 4) {",
+     "for (int s4 = 0; s4 < 0; s4 += 4) {"),
+    ("bigs: staging of the A and B tiles after the first", "bigs_multi.cu",
+     "if (t + 1 < nt) {", "if (false) {"),
 ]
+#: the calls `ablate` times for every edited copy
+ABLATED = ("linear_et_estep", "linear_et_decode", "max_et_estep",
+           "bigs_multi_annealed", "bigs_multi_saturated",
+           "bigs_multi_annealed_16k_rows", "sgemm_nn", "sgemm_tn_splitn")
 #: variants of the GEMM kernels (right results, other register caps)
 VARIANTS = [
     (f"nothing, but the GEMMs capped for {n} blocks an SM", "sgemm.cu",
      "__launch_bounds__(THREADS)\n", f"__launch_bounds__(THREADS, {n})\n")
-    for n in (4, 5)]
+    for n in (4, 5)] + [
+    ("nothing, but the big-S kernel at its largest block whatever the rows",
+     "bigs_multi.cu", "while (nw > 1 &&", "while (false &&")]
 
 
 def smi() -> str:
@@ -73,6 +93,24 @@ def cuda_ms(torch, fn, reps=5):
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def queued_ms(torch, fn, reps=20):
+    """Device time of ``fn()`` where its host side may be the slower one:
+    the calls are queued behind some 10 ms of other device work, so that
+    the card never waits for the host between them."""
+    fn()
+    blocker = torch.randn(6144, 6144, device="cuda")
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    blocker @ blocker
     start.record()
     for _ in range(reps):
         fn()
@@ -134,6 +172,21 @@ def kernel_calls(torch, np):
             lambda c=true_ch: linear_cuda.linear_et_estep(
                 yt, w, pt["W"], pt["sigma"] ** 2, lot, sat, 10, True, 1.0,
                 1.0, collect_true=c, s_block=1024))
+    # the big-S kernel alone, on the unpadded tables the E-step hands it
+    from prosper_tpu_torch.core import etstep
+    from prosper_tpu_torch.ops import bigs_cuda
+    gram = pt["W"].T @ pt["W"]
+    _, _, tables = etstep.bigs_front(yt, pt["W"], gram, torch.diagonal(gram),
+                                     lot, sat, 10, True, 1)
+    margs = (*tables, 0.5 / pt["sigma"] ** 2, 1.0, 1.0, 1)
+    for tag, true_ch in (("annealed", True), ("saturated", False)):
+        calls[f"bigs_multi_{tag}"] = (
+            lambda c=true_ch: bigs_cuda.bigs_multi_cuda(*margs,
+                                                        collect_true=c))
+    few = (tables[0][:N // 8].contiguous(), tables[1][:N // 8].contiguous(),
+           *margs[2:])
+    calls["bigs_multi_annealed_16k_rows"] = (
+        lambda: bigs_cuda.bigs_multi_cuda(*few, collect_true=True))
     return calls
 
 
@@ -144,6 +197,8 @@ def cmd_times(args):
     torch.backends.cuda.matmul.allow_tf32 = False
     calls = kernel_calls(torch, np)
     out = {k: cuda_ms(torch, fn) for k, fn in calls.items()}
+    out["linear_et_decode_queued"] = queued_ms(torch,
+                                               calls["linear_et_decode"])
     print(json.dumps({"repo": str(args.repo), "ms": out, "card": smi()}),
           flush=True)
 
@@ -165,15 +220,40 @@ def cmd_compare(args):
               f", parent / change = {par / new:.3f}  [{rows[0]['card']}]")
 
 
+def _device_profile(torch, tag, card, run, n):
+    """Profile ``run()`` (n iterations or calls) and print the device's busy
+    time per iteration, its idle share of the window and the ten kernels
+    that take most of it."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not ev:
+        sys.exit("the profiler recorded no device events")
+    busy = sum(e.device_time for e in ev) / (n * 1e3)
+    span = (max(e.time_range.end for e in ev)
+            - min(e.time_range.start for e in ev)) / (n * 1e3)
+    by = {}
+    for e in ev:
+        by[e.name] = by.get(e.name, 0.0) + e.device_time / (n * 1e3)
+    print(f"[profile] {tag}: device busy {busy:.3f} ms per iteration in a "
+          f"window of {span:.3f} ms: idle share "
+          f"{100 * (1 - busy / span):.1f} %  [{card}]")
+    for k, v in sorted(by.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"[profile]   {v:8.3f} ms  {k[:100]}")
+
+
 def cmd_profile(args):
     sys.path.insert(0, str(ROOT))
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from prosper_tpu_torch import EM, LinearAnnealing
     torch.backends.cuda.matmul.allow_tf32 = False
     card = smi()
-    for name, (model, y, init) in setups(torch, np, ("bsc", "mca")).items():
+    for name, (model, y, init) in setups(torch, np).items():
         for tag, T, ncut in (("annealed, Ncut on", 1.5, 0.5),
                              ("saturated", 1.0, 1.0)):
             a = LinearAnnealing(8)
@@ -183,26 +263,20 @@ def cmd_profile(args):
             for _ in range(3):
                 em.step_once()
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                for _ in range(4):
-                    em.step_once()
+            _device_profile(torch, f"{name} {tag}", card,
+                            lambda: [em.step_once() for _ in range(4)], 4)
+        if name == "bsc":        # serving: 8192 rows from the card and from
+            held = y[:N_DECODE].contiguous()                  # host memory
+            for tag, data in (("tensor on the card", held),
+                              ("numpy array", held.cpu().numpy())):
+                def serve():
+                    return [model.inference(init, {"y": data}, top_L=10,
+                                            dense_states=False)
+                            for _ in range(4)]
+                serve()
                 torch.cuda.synchronize()
-            ev = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-            if not ev:
-                sys.exit("the profiler recorded no device events")
-            busy = sum(e.device_time for e in ev) / 4e3
-            span = (max(e.time_range.end for e in ev)
-                    - min(e.time_range.start for e in ev)) / 4e3
-            by = {}
-            for e in ev:
-                by[e.name] = by.get(e.name, 0.0) + e.device_time / 4e3
-            print(f"[profile] {name} {tag}: device busy {busy:.3f} ms per "
-                  f"iteration in a window of {span:.3f} ms: idle share "
-                  f"{100 * (1 - busy / span):.1f} %  [{card}]")
-            for k, v in sorted(by.items(), key=lambda kv: -kv[1])[:10]:
-                print(f"[profile]   {v:8.3f} ms  {k[:100]}")
+                _device_profile(torch, f"bsc inference of {N_DECODE} rows, "
+                                f"{tag}", card, serve, 4)
 
 
 def cmd_ablate(args):
@@ -216,7 +290,8 @@ def cmd_ablate(args):
     base = None
     with tempfile.TemporaryDirectory() as tmp:
         for i, (name, fname, old, new) in enumerate(
-                [("nothing", None, "", "")] + ABLATIONS + VARIANTS):
+                [("nothing", None, "", "")]
+                + [a for a in ABLATIONS + VARIANTS if args.only in a[0]]):
             d = Path(tmp) / f"v{i}"
             shutil.copytree(src, d)
             if fname:
@@ -226,17 +301,11 @@ def cmd_ablate(args):
                 (d / fname).write_text(text.replace(old, new))
             cuda_lib.CSRC, cuda_lib._lib = d, None
             calls = kernel_calls(torch, np) if i == 0 else calls
-            ms = {k: cuda_ms(torch, calls[k])
-                  for k in ("linear_et_estep", "max_et_estep", "sgemm_nn",
-                            "sgemm_tn_splitn")}
+            ms = {k: cuda_ms(torch, calls[k]) for k in ABLATED}
             base = base or ms
-            print(f"[ablate] without {name}: linear E-step "
-                  f"{ms['linear_et_estep']:.3f} ms (saves "
-                  f"{base['linear_et_estep'] - ms['linear_et_estep']:.3f}), "
-                  f"max E-step {ms['max_et_estep']:.3f} ms (saves "
-                  f"{base['max_et_estep'] - ms['max_et_estep']:.3f}), "
-                  f"sgemm_nn {ms['sgemm_nn']:.3f} ms, sgemm_tn_splitn "
-                  f"{ms['sgemm_tn_splitn']:.3f} ms  [{card}]", flush=True)
+            print(f"[ablate] without {name}: " + ", ".join(
+                f"{k} {ms[k]:.3f} ms (saves {base[k] - ms[k]:.3f})"
+                for k in ABLATED) + f"  [{card}]", flush=True)
 
 
 def main():
@@ -249,7 +318,10 @@ def main():
     c.add_argument("--parent", required=True)
     c.set_defaults(fn=cmd_compare)
     sub.add_parser("profile").set_defaults(fn=cmd_profile)
-    sub.add_parser("ablate").set_defaults(fn=cmd_ablate)
+    a = sub.add_parser("ablate")
+    a.add_argument("--only", default="",
+                   help="only the parts whose name contains this text")
+    a.set_defaults(fn=cmd_ablate)
     args = ap.parse_args()
     os.chdir(ROOT)
     args.fn(args)
