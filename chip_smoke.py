@@ -22,8 +22,19 @@ ragged ones), and drives the port's three paths:
   an annealed EM run on 131072 planted-dictionary rows through the big-S
   kernel and a plain decode of 8192 held-out rows.
 
+Each of the three training paths then runs once more through
+``EM.run_scanned`` (the step captured into CUDA graphs and replayed) from
+the same seed: parameters, free energies, scalars and the generator's next
+draw bit-identical to ``EM.run``'s, every pattern captured, and a profiler
+trace of a replay-only pass showing each kernel on the card as often as a
+traced ``EM.run``; a fresh ``EM`` and a replay-only pass are timed apart.
+One DSC step with a learned value set (``backend="plain"``) and a big-S
+E-step cut into two chunks of rows are held against the CPU and against
+one chunk.
+
 Each path's launch counts are set to 0 just before it and checked just
-after.  Every phase raises on failure.  Prints one JSON line of per-kernel
+after.  Every phase raises on failure.  Prints one JSON line of the
+iteration times through ``run`` and ``run_scanned``, one of per-kernel
 results (time, plain version's time, the card's bound for the same work from
 the shapes, and a library call's time where one computes the same function)
 and ends with {"ok": true, "device": {"platform": "gpu", ...}}.
@@ -91,6 +102,142 @@ def expect_launches(cuda_lib, tag, **want):
         raise AssertionError(f"{tag} launches {got}, expected {want} and "
                              "nothing else")
     return got
+
+
+def next_draw(torch, generator):
+    """What ``generator`` would draw next, without moving it."""
+    twin = torch.Generator(device=generator.device)
+    twin.set_state(generator.get_state())
+    return torch.randn(64, generator=twin, device=generator.device)
+
+
+def same_run(torch, tag, ref, em):
+    """``em`` went where ``ref`` went, bit for bit: parameters, F_prev,
+    every scalar of every iteration, the generator's next draw."""
+    for k in ref.params:
+        if not torch.equal(ref.params[k], em.params[k]):
+            raise AssertionError(f"{tag} run_scanned: {k} differs from run's")
+    if not torch.equal(ref.data["F_prev"], em.data["F_prev"]):
+        raise AssertionError(f"{tag} run_scanned: F_prev differs from run's")
+    if len(ref.history) != len(em.history):
+        raise AssertionError(f"{tag} run_scanned: history length")
+    for hr, he in zip(ref.history, em.history):
+        for k in hr:
+            if k != "dt" and hr[k] != he[k]:
+                raise AssertionError(
+                    f"{tag} run_scanned: {k} of iteration {hr['iteration']} "
+                    f"is {he[k]!r}, run's {hr[k]!r}")
+    if not torch.equal(next_draw(torch, ref.generator),
+                       next_draw(torch, em.generator)):
+        raise AssertionError(f"{tag} run_scanned: the generator's next draw "
+                             "differs from run's")
+
+
+#: the device function behind each launch count (prosper_tpu_torch/csrc)
+KERNEL_FUNCS = {"estep": "rows_kernel", "decode": "decode_kernel",
+                "max_estep": "max_estep_kernel", "bigs": "bigs_kernel",
+                "sgemm_nn": "nn_kernel", "sgemm_tn": "tn_kernel"}
+
+
+def traced_kernels(torch, run):
+    """How often each of the port's kernels ran on the card during
+    ``run()``, by launch-count name: counted from a profiler trace of the
+    device, so a graph replay, which passes no launch site, shows too."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not names:
+        raise AssertionError("the profiler recorded no device events")
+    return {k: sum(fn in n for n in names) for k, fn in KERNEL_FUNCS.items()}
+
+
+def scanned_path(torch, np, cuda_lib, tag, ref, make_em, init, seed, smi,
+                 **want):
+    """This slice's path: ``make_em()`` (an EM built as ``ref`` was, on the
+    same model object) through ``run_scanned`` against ``ref``, which went
+    through ``run`` with the launch counts ``want``.  Four passes: a first
+    EM (one eager step and one capture per pattern, then replays), a fresh
+    EM (the same again with nothing left to build), that EM rewound
+    (replays only), and rewound once more under the profiler, whose count of
+    each kernel on the card must equal that of a traced ``run``.  Returns
+    the path's entry of the ``scanned`` line and the launch counts of the
+    first pass (its eager steps and captures: a replay passes no launch
+    site)."""
+    iters = len(ref.history)
+    run_ms = float(np.median([h["dt"] for h in ref.history[1:]])) * 1e3
+    reset_launches(cuda_lib)
+    em = make_em()
+    em.run_scanned()
+    torch.cuda.synchronize()
+    stats = dict(em.scan_stats)
+    if stats["graphs"] < 2 or stats["eager_steps"] + stats["replays"] != iters:
+        raise AssertionError(f"{tag} run_scanned did not capture its "
+                             f"patterns: {stats}")
+    # the launch sites were passed by the eager steps and the captures; the
+    # replays hold what the captures recorded
+    per_step = {k: v // iters for k, v in want.items()}
+    sited = stats["eager_steps"] + stats["graphs"]
+    launches = expect_launches(cuda_lib, f"{tag} run_scanned",
+                               **{k: n * sited for k, n in per_step.items()})
+    replayed = stats["replayed_launches"]
+    if replayed != {k: n * stats["replays"] for k, n in per_step.items()}:
+        raise AssertionError(f"{tag} run_scanned: its {stats['replays']} "
+                             f"replays hold {replayed}, a step of run "
+                             f"launches {per_step}")
+    same_run(torch, tag, ref, em)
+    first_ms = em.history[-1]["dt"] * 1e3
+    capture_ms = stats["capture_s"] * 1e3 / stats["graphs"]
+
+    fresh = make_em()
+    fresh.run_scanned()
+    same_run(torch, tag, ref, fresh)
+    fresh_ms = fresh.history[-1]["dt"] * 1e3
+
+    def replay_all():
+        """Rewind: the same iterations again, every graph in hand."""
+        fresh.anneal.reset(0)
+        fresh.params = {k: v.clone() for k, v in init.items()}
+        fresh.data = dict(fresh.data,
+                          F_prev=torch.zeros_like(fresh.data["F_prev"]))
+        fresh.generator.manual_seed(seed)
+        fresh.history.clear()
+        before = fresh.scan_stats["replays"]
+        fresh.run_scanned()
+        same_run(torch, tag, ref, fresh)
+        if fresh.scan_stats["replays"] - before != iters:
+            raise AssertionError(f"{tag} the rewound run_scanned did not "
+                                 f"replay every iteration: "
+                                 f"{fresh.scan_stats}")
+    replay_all()
+    replay_ms = fresh.history[-1]["dt"] * 1e3
+    traced = traced_kernels(torch, replay_all)
+    traced_run = traced_kernels(torch, make_em().run)
+    if traced != traced_run or any(traced[k] < v for k, v in want.items()):
+        raise AssertionError(f"{tag} kernels on the card in {iters} replays "
+                             f"{traced}, in {iters} eager steps {traced_run}, "
+                             f"run's launch counts {want}")
+    log(f"{tag} run_scanned bit-identical to run over {iters} iterations "
+        f"(parameters, F_prev, scalars, the generator's next draw); "
+        f"{stats['graphs']} graphs, {stats['replays']} replays, "
+        f"{stats['eager_steps']} eager first steps; launch sites passed "
+        f"{launches}, held by the replays {replayed}; kernels traced on the "
+        f"card in {iters} replays {traced}, as in {iters} eager steps; host "
+        f"ms per iteration: run {run_ms:.3f}, run_scanned {replay_ms:.3f} "
+        f"replaying, {first_ms:.3f} with its captures in a first EM "
+        f"({capture_ms:.1f} ms a capture), {fresh_ms:.3f} in a fresh EM  "
+        f"[{smi}]")
+    return {"iterations": iters, "run_ms": run_ms,
+            "run_scanned_ms": replay_ms,
+            "run_scanned_first_em_ms": first_ms,
+            "run_scanned_fresh_em_ms": fresh_ms, "capture_ms": capture_ms,
+            "graphs": stats["graphs"],
+            "replays": stats["replays"],
+            "eager_first_steps": stats["eager_steps"],
+            "replayed_launches": replayed,
+            "replay_kernels_traced": traced}, launches
 
 
 def gemm_phase(torch, np, dev, smi, err):
@@ -331,19 +478,17 @@ def max_family(torch, np, dev, smi, err, patches_anneal):
     em, model, params, init, y_dev, iters, launches = result["MCA"]
     em_ms = float(np.median([h["dt"] for h in em.history[1:]])) * 1e3
     sa = model.state_arrays(dev)
+    scanned, scanned_launches = scanned_path(
+        torch, np, cuda_lib, "[mca patches]", em,
+        lambda: EM(model, patches_anneal(iters), {"y": y_dev}, params=init,
+                   seed=4, device=dev),
+        init, 4, smi, max_estep=iters, sgemm_nn=iters, sgemm_tn=iters)
 
-    def plain_estep_sums(params, y, weight, sched, saturated=False):
-        return maxstep.max_et_estep(
-            y, weight, params["W"], params["sigma"] ** 2,
-            model._log_odds(params), sa, Hp, False, sched["beta"],
-            sched["prior_beta"], chunk=model.chunk,
-            collect_true=not saturated)
-
-    plain_model = MCA(D, H, Hp, gamma)
-    plain_model.estep_sums = plain_estep_sums
-    em_p = EM(plain_model, patches_anneal(iters), {"y": y_dev}, params=init,
-              seed=4, device=dev)
+    reset_launches(cuda_lib)
+    em_p = EM(MCA(D, H, Hp, gamma, backend="plain"), patches_anneal(iters),
+              {"y": y_dev}, params=init, seed=4, device=dev)
     em_p.run()
+    expect_launches(cuda_lib, "[mca patches] backend=plain")
     em_plain_ms = float(np.median([h["dt"] for h in em_p.history[1:]])) * 1e3
     log(f"[mca patches] EM iteration (N={N}): kernel path {em_ms:.3f} ms, "
         f"plain version {em_plain_ms:.3f} ms  [{smi}]")
@@ -362,7 +507,9 @@ def max_family(torch, np, dev, smi, err, patches_anneal):
     S = sa.states.shape[0]
     # the two D x H products, and two passes over the (S, D) lattice per
     # row: a compare-select and two FMAs, then a compare-select and an add
-    return {"launches": launches, "ms": est[0], "plain_ms": est[1],
+    return {"launches": launches, "scanned": scanned,
+            "scanned_launches": scanned_launches, "ms": est[0],
+            "plain_ms": est[1],
             **bound(4.0 * N * D * H + 8.0 * N * S * D,
                     4.0 * (N * D + 2 * N + D * H + 2 * H * D))}
 
@@ -498,19 +645,18 @@ def bigs_path(torch, np, dev, smi, err, patches_anneal):
     # the plain version, and the kernel against bigs_multi
     em_ms = float(np.median([h["dt"] for h in em.history[1:]])) * 1e3
     sa = model.state_arrays(dev)
+    scanned, scanned_launches = scanned_path(
+        torch, np, cuda_lib, tag, em,
+        lambda: EM(model, patches_anneal(iters), {"y": y_dev}, params=init,
+                   seed=4, device=dev),
+        init, 4, smi, bigs=iters)
 
-    def plain_estep_sums(params, y, weight, sched, saturated=False):
-        return etstep.linear_et_estep(
-            y, weight, params["W"], params["sigma"] ** 2,
-            model.log_odds(params), sa, Hp, True, sched["beta"],
-            sched["prior_beta"], chunk=model.chunk,
-            collect_true=not saturated, s_block=s_block)
-
-    plain_model = TSC(D, H, Hp, gamma, chunk=8192, s_block=s_block)
-    plain_model.estep_sums = plain_estep_sums
-    em_p = EM(plain_model, patches_anneal(iters), {"y": y_dev}, params=init,
-              seed=4, device=dev)
+    reset_launches(cuda_lib)
+    em_p = EM(TSC(D, H, Hp, gamma, chunk=8192, s_block=s_block,
+                  backend="plain"), patches_anneal(iters), {"y": y_dev},
+              params=init, seed=4, device=dev)
     em_p.run()
+    expect_launches(cuda_lib, f"{tag} backend=plain")
     em_plain_ms = float(np.median([h["dt"] for h in em_p.history[1:]])) * 1e3
     log(f"{tag} EM iteration (N={N}): kernel path {em_ms:.3f} ms, plain "
         f"version {em_plain_ms:.3f} ms  [{smi}]")
@@ -565,9 +711,95 @@ def bigs_path(torch, np, dev, smi, err, patches_anneal):
         f"(row, state): {2e3 * (nL + nM) * N * S / PEAK_F32_FLOPS:.3f} ms; by "
         f"the merged-GEMM formulation's count (the earlier yardstick): "
         f"{merged['bound_ms']:.3f} ms annealed")
-    return {"launches": launches, "ms": est[0], "plain_ms": est[1],
+    # ---- 13. the big-S E-step cut into two chunks of rows ------------------
+    # a workspace limit that halves the rows, against all rows in one chunk:
+    # F row by row is the same arithmetic; the sums are two partial sums
+    # added, within rtol 1e-5 of each sum's largest entry
+    w_all = em.data["valid"]
+    eargs = (em.data["y"], w_all, params["W"], params["sigma"] ** 2,
+             model.log_odds(params), sa, Hp, True, 0.8, 1.0)
+    reset_launches(cuda_lib)
+    F_one, s_one = linear_cuda.linear_et_estep(*eargs, s_block=s_block)
+    limit = cuda_lib.P_LIMIT_BYTES
+    cuda_lib.P_LIMIT_BYTES = 4 * Hp * H * (N // 2)
+    try:
+        chunks = cuda_lib.row_chunks(N, Hp * H)
+        F_two, s_two = linear_cuda.linear_et_estep(*eargs, s_block=s_block)
+    finally:
+        cuda_lib.P_LIMIT_BYTES = limit
+    torch.cuda.synchronize()
+    expect_launches(cuda_lib, f"{tag} row chunks", bigs=3)
+    if len(chunks) != 2 or not torch.equal(F_one, F_two):
+        raise AssertionError(f"{tag} two row chunks: {chunks}, or F differs")
+    for k in s_one:
+        torch.testing.assert_close(
+            s_two[k], s_one[k], rtol=1e-5,
+            atol=1e-5 * s_one[k].abs().max().item(),
+            msg=f"{tag} two row chunks: {k}")
+    log(f"{tag} the E-step in two chunks of rows {chunks} agrees with one "
+        "chunk (F bit-identical, sums within rtol 1e-5)")
+    return {"launches": launches, "scanned": scanned,
+            "scanned_launches": scanned_launches, "ms": est[0],
+            "plain_ms": est[1],
             **bound(2.0 * (nL + nM) * N * S,
                     4.0 * (N * nX + S * (nX + K + 3) + N * (nX + K + 5)))}
+
+
+def learned_phi_step(torch, np, dev, cuda_lib):
+    """Phase 14: one EM step of DSC with a learned value set, built with
+    ``backend="plain"`` (the plain version on the card: it collects the
+    value-set sums, which no kernel does; the default backend must refuse
+    the step there), against the same step on the CPU; rtol 1e-4, the sums
+    being taken in another order."""
+    from prosper_tpu_torch import LinearAnnealing
+    from prosper_tpu_torch.data.bars import planted_dictionary
+    from prosper_tpu_torch.io.weights import params_from_numpy
+    from prosper_tpu_torch.models import DSC
+    from prosper_tpu_torch.models.base import make_blank_data, sched_floats
+
+    D, H, Hp, gamma, N = 64, 32, 6, 3, 8192
+    kw = dict(phi=(-1.0, 1.0, 2.0), chunk=2048,
+              to_learn=("W", "pi", "sigma", "phi"))
+    model = DSC(D, H, Hp, gamma, backend="plain", **kw)
+    gt = {"W": planted_dictionary(D, H, seed=0),
+          "pi": np.float32([0.03, 0.03, 0.03]), "sigma": np.float32(1.0),
+          "phi": np.float32([-1.0, 1.0, 2.0])}
+    y = model.generate_data(gt, N, seed=5)["y"]
+    p0 = {k: v.numpy() for k, v in
+          model.standard_init({"y": y}, seed=3, device="cpu").items()}
+    p0["phi"] = np.float32([-0.6, 1.4, 1.7])
+    a = LinearAnnealing(10)
+    a["T"] = 1.5
+    a["Ncut_factor"] = 0.5
+    reset_launches(cuda_lib)
+
+    def step(m, d):
+        return m.step_fn(params_from_numpy(p0, d),
+                         make_blank_data(y, device=d), sched_floats(a),
+                         torch.Generator(device=d))
+    try:
+        step(DSC(D, H, Hp, gamma, **kw), dev)
+    except ValueError as e:
+        if 'backend="plain"' not in str(e):
+            raise
+    else:
+        raise AssertionError("learned Phi with the default backend took a "
+                             "step on the card: no kernel collects its sums")
+    out = {d.type: step(model, d) for d in (dev, torch.device("cpu"))}
+    torch.cuda.synchronize()
+    expect_launches(cuda_lib, "[dsc learned phi]")
+    for k, v in out["cpu"][0].items():
+        torch.testing.assert_close(out[dev.type][0][k].cpu(), v, rtol=1e-4,
+                                   atol=1e-5, msg=f"learned-phi step {k}")
+    torch.testing.assert_close(out[dev.type][1].cpu(), out["cpu"][1],
+                               rtol=1e-4, atol=1e-4)
+    phi = out[dev.type][0]["phi"].cpu().numpy()
+    # the gauge: the anchor (the configured set's largest value) keeps 2.0
+    if not (np.isfinite(phi).all() and abs(phi[2] - 2.0) < 1e-5):
+        raise AssertionError(f"learned-phi step: phi = {phi}")
+    log(f"[dsc learned phi] one step on CUDA (backend=\"plain\", no kernel "
+        f"launch; the default backend refuses it) matches the CPU; phi -0.6, 1.4, 1.7 -> "
+        + ", ".join(f"{v:.4f}" for v in phi))
 
 
 def main() -> int:
@@ -752,18 +984,19 @@ def main() -> int:
     em_ms = float(np.median([h["dt"] for h in em.history[1:]])) * 1e3
     sa = model.state_arrays(dev)
 
-    def plain_estep_sums(params, y, weight, sched, saturated=False):
-        return etstep.linear_et_estep(
-            y, weight, params["W"], params["sigma"] ** 2,
-            model.log_odds(params), sa, Hp, False, sched["beta"],
-            sched["prior_beta"], chunk=model.chunk,
-            collect_true=not saturated)
+    # this slice's path: the same run through run_scanned (CUDA graphs)
+    scanned = {}
+    scanned["bsc_patches"], scanned_launches = scanned_path(
+        torch, np, cuda_lib, "[patches]", em,
+        lambda: EM(model, patches_anneal(), {"y": y_dev}, params=init,
+                   seed=4, device=dev),
+        init, 4, smi, estep=iters, sgemm_nn=iters, sgemm_tn=iters)
 
-    plain_model = BSC(D, H, Hp, gamma, chunk=8192)
-    plain_model.estep_sums = plain_estep_sums
-    em_p = EM(plain_model, patches_anneal(), {"y": y_dev}, params=init,
-              seed=4, device=dev)
+    reset_launches(cuda_lib)
+    em_p = EM(BSC(D, H, Hp, gamma, chunk=8192, backend="plain"),
+              patches_anneal(), {"y": y_dev}, params=init, seed=4, device=dev)
     em_p.run()
+    expect_launches(cuda_lib, "[patches] backend=plain")
     em_plain_ms = float(np.median([h["dt"] for h in em_p.history[1:]])) * 1e3
     log(f"[patches] EM iteration (N={N}): kernel path {em_ms:.3f} ms, "
         f"plain version {em_plain_ms:.3f} ms  [{smi}]")
@@ -794,8 +1027,11 @@ def main() -> int:
     # ---- 7.-10. the max family -----------------------------------------------
     mx = max_family(torch, np, dev, smi, err, patches_anneal)
 
-    # ---- 11.-12. the big-S linear E-step ------------------------------------
+    # ---- 11.-13. the big-S linear E-step ------------------------------------
     bg = bigs_path(torch, np, dev, smi, err, patches_anneal)
+
+    # ---- 14. one DSC step with a learned value set, against the CPU ----------
+    learned_phi_step(torch, np, dev, cuda_lib)
 
     # the bounds, from this run's shapes: the two D x H products, the
     # logits over [proj | Gram] and the moments over the state tables per
@@ -808,31 +1044,41 @@ def main() -> int:
     dec_bound = bound(2.0 * Nd * D * H + 2.0 * Nd * S * (NX + Hp),
                       4.0 * (Nd * D + D * H + Nd * (1 + H + 2 * L + Hp)))
     mxl, bgl = mx.pop("launches"), bg.pop("launches")
+    scanned["mca_patches"], scanned["tsc_bigs"] = (mx.pop("scanned"),
+                                                   bg.pop("scanned"))
+    mxs, bgs = mx.pop("scanned_launches"), bg.pop("scanned_launches")
 
     def gemm_launches(name):
         return launches[name] + mxl[name]
+
+    def scanned_gemm_launches(name):
+        return scanned_launches[name] + mxs[name]
 
     kernels = [
         {"name": "linear_et_estep", "route": "cuda",
          "source": "prosper_tpu_torch/csrc/linear_et_estep.cu",
          "replaces": "prosper_tpu/ops/linear_pallas.py:244",
-         "launches": launches["estep"], "max_abs_err": err["estep"],
-         "ms": est[0], "plain_ms": est[1], **est_bound, "library_ms": None},
+         "launches": launches["estep"],
+         "scanned_launches": scanned_launches["estep"],
+         "max_abs_err": err["estep"], "ms": est[0], "plain_ms": est[1], **est_bound, "library_ms": None},
         {"name": "linear_et_decode", "route": "cuda",
          "source": "prosper_tpu_torch/csrc/linear_et_decode.cu",
          "replaces": "prosper_tpu/ops/linear_pallas.py:435",
-         "launches": launches["decode"], "max_abs_err": err["decode"],
+         "launches": launches["decode"], "scanned_launches": 0,
+         "max_abs_err": err["decode"],
          "ms": dec[0], "plain_ms": dec[1], **dec_bound, "library_ms": None},
         {"name": "max_et_estep", "route": "cuda",
          "source": "prosper_tpu_torch/csrc/max_et_estep.cu",
          "replaces": "prosper_tpu/ops/max_pallas.py:559; "
                      "prosper_tpu/ops/max_pallas.py:433",
-         "launches": mxl["max_estep"], "max_abs_err": err["max_estep"],
+         "launches": mxl["max_estep"], "scanned_launches": mxs["max_estep"],
+         "max_abs_err": err["max_estep"],
          **mx, "library_ms": None},
         {"name": "bigs_multi", "route": "cuda",
          "source": "prosper_tpu_torch/csrc/bigs_multi.cu",
          "replaces": "prosper_tpu/ops/bigs_pallas.py:155",
-         "launches": bgl["bigs"], "max_abs_err": err["bigs"], **bg,
+         "launches": bgl["bigs"], "scanned_launches": bgs["bigs"],
+         "max_abs_err": err["bigs"], **bg,
          "library_ms": None},
         # the two products inside the bodies of the TPU kernels; one launch
         # per E-step of the linear and of the MCA patches path, and
@@ -842,19 +1088,27 @@ def main() -> int:
          "replaces": "prosper_tpu/ops/linear_pallas.py:63; "
                      "prosper_tpu/ops/max_pallas.py:65",
          "launches": gemm_launches("sgemm_nn"),
+         "scanned_launches": scanned_gemm_launches("sgemm_nn"),
          "max_abs_err": err["sgemm_nn"], **gm["sgemm_nn"]},
         {"name": "sgemm_tn_splitn", "route": "cuda",
          "source": "prosper_tpu_torch/csrc/sgemm.cu",
          "replaces": "prosper_tpu/ops/linear_pallas.py:179; "
                      "prosper_tpu/ops/max_pallas.py:169",
          "launches": gemm_launches("sgemm_tn"),
+         "scanned_launches": scanned_gemm_launches("sgemm_tn"),
          "max_abs_err": err["sgemm_tn"], **gm["sgemm_tn"]},
     ]
     for k in kernels:
         log(f"[kernels] {k['name']}: {k['ms']:.3f} ms, bound "
             f"{k['bound_ms']:.3f} ms by {k['bound_by']} "
             f"({100 * k['bound_ms'] / k['ms']:.1f} % of it), "
-            f"{k['launches']} launches  [{smi}]")
+            f"{k['launches']} launches through run, "
+            f"{k['scanned_launches']} through run_scanned's eager steps and "
+            f"captures  [{smi}]")
+        if k["name"] != "linear_et_decode" and k["scanned_launches"] < 1:
+            raise AssertionError(f"{k['name']} was launched no time through "
+                                 "run_scanned")
+    log(json.dumps({"scanned": dict(scanned, card=smi)}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

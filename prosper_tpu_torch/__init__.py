@@ -2,12 +2,15 @@
 
 Expectation-Truncation variational EM on one NVIDIA GPU for the linear
 sparse-coding family (BSC, TSC, DSC) and the maximal-causes family (MCA,
-MMCA): ``EM(model, anneal, {"y": y}).run()`` trains,
-``model.inference(params, data, top_L)`` serves posterior decodes.  The
+MMCA): ``EM(model, anneal, {"y": y}).run()`` trains (``run_scanned()``
+follows the same trajectory with no host work between iterations: CUDA
+graph replays of the step), ``model.inference(params, data, top_L)``
+serves posterior decodes.  With ``backend="cuda"`` (the default) the
 E-steps (and the linear family's decode) run in hand-written CUDA kernels
 on a CUDA device (``ops/linear_cuda.py``, ``ops/max_cuda.py``, built with
 nvcc at first use by ``ops/cuda_lib.py``) and in their plain PyTorch
-versions on the CPU.  The JAX package ``prosper_tpu`` is the reference
+versions on the CPU; ``backend="plain"`` runs the plain versions on any
+device.  The JAX package ``prosper_tpu`` is the reference
 this port is held to; the port imports neither it nor JAX.
 """
 

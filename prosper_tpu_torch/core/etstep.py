@@ -50,6 +50,24 @@ def state_arrays_from(space, device) -> LinearStateArrays:
                              values=t(space.values))
 
 
+def traced_state_arrays(slot_onehot: torch.Tensor,
+                        value_counts: torch.Tensor,
+                        abs_states: torch.Tensor,
+                        phi: torch.Tensor) -> LinearStateArrays:
+    """State arrays as functions of a learned value vector ``phi`` (K,).
+
+    ``slot_onehot`` is the static (S, Hp, K) assignment indicator
+    (``core.states.slot_value_onehot``); states, outer and values follow
+    the parameter, so DSC value-set learning re-enumerates nothing."""
+    phi = phi.to(torch.float32)
+    states = torch.einsum("sak,k->sa", slot_onehot, phi)
+    S, Hp = states.shape
+    outer = (states[:, :, None] * states[:, None, :]).reshape(S, Hp * Hp)
+    return LinearStateArrays(states=states, outer=outer,
+                             abs_states=abs_states,
+                             value_counts=value_counts, values=phi)
+
+
 def _candidates(y, W, gram, gram_diag, Hp: int, signed_select: bool, P=None):
     """P = y @ W (unless given), the top-Hp candidates, their projections and
     Gram entries: (P (C, H), cand (C, Hp), proj (C, Hp), Gf (C, Hp^2))."""
@@ -124,11 +142,14 @@ def _weighted_sums(y, y2, wv, s_full, sum_ss, abs_n, vc_n, F, F_true,
 
 def _chunk_estats(y, w, W, gram, gram_diag, sigma2, log_odds,
                   sa: LinearStateArrays, Hp: int, signed_select: bool,
-                  beta, prior_beta, collect_true: bool = True, P=None):
+                  beta, prior_beta, collect_true: bool = True, P=None,
+                  collect_phi: bool = False, slot_onehot=None):
     """E-statistics for one chunk: y (C, D), w (C,) accumulation weights.
     Returns (F (C,), sums).  F is the per-datapoint truncated
     log-pseudo-likelihood with every constant term.  Given ``P = y @ W``
-    it is the middle stage alone (``linear_et_estep_rows``)."""
+    it is the middle stage alone (``linear_et_estep_rows``).
+    ``collect_phi`` adds the value-set sums ``phi_c`` (K,) and ``phi_M``
+    (K, K) from ``slot_onehot`` (S, Hp, K)."""
     C, D = y.shape
     H = W.shape[1]
     K = sa.values.shape[0]
@@ -175,8 +196,27 @@ def _chunk_estats(y, w, W, gram, gram_diag, sigma2, log_odds,
 
     abs_n = q_single.sum(dim=(1, 2)) + q_multi @ sa.abs_states
     vc_n = q_single.sum(dim=1) + q_multi @ sa.value_counts           # (C, K)
-    return F, _weighted_sums(y, y2, wv, s_full, sum_ss, abs_n, vc_n, F,
-                             F_true, staged)
+    sums = _weighted_sums(y, y2, wv, s_full, sum_ss, abs_n, vc_n, F, F_true,
+                          staged)
+    if collect_phi:
+        # With s = sum_k phi_k b_k (b_k the indicator of value k per unit)
+        # the expected complete-data log-likelihood is quadratic in phi; its
+        # stationary point solves M phi = c with
+        #   c_k  = sum_n w E[b_k]^T W^T y_n
+        #   M_kj = sum_n w E[b_k^T (W^T W) b_j].
+        # The multi states use the candidate-space posterior; a singleton
+        # has one active unit and adds to the diagonal only.
+        S = slot_onehot.shape[0]
+        Qsel = (q_multi @ slot_onehot.reshape(S, Hp * K)).reshape(C, Hp, K)
+        phi_c_multi = torch.einsum("nak,na,n->k", Qsel, proj, wv)
+        QGf = (q_multi * wv[:, None]).T @ Gf                     # (S, Hp^2)
+        phi_M_multi = torch.einsum("sab,sak,sbj->kj", QGf.reshape(S, Hp, Hp),
+                                   slot_onehot, slot_onehot)
+        phi_c_single = torch.einsum("nhk,nh,n->k", q_single, P, wv)
+        phi_M_single = torch.einsum("nhk,h,n->k", q_single, gram_diag, wv)
+        sums["phi_c"] = phi_c_multi + phi_c_single
+        sums["phi_M"] = phi_M_multi + torch.diag(phi_M_single)
+    return F, sums
 
 
 def linear_et_estep_rows(y, weight, P, W, sigma2, log_odds,
@@ -446,15 +486,20 @@ def linear_et_estep(y: torch.Tensor, weight: torch.Tensor, W: torch.Tensor,
                     sigma2, log_odds: torch.Tensor, sa: LinearStateArrays,
                     Hp: int, signed_select: bool, beta, prior_beta,
                     chunk: int = 2048, collect_true: bool = True,
-                    s_block: int = 0
+                    s_block: int = 0, collect_phi: bool = False,
+                    slot_onehot=None
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full E-step with chunked accumulation.  Returns (F (N,), sums).
     ``s_block > 0`` takes the big-S path (``_chunk_estats_bigs``, the plain
-    ``bigs_multi``).
+    ``bigs_multi``).  ``collect_phi`` (with ``slot_onehot``, and without
+    ``s_block``) adds the value-set sums ``phi_c`` and ``phi_M``.
 
     N must be a multiple of ``chunk`` unless N <= chunk (pad with
     ``weight == 0`` rows; ``EM`` does)."""
     N = y.shape[0]
+    if collect_phi and (s_block > 0 or slot_onehot is None):
+        raise ValueError("collect_phi needs slot_onehot and s_block = 0 "
+                         "(the big-S path collects no value-set sums)")
     gram = W.T @ W
     gram_diag = torch.diagonal(gram)
 
@@ -465,7 +510,8 @@ def linear_et_estep(y: torch.Tensor, weight: torch.Tensor, W: torch.Tensor,
                                       prior_beta, s_block, collect_true)
         return _chunk_estats(y_i, w_i, W, gram, gram_diag, sigma2, log_odds,
                              sa, Hp, signed_select, beta, prior_beta,
-                             collect_true)
+                             collect_true, collect_phi=collect_phi,
+                             slot_onehot=slot_onehot)
 
     if N <= chunk:
         return body(y, weight)
@@ -616,17 +662,24 @@ def linear_et_posterior_kernel(y: torch.Tensor, W: torch.Tensor, sigma2,
                              dense_states)
 
 
+@functools.lru_cache(maxsize=None)
+def _log_binomials(H: int, gamma: int, device):
+    """(ks, log C(H, k)) for k = 0..gamma as float32 tensors on ``device``,
+    made once: a step then copies nothing from the host for them."""
+    ks = torch.arange(gamma + 1, dtype=torch.float32, device=device)
+    log_comb = torch.tensor(
+        [math.lgamma(H + 1) - math.lgamma(k + 1) - math.lgamma(H - k + 1)
+         for k in range(gamma + 1)], dtype=torch.float32, device=device)
+    return ks, log_comb
+
+
 def truncated_prior_logmass(log_pi_active: torch.Tensor, H: int, gamma: int):
     """log A_gamma and log B_gamma for the ET corrections, in log space:
 
     A = sum_{k<=gamma} C(H,k) pi^k (1-pi)^(H-k),  B = the same with a factor
     k (so B/A = E_trunc|s|), with pi the probability that a unit is active.
     """
-    dev = log_pi_active.device
-    ks = torch.arange(gamma + 1, dtype=torch.float32, device=dev)
-    log_comb = torch.tensor(
-        [math.lgamma(H + 1) - math.lgamma(k + 1) - math.lgamma(H - k + 1)
-         for k in range(gamma + 1)], dtype=torch.float32, device=dev)
+    ks, log_comb = _log_binomials(H, gamma, log_pi_active.device)
     log_1m = torch.log(-torch.expm1(torch.clamp(log_pi_active, max=-1e-8)))
     terms = log_comb + ks * log_pi_active + (H - ks) * log_1m
     logA = torch.logsumexp(terms, dim=0)

@@ -158,7 +158,7 @@ def _dp_hard_resp(qa, plan: DPPlan, masks, Hp: int):
     return A
 
 
-def _soft_resp(qa, Wc, states, plan: DPPlan, magnitude: bool, rho: float):
+def _soft_resp(qa, Wc, states, plan: DPPlan, magnitude: bool, rho):
     """Softened-max responsibilities A[n, h, d] = sum_s qa[n, s] *
     exp(rho (K_h - K_max) / |K_max|) / Z over the active slots."""
     Hp = Wc.shape[1]
@@ -210,12 +210,14 @@ def _union_terms(y, W, gram_diag, sigma2, log_odds, sa: LinearStateArrays,
 
 def _chunk_max_estats(y, w, W, gram_diag, sigma2, log_odds,
                       sa: LinearStateArrays, Hp: int, magnitude: bool,
-                      beta, prior_beta, plan: DPPlan, rho: float = 0.0,
+                      beta, prior_beta, plan: DPPlan, rho=None,
                       collect_true: bool = True, P=None):
     """E-statistics for one chunk: y (C, D), w (C,) weights.
-    Returns (F (C,), sums).  Given ``P = y @ W`` it is the middle stage
-    alone (``max_et_estep_rows``): the sums then hold ``qsw = w q_single``
-    (C, H), and numer lacks its singleton part ``qsw.T @ y``."""
+    Returns (F (C,), sums).  ``rho`` (a host number or a 0-d tensor) is the
+    softened max's exponent; None takes the hard winner.  Given
+    ``P = y @ W`` it is the middle stage alone (``max_et_estep_rows``): the
+    sums then hold ``qsw = w q_single`` (C, H), and numer lacks its
+    singleton part ``qsw.T @ y``."""
     C, D = y.shape
     H = W.shape[1]
     staged = P is not None
@@ -246,7 +248,7 @@ def _chunk_max_estats(y, w, W, gram_diag, sigma2, log_odds,
     abs_n = q_single.sum(dim=1) + q_multi @ sa.abs_states
 
     qa = q_multi * wv[:, None]                                       # (C, S)
-    if rho > 0:
+    if rho is not None:
         accA = _soft_resp(qa, u["Wc"], sa.states, plan, magnitude, rho)
     else:
         accA = _dp_hard_resp(qa, plan, u["masks"], Hp)               # (C,Hp,D)
@@ -284,7 +286,7 @@ def max_et_estep_rows(y, weight, P, W, sigma2, log_odds,
     ``numer += qsw.T @ y``."""
     F, sums = _chunk_max_estats(y, weight, W, (W * W).sum(dim=0), sigma2,
                                 log_odds, sa, Hp, magnitude, beta, prior_beta,
-                                dp_plan(sa.states), 0.0, collect_true, P=P)
+                                dp_plan(sa.states), None, collect_true, P=P)
     return F, sums.pop("qsw"), sums
 
 
@@ -297,13 +299,15 @@ def _not_ported(what: str):
 def max_et_estep(y: torch.Tensor, weight: torch.Tensor, W: torch.Tensor,
                  sigma2, log_odds, sa: LinearStateArrays, Hp: int,
                  magnitude: bool, beta, prior_beta, chunk: int = 2048,
-                 rho: float = 0.0, collect_true: bool = True,
+                 rho=None, collect_true: bool = True,
                  dp_winner: bool = True, state_axis=None,
                  n_state_shards: int = 1
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Max-superposition E-step, chunked by ``chunk`` (it bounds the
     (chunk, S, D) winner tile).  Returns (F (N,), sums).  N must be a
-    multiple of ``chunk`` unless N <= chunk (``EM`` pads)."""
+    multiple of ``chunk`` unless N <= chunk (``EM`` pads).  ``rho`` is the
+    softened max's exponent, on the host or the device; None (the
+    schedule's rho <= 0) takes the hard winner."""
     if state_axis is not None or n_state_shards != 1 or not dp_winner:
         raise _not_ported("state sharding of the max family (state_axis, "
                           "n_state_shards, dp_winner=False)")

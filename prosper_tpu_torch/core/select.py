@@ -6,6 +6,11 @@ Counterpart of ``prosper_tpu/core/select.py``:
   * the ET ``Ncut`` cut as a free-energy threshold found by the same
     3-round, 128-bin histogram bisection as the JAX package, so the cut
     keeps the same rows.
+
+Fractions and factors may be host numbers or 0-d tensors on the data's
+device.  Given tensors, no function here makes a scalar on the host or
+copies one to the device, so a step that calls them can be captured into a
+CUDA graph.
 """
 
 from __future__ import annotations
@@ -52,7 +57,7 @@ def top_l_argmax(q: torch.Tensor, L: int):
     return torch.cat(vals, dim=1), torch.cat(idxs, dim=1)
 
 
-def exact_count_mask(generator: torch.Generator, N: int, frac: float,
+def exact_count_mask(generator: torch.Generator, N: int, frac,
                      valid: Optional[torch.Tensor] = None,
                      device=None) -> torch.Tensor:
     """Random {0,1} float mask with exactly ceil(frac * n_valid) ones;
@@ -63,18 +68,27 @@ def exact_count_mask(generator: torch.Generator, N: int, frac: float,
         u = torch.where(valid > 0, u, torch.full_like(u, -1.0))
         n_valid = valid.sum()
     else:
-        n_valid = torch.tensor(float(N), device=device)
+        n_valid = torch.full((), float(N), device=device)
     k = torch.clamp(torch.ceil(frac * n_valid).long(), 1, N)
     sorted_u = torch.sort(u, descending=True).values
-    thresh = sorted_u[torch.clamp(k - 1, 0, N - 1)]
+    # gathered by a tensor index: indexing with a 0-d tensor would read it
+    # on the host
+    thresh = sorted_u.gather(0, torch.clamp(k - 1, 0, N - 1).reshape(1))
     return ((u >= thresh) & (u >= 0)).float()
+
+
+def _f64(x) -> torch.Tensor:
+    """``x`` (a tensor where it lies, or a host number rounded to float32
+    first) in float64."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.as_tensor(x, dtype=torch.float32)
+    return x.double()
 
 
 def _fma(a, b, c) -> torch.Tensor:
     """a * b + c rounded once to float32, as XLA's fused multiply-add does
     it (the product of two float32 values is exact in float64)."""
-    return (torch.as_tensor(a).double() * torch.as_tensor(b).double()
-            + torch.as_tensor(c).double()).float()
+    return (_f64(a) * _f64(b) + _f64(c)).float()
 
 
 def global_quantile_threshold(values: torch.Tensor, valid: torch.Tensor,
@@ -84,7 +98,7 @@ def global_quantile_threshold(values: torch.Tensor, valid: torch.Tensor,
     >= t, by histogram bisection in float32 (accuracy range / bins**rounds).
     The arithmetic follows the JAX package step by step, including where
     XLA fuses a multiply-add, so both pick the same threshold."""
-    big = torch.tensor(3e38, dtype=torch.float32, device=values.device)
+    big = torch.full((), 3e38, dtype=torch.float32, device=values.device)
     v = torch.where(valid > 0, values, -big)
     lo = torch.where(valid > 0, values, big).min()
     hi = v.max()
@@ -108,5 +122,5 @@ def ncut_keep_count(N_total, Ncut_factor, log_A_gamma) -> torch.Tensor:
     """Number of datapoints kept by the ET data cut: the kept fraction
     ramps from 1 down to A_gamma(pi) as ``Ncut_factor`` goes 0 -> 1."""
     A = torch.exp(log_A_gamma)
-    frac = _fma(-(1.0 - A), Ncut_factor, 1.0).to(A.device)
+    frac = _fma(-(1.0 - A), Ncut_factor, 1.0)
     return torch.ceil(frac * N_total)

@@ -94,3 +94,24 @@ def discrete_state_space(Hp: int, gamma: int, values, min_active: int = 2,
 def binary_state_space(Hp: int, gamma: int, min_active: int = 2) -> StateSpace:
     """Binary {0,1} states (BSC supports, MCA, MMCA)."""
     return discrete_state_space(Hp, gamma, values=[1.0], min_active=min_active)
+
+
+def ternary_state_space(Hp: int, gamma: int, min_active: int = 2) -> StateSpace:
+    """Ternary {-1, 0, +1} states (TSC)."""
+    return discrete_state_space(Hp, gamma, values=[-1.0, 1.0],
+                                min_active=min_active)
+
+
+def slot_value_onehot(space: StateSpace) -> np.ndarray:
+    """(S, Hp, K) indicator: slot ``a`` of state ``s`` carries ``values[k]``.
+
+    It separates which value a slot carries (static combinatorics) from the
+    values' magnitudes, so a learned value set Phi (DSC with "phi" in
+    ``to_learn``) rebuilds ``states = onehot @ phi`` as a function of the
+    parameter vector.
+    """
+    vals = space.values
+    if np.unique(vals).size != vals.size:
+        raise ValueError("values must be distinct to recover slot indicators")
+    return ((space.states[:, :, None] == vals[None, None, :])
+            & (space.states[:, :, None] != 0)).astype(np.float32)

@@ -64,6 +64,7 @@
 #include <cstddef>
 
 #include "cp_async.cuh"
+#include "launch_once.cuh"
 
 namespace bigs {
 
@@ -338,17 +339,13 @@ cudaError_t launch(const float* X, const float* AT, const float* PV,
   if (nw == 0) return cudaErrorInvalidValue;
   // few rows: smaller blocks, as long as they are fewer than the SMs (the
   // rows' arithmetic does not depend on the block they run in)
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  static launch_once::DeviceOnce once;   // one per kernel instance
+  int sms = 0;
+  cudaError_t e = launch_once::prepare_kernel(bigs_kernel<G4, G1>, once,
+                                              false, &sms);
   if (e != cudaSuccess) return e;
   while (nw > 1 && (C + RW * nw - 1) / (RW * nw) < sms) nw >>= 1;
   const size_t smem = smem_floats(nL, 32 * G4 + 8 * G1, nw) * sizeof(float);
-  e = cudaFuncSetAttribute(
-      bigs_kernel<G4, G1>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return e;
   const int R = RW * nw;
   bigs_kernel<G4, G1><<<(C + R - 1) / R, 32 * nw, smem, stream>>>(
       X, AT, PV, B, scal, acc, stats, C, S, nL, ldx, lda, tc);

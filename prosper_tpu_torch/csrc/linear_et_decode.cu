@@ -37,6 +37,7 @@
 // * The multi states' mean splits the S states over 32 / H' lanes a
 //   candidate and adds the parts in a fixed order.
 
+#include "launch_once.cuh"
 #include "linear_et_frontend.cuh"
 
 namespace let {
@@ -214,13 +215,8 @@ int linear_et_decode_rows(const float* y, const float* P, const float* gram,
   let::Dims d{N, D, H, Hp, S, K, 1 + H * K + S, signed_select, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t smem = let::decode_smem_floats(H, Hp, S, K) * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      let::decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  e = cudaFuncSetAttribute(let::decode_kernel,
-                           cudaFuncAttributePreferredSharedMemoryCarveout,
-                           cudaSharedmemCarveoutMaxShared);
+  static launch_once::DeviceOnce once;
+  cudaError_t e = launch_once::prepare_kernel(let::decode_kernel, once, true);
   if (e != cudaSuccess) return static_cast<int>(e);
   let::decode_kernel<<<n_blocks, let::RTHREADS, smem, s>>>(
       y, P, t, d, L, F, s_mean, top_q, top_u, cand);

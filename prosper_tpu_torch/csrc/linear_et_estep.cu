@@ -49,6 +49,7 @@
 //   block barrier between rows); the H'^2 entries of one row are distinct
 //   units and go in parallel.  Rows with weight 0 skip the scatter.
 
+#include "launch_once.cuh"
 #include "linear_et_frontend.cuh"
 
 namespace let {
@@ -379,13 +380,8 @@ int linear_et_estep_rows(const float* y, const float* weight, float* P,
   let::Dims d{N, D, H, Hp, S, K, 1 + H * K + S, signed_select, collect_true};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t smem = let::rows_smem_floats(H, Hp, S, K) * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      let::rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  e = cudaFuncSetAttribute(let::rows_kernel,
-                           cudaFuncAttributePreferredSharedMemoryCarveout,
-                           cudaSharedmemCarveoutMaxShared);
+  static launch_once::DeviceOnce once;
+  cudaError_t e = launch_once::prepare_kernel(let::rows_kernel, once, true);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int n_tiles = (N + let::RWARPS - 1) / let::RWARPS;
   let::rows_kernel<<<n_blocks, let::RTHREADS, smem, s>>>(

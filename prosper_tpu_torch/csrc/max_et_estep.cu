@@ -59,6 +59,7 @@
 // the added slot (the largest of the support) wins only when its key is
 // strictly greater, as in core/maxstep.py and the TPU kernels.
 
+#include "launch_once.cuh"
 #include "linear_et_frontend.cuh"
 
 namespace mxe {
@@ -421,13 +422,8 @@ cudaError_t launch(const float* y, const float* weight, float* P,
                    int magnitude, float* F, float* ws, float* sums, int nb,
                    cudaStream_t stream) {
   const size_t smem = smem_bytes(d.D, d.H, d.Hp, d.S);
-  cudaError_t e = cudaFuncSetAttribute(
-      max_estep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(max_estep_kernel,
-                           cudaFuncAttributePreferredSharedMemoryCarveout,
-                           cudaSharedmemCarveoutMaxShared);
+  static launch_once::DeviceOnce once;
+  cudaError_t e = launch_once::prepare_kernel(max_estep_kernel, once, true);
   if (e != cudaSuccess) return e;
   const int n_tiles = (d.N + TILE - 1) / TILE;
   max_estep_kernel<<<nb, THREADS, smem, stream>>>(

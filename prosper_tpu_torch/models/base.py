@@ -8,11 +8,21 @@ the ``partial`` mask) comes from an explicit ``torch.Generator`` on that
 device.  The Ncut ranking uses the previous iteration's per-datapoint free
 energies by default (one E-step pass); ``ncut_current`` ranks by the
 current iteration's, at the price of a second pass while the cut is active.
+
+A step's schedule is a dict of values (``sched_floats``: host numbers, or
+the same as 0-d tensors on the device) and the branches those values pick:
+whether a noise channel draws at all, whether ``partial`` subsamples,
+whether the data cut is on, whether the max is softened, whether the step
+is saturated.  ``step_pattern`` derives the branches from the host numbers
+once, and ``device_sched`` puts the values on the device with the pattern
+beside them under ``sched["pattern"]``: a step fed such a dict reads no
+schedule value on the host, so it can be captured into a CUDA graph and
+replayed with other values (``engine/em.py::EM.run_scanned``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -28,6 +38,78 @@ def to_numpy(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+#: the names a model's ``backend`` takes -> what they select.  "pallas" and
+#: "xla" are the JAX package's names for the same two choices.
+BACKENDS = {"cuda": "cuda", "pallas": "cuda", "plain": "plain",
+            "xla": "plain"}
+
+
+def resolve_backend(backend: str) -> str:
+    """``"cuda"`` (the hand-written kernels on a CUDA tensor) or
+    ``"plain"`` (the plain PyTorch version on whatever device the tensors
+    lie on) for any accepted name; ValueError for any other."""
+    if backend not in BACKENDS:
+        raise ValueError("backend must be 'cuda' or 'plain' (or the JAX "
+                         f"package's 'pallas' or 'xla'), got {backend!r}")
+    return BACKENDS[backend]
+
+
+class StepPattern(NamedTuple):
+    """The branches one EM step takes, as the host schedule decides them."""
+    saturated: bool        # beta == prior_beta == 1: no un-annealed channel
+    W_noise: bool          # each noise channel draws only where its std != 0
+    pi_noise: bool
+    sigma_noise: bool
+    mu_noise: bool
+    partial: bool          # partial < 1: the exact-count random subsample
+    ncut: bool             # Ncut_factor > 0: the ET data cut
+    soft: bool             # rho > 0: the softened max (MCA / MMCA)
+
+
+#: the schedule's channels, in the order of a device schedule's columns
+SCHED_KEYS = ("beta", "prior_beta", "Ncut_factor", "partial", "W_noise",
+              "pi_noise", "sigma_noise", "mu_noise", "rho")
+
+
+def step_pattern(sched: Dict) -> StepPattern:
+    """The pattern of a schedule snapshot (``sched_floats``): a pure
+    function of its values."""
+    f = {k: float(sched[k]) for k in SCHED_KEYS}
+    return StepPattern(
+        saturated=f["beta"] == 1.0 and f["prior_beta"] == 1.0,
+        W_noise=f["W_noise"] != 0.0,
+        pi_noise=f["pi_noise"] != 0.0, sigma_noise=f["sigma_noise"] != 0.0,
+        mu_noise=f["mu_noise"] != 0.0, partial=f["partial"] < 1.0,
+        ncut=f["Ncut_factor"] > 0, soft=f["rho"] > 0)
+
+
+def pattern_of(sched: Dict) -> StepPattern:
+    """The pattern a schedule dict carries, else the one its values give."""
+    pattern = sched.get("pattern")
+    return step_pattern(sched) if pattern is None else pattern
+
+
+def sched_row(sched: Dict) -> list:
+    """A snapshot's values in the order of ``SCHED_KEYS``."""
+    return [float(sched[k]) for k in SCHED_KEYS]
+
+
+def sched_from_row(row: torch.Tensor, pattern: StepPattern) -> Dict:
+    """The step's schedule from one row (n_channels,) of a device
+    schedule: 0-d views of it, and the pattern."""
+    return dict(zip(SCHED_KEYS, row.unbind(0)), pattern=pattern)
+
+
+def device_sched(sched: Dict, device) -> Dict:
+    """``sched`` ready for a step on ``device``: the values as 0-d float32
+    tensors there (one copy for all of them) and the pattern.  A dict that
+    carries its pattern already is returned as it is."""
+    if "pattern" in sched:
+        return sched
+    row = torch.tensor(sched_row(sched), dtype=torch.float32).to(device)
+    return sched_from_row(row, step_pattern(sched))
 
 
 class ETModel:
@@ -58,8 +140,12 @@ class ETModel:
 
     # -- subclass contract ----------------------------------------------------
 
-    def generate_from_hidden(self, params: Dict, s: np.ndarray) -> np.ndarray:
-        """Noise-free mean ybar given latent states (host-side numpy)."""
+    def generate_from_hidden(self, params: Dict, s: np.ndarray,
+                             rng: Optional[np.random.Generator] = None
+                             ) -> np.ndarray:
+        """Noise-free mean ybar given latent states (host-side numpy).
+        ``rng`` is accepted for callers written for the JAX package and
+        not read: no model of the port draws here."""
         raise NotImplementedError
 
     def sample_latents(self, params: Dict, N: int,
@@ -74,7 +160,7 @@ class ETModel:
         same numbers as the JAX package for the same seed."""
         rng = np.random.default_rng(seed)
         s = self.sample_latents(params, N, rng)
-        ybar = self.generate_from_hidden(params, s)
+        ybar = self.generate_from_hidden(params, s, rng)
         sigma = float(to_numpy(params["sigma"]))
         y = ybar + sigma * rng.standard_normal(ybar.shape)
         return {"y": y.astype(np.float32), "s": s,
@@ -99,25 +185,37 @@ class ETModel:
 
         def t(a):
             return torch.as_tensor(np.asarray(a, np.float32), device=device)
-        return {"W": t(W), "pi": t(np.float32(1.0 / self.H)),
-                "sigma": t(np.float32(max(std, 1e-3)))}
+        params = {"W": t(W), "pi": t(np.float32(1.0 / self.H)),
+                  "sigma": t(np.float32(max(std, 1e-3)))}
+        # the subclass's own parameters, drawn after W from the same stream
+        params.update({k: t(v) for k, v in self._extra_init(y, rng).items()})
+        return params
+
+    def _extra_init(self, y: np.ndarray, rng: np.random.Generator) -> Dict:
+        """Initial values (numpy) of the parameters a subclass adds to W,
+        pi and sigma, from the float64 data and the init's random stream."""
+        return {}
 
     def noisify(self, params: Dict, sched: Dict,
                 generator: torch.Generator) -> Dict:
-        """Add the scheduled jitter to W, pi and sigma (noise is drawn only
-        for channels whose std is non-zero)."""
+        """Add the scheduled jitter to W, pi and sigma, and to mu where the
+        model has one (noise is drawn only for channels whose std is
+        non-zero, in this order)."""
+        pattern = pattern_of(sched)
         p = dict(params)
 
-        def noise(x, std):
-            if std == 0.0:
+        def noise(x, channel):
+            if not getattr(pattern, channel):
                 return x
-            return x + std * torch.randn(x.shape, generator=generator,
-                                         device=x.device, dtype=x.dtype)
-        p["W"] = noise(params["W"], sched["W_noise"])
-        p["pi"] = torch.clamp(noise(params["pi"], sched["pi_noise"]),
+            return x + sched[channel] * torch.randn(
+                x.shape, generator=generator, device=x.device, dtype=x.dtype)
+        p["W"] = noise(params["W"], "W_noise")
+        p["pi"] = torch.clamp(noise(params["pi"], "pi_noise"),
                               1e-6, 1.0 - 1e-6)
-        p["sigma"] = torch.clamp(noise(params["sigma"], sched["sigma_noise"]),
+        p["sigma"] = torch.clamp(noise(params["sigma"], "sigma_noise"),
                                  min=1e-5)
+        if "mu" in params:
+            p["mu"] = noise(params["mu"], "mu_noise")
         return p
 
     # -- the serving path ------------------------------------------------------
@@ -137,7 +235,7 @@ class ETModel:
     def partial_mask(self, data, sched, generator) -> torch.Tensor:
         """Exact-count random subsampling mask (``partial`` channel)."""
         valid = data["valid"]
-        if sched["partial"] >= 1.0:
+        if not pattern_of(sched).partial:
             return valid
         return exact_count_mask(generator, valid.shape[0], sched["partial"],
                                 valid=valid)
@@ -167,7 +265,7 @@ class ETModel:
                                              self.gamma)
         N_total = data["valid"].sum()
         F, sums = estep(pmask)
-        if sched["Ncut_factor"] > 0:
+        if pattern_of(sched).ncut:
             sums = estep(self.ncut_weight(pmask, F, sched, logA))[1]
         return F, sums, logA, logB, N_total
 
@@ -178,7 +276,7 @@ class ETModel:
         logA, logB = truncated_prior_logmass(log_pi_active, self.H,
                                              self.gamma)
         N_total = data["valid"].sum()
-        if sched["Ncut_factor"] > 0:
+        if pattern_of(sched).ncut:
             weight = self.ncut_weight(pmask, data["F_prev"], sched, logA)
         else:
             weight = pmask
@@ -188,7 +286,7 @@ class ETModel:
 def sched_floats(anneal) -> Dict[str, float]:
     """Annealing snapshot -> plain host floats, the step's scalars (the
     JAX package's ``sched_from_anneal`` turns these into traced scalars;
-    eager PyTorch takes them as they are)."""
+    a step of the port turns them into 0-d tensors, ``device_sched``)."""
     s = anneal.as_scalars() if hasattr(anneal, "as_scalars") else dict(anneal)
     beta = float(s.get("beta", 1.0))
     anneal_prior = bool(s.get("anneal_prior", 0.0))

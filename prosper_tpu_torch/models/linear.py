@@ -8,9 +8,14 @@ prior; they differ in the per-unit value set and the prior:
   TSC:  s_h in {-1, 0, +1},  p(s_h=±1) = pi/2                 (scalar pi)
   DSC:  s_h in {0} ∪ Phi,    p(s_h=phi_k) = pi_k              (vector pi)
 
-The E-step runs a CUDA kernel on a CUDA tensor (the fused E-step, or with
-``s_block > 0`` the big-S one) and its plain version on a CPU tensor
-(``ops/linear_cuda.py``); the M-step is closed form:
+With ``backend="cuda"`` (the default; the JAX package's name "pallas" is
+taken for it) the E-step runs a CUDA kernel on a CUDA tensor (the fused
+E-step, or with ``s_block > 0`` the big-S one) and its plain version on a
+CPU tensor (``ops/linear_cuda.py``); with ``backend="plain"`` (or "xla") it
+runs the plain version on whatever device the tensors lie on, which is
+also how a model wider than a kernel's limits trains on the card, and DSC
+with a learned value set, whose sums no kernel collects.  The M-step is
+closed form:
 
   W     <- (sum_n y <s>^T) (sum_n <s s^T>)^-1
   pi    <- pi * (A_gamma/B_gamma) * mean<|s|>        (ET truncation correction)
@@ -24,13 +29,17 @@ from typing import Dict
 import numpy as np
 import torch
 
+from prosper_tpu_torch.core import etstep
 from prosper_tpu_torch.core import states as states_mod
 from prosper_tpu_torch.core.etstep import (LinearStateArrays,
                                            linear_et_posterior,
                                            linear_et_posterior_kernel,
                                            state_arrays_from,
+                                           traced_state_arrays,
                                            truncated_prior_logmass)
-from prosper_tpu_torch.models.base import ETModel, sched_floats, to_numpy
+from prosper_tpu_torch.models.base import (ETModel, device_sched,
+                                           pattern_of, resolve_backend,
+                                           sched_floats, to_numpy)
 from prosper_tpu_torch.ops.linear_cuda import linear_et_estep
 
 
@@ -38,6 +47,14 @@ def not_ported(what: str, item: str):
     return NotImplementedError(
         f"{what} is not ported to prosper_tpu_torch yet "
         f"(ROADMAP.md, open item: {item})")
+
+
+def solve(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """A^-1 B by LU without the solver's host-side check of its status
+    (``torch.linalg.solve`` reads it on the host, which a CUDA graph
+    capture cannot do); the matrices the M-steps hand it are symmetric
+    positive definite by their ridge."""
+    return torch.linalg.solve_ex(A, B, check_errors=False).result
 
 
 def _no_state_sharding(state_axis, n_state_shards):
@@ -54,16 +71,20 @@ class LinearETModel(ETModel):
 
     def __init__(self, D, H, Hprime, gamma, values, to_learn=None,
                  chunk=2048, min_active: int = 2, ncut_current: bool = False,
-                 s_block: int = 0, compute_dtype=None):
+                 s_block: int = 0, compute_dtype=None, backend: str = "cuda"):
         super().__init__(D, H, Hprime, gamma, to_learn, chunk)
+        #: "cuda": the hand-written kernels on a CUDA tensor; "plain": the
+        #: plain PyTorch version on any device.  A switch the caller sets,
+        #: not a fallback: with "cuda" a kernel that does not hold the
+        #: model, or fails to build or launch, raises.
+        self.backend = resolve_backend(backend)
         #: big-S mode: the S multi states in s_block tiles with an online
         #: logsumexp (core/etstep.py::_chunk_estats_bigs), for state spaces
         #: too large for the fused kernel; 0 = off
         self.s_block = int(s_block)
         if compute_dtype is not None:
             raise not_ported("compute_dtype",
-                             "DSC learned Phi, compute_dtype and partial "
-                             "parity")
+                             "compute_dtype and the tensor cores")
         #: rank the Ncut data cut by the current iteration's F (reference
         #: semantics) with a second E-step pass while the cut is active;
         #: the default ranks by the previous iteration's F
@@ -71,6 +92,10 @@ class LinearETModel(ETModel):
         self.space = states_mod.discrete_state_space(
             Hprime, gamma, values, min_active=min_active)
         self._sa: Dict[torch.device, LinearStateArrays] = {}
+        #: DSC sets this when the value set Phi is learned; the state arrays
+        #: then follow ``params["phi"]`` step by step (``_sa_for``)
+        self.learn_phi: bool = False
+        self._onehot: Dict[torch.device, torch.Tensor] = {}
 
     def state_arrays(self, device) -> LinearStateArrays:
         """The enumerated state tables on ``device`` (built once each)."""
@@ -78,6 +103,36 @@ class LinearETModel(ETModel):
         if device not in self._sa:
             self._sa[device] = state_arrays_from(self.space, device)
         return self._sa[device]
+
+    def slot_onehot(self, device) -> torch.Tensor:
+        """(S, Hp, K) slot-carries-value indicator on ``device`` (built
+        once each)."""
+        device = torch.device(device)
+        if device not in self._onehot:
+            self._onehot[device] = torch.as_tensor(
+                states_mod.slot_value_onehot(self.space), device=device)
+        return self._onehot[device]
+
+    def _sa_for(self, params) -> LinearStateArrays:
+        """State arrays for this step: the static tables, or functions of
+        ``params["phi"]`` when Phi is a learned parameter."""
+        device = params["W"].device
+        sa = self.state_arrays(device)
+        if self.learn_phi and "phi" in params:
+            return traced_state_arrays(self.slot_onehot(device),
+                                       sa.value_counts, sa.abs_states,
+                                       params["phi"])
+        return sa
+
+    def _check_phi_backend(self, device) -> None:
+        """Learned Phi needs the value-set sums and state tables that
+        follow ``params["phi"]``; only the plain version has them."""
+        if (self.learn_phi and self.backend == "cuda"
+                and device.type == "cuda"):
+            raise ValueError(
+                "no CUDA kernel collects the value-set sums (phi_c, phi_M) "
+                "of a learned Phi; build the model with backend=\"plain\" "
+                "to train and decode it on the card")
 
     # -- prior hooks (subclass contract) --------------------------------------
 
@@ -94,19 +149,30 @@ class LinearETModel(ETModel):
 
     # -- the EM step ----------------------------------------------------------
 
-    def estep_sums(self, params, y, weight, sched, saturated: bool = False,
-                   state_axis=None, n_state_shards: int = 1):
+    def estep_sums(self, params, y, weight, sched, state_axis=None,
+                   n_state_shards: int = 1):
         """E-step over one block of data: (F (N,), sums).  ``params`` are
-        already noisified; the caller owns the weight mask.  On a CUDA
-        tensor this always launches a kernel: the fused E-step, or the big-S
-        one when ``s_block > 0``."""
+        already noisified; the caller owns the weight mask.  With
+        ``backend="cuda"`` a CUDA tensor always launches a kernel, the fused
+        E-step or the big-S one when ``s_block > 0``, or raises (learned
+        Phi); ``backend="plain"`` runs the plain version on the tensors'
+        device.  Learned Phi tiles no states: ``s_block`` is not read.  A
+        saturated step skips the un-annealed channel (F_true == F there)."""
         _no_state_sharding(state_axis, n_state_shards)
         W = params["W"]
-        return linear_et_estep(
-            y, weight, W, params["sigma"] ** 2, self.log_odds(params),
-            self.state_arrays(W.device), self.Hprime, self.signed_select,
-            sched["beta"], sched["prior_beta"], chunk=self.chunk,
-            collect_true=not saturated, s_block=self.s_block)
+        saturated = pattern_of(sched).saturated
+        args = (y, weight, W, params["sigma"] ** 2, self.log_odds(params),
+                self._sa_for(params), self.Hprime, self.signed_select,
+                sched["beta"], sched["prior_beta"])
+        if self.learn_phi:
+            self._check_phi_backend(W.device)
+            return etstep.linear_et_estep(
+                *args, chunk=self.chunk, collect_true=not saturated,
+                collect_phi=True, slot_onehot=self.slot_onehot(W.device))
+        estep = (linear_et_estep if self.backend == "cuda"
+                 else etstep.linear_et_estep)
+        return estep(*args, chunk=self.chunk, collect_true=not saturated,
+                     s_block=self.s_block)
 
     def finalize_mstep(self, params, sums, N_total):
         """Closed-form M-step and the per-iteration scalars (0-d tensors).
@@ -125,20 +191,17 @@ class LinearETModel(ETModel):
         }
         return new_params, scalars
 
-    def step_fn(self, params, data, sched, generator,
-                saturated: bool = False, state_axis=None,
+    def step_fn(self, params, data, sched, generator, state_axis=None,
                 n_state_shards: int = 1):
         """One EM iteration: noisify -> masks -> E-step -> M-step.
-        ``saturated`` asserts beta == prior_beta == 1, which lets the
-        E-step skip the un-annealed channel (F_true == F there); the
-        parameters come out bit-identical either way.
         Returns (new_params, F (N,), scalars)."""
         _no_state_sharding(state_axis, n_state_shards)
         y = data["y"]
+        sched = device_sched(sched, y.device)
         params = self.noisify(params, sched, generator)
 
         def estep(weight):
-            return self.estep_sums(params, y, weight, sched, saturated)
+            return self.estep_sums(params, y, weight, sched)
 
         F, sums, logA, logB, N_total = self.run_estep_with_ncut(
             estep, self.log_pi_active(params), data, sched, generator)
@@ -153,7 +216,7 @@ class LinearETModel(ETModel):
             ss = sums["ss"]
             ridge = 1e-6 * (torch.trace(ss) / H + 1.0)
             A = ss + ridge * torch.eye(H, dtype=ss.dtype, device=ss.device)
-            new["W"] = torch.linalg.solve(A, sums["xs"].T).T.contiguous()
+            new["W"] = solve(A, sums["xs"].T).T.contiguous()
         if "pi" in self.to_learn:
             new.update(self.update_prior(params, sums, n_used, logA, logB))
         if "sigma" in self.to_learn:
@@ -164,7 +227,7 @@ class LinearETModel(ETModel):
             new["sigma"] = torch.sqrt(sigma2)
         return new
 
-    def generate_from_hidden(self, params, s):
+    def generate_from_hidden(self, params, s, rng=None):
         return s @ to_numpy(params["W"]).astype(np.float64).T
 
     # -- posterior decode (the serving path) ----------------------------------
@@ -174,9 +237,11 @@ class LinearETModel(ETModel):
         """Posterior decode on held-out data: top states, probabilities,
         posterior mean, reconstruction and F, on the device of
         ``params['W']``; on a CUDA device through the fused decode kernel,
-        except for a big-S model (``s_block > 0``), which decodes through
-        the plain ``linear_et_posterior`` on any device, as the JAX package
-        keeps big-S models off its fused decode.
+        except for a big-S model (``s_block > 0``) and ``backend="plain"``,
+        which decode through the plain ``linear_et_posterior`` on any
+        device, as the JAX package keeps such models off its fused decode.
+        Learned Phi decodes through the plain version alone (on the card
+        with ``backend="plain"``).
         ``dense_states``: True returns ``top_states (N, L, H)``, False the
         compact fields (``core.etstep.densify_top_states`` rebuilds the
         dense tensor), None picks by output size."""
@@ -193,11 +258,14 @@ class LinearETModel(ETModel):
              else torch.as_tensor(np.asarray(y, np.float32), device=W.device))
         dense_states = self.resolve_dense_states(y.shape[0], top_L,
                                                  dense_states)
-        decode = (linear_et_posterior if self.s_block > 0
+        self._check_phi_backend(W.device)
+        decode = (linear_et_posterior
+                  if (self.s_block > 0 or self.backend == "plain"
+                      or self.learn_phi)
                   else linear_et_posterior_kernel)
         return decode(
             y.contiguous(), W, params["sigma"] ** 2, self.log_odds(params),
-            self.state_arrays(W.device), self.Hprime, self.signed_select,
+            self._sa_for(params), self.Hprime, self.signed_select,
             top_L, beta, prior_beta, dense_states=dense_states)
 
 
@@ -208,11 +276,11 @@ class BSC(LinearETModel):
 
     def __init__(self, D, H, Hprime, gamma, to_learn=None, chunk=2048,
                  ncut_current: bool = False, s_block: int = 0,
-                 compute_dtype=None):
+                 compute_dtype=None, backend: str = "cuda"):
         super().__init__(D, H, Hprime, gamma, values=[1.0],
                          to_learn=to_learn, chunk=chunk,
                          ncut_current=ncut_current, s_block=s_block,
-                         compute_dtype=compute_dtype)
+                         compute_dtype=compute_dtype, backend=backend)
 
     def log_odds(self, params):
         pi = params["pi"]
@@ -238,11 +306,11 @@ class TSC(LinearETModel):
 
     def __init__(self, D, H, Hprime, gamma, to_learn=None, chunk=2048,
                  ncut_current: bool = False, s_block: int = 0,
-                 compute_dtype=None):
+                 compute_dtype=None, backend: str = "cuda"):
         super().__init__(D, H, Hprime, gamma, values=[-1.0, 1.0],
                          to_learn=to_learn, chunk=chunk,
                          ncut_current=ncut_current, s_block=s_block,
-                         compute_dtype=compute_dtype)
+                         compute_dtype=compute_dtype, backend=backend)
 
     def log_odds(self, params):
         pi = params["pi"]
@@ -268,31 +336,65 @@ class TSC(LinearETModel):
 
 class DSC(LinearETModel):
     """Discrete Sparse Coding: latents from {0} ∪ Phi with a learned pi
-    vector (``params['pi']`` is (K,); p(0) = 1 - sum(pi)).  Phi is a fixed
-    config here; learning it is not ported yet."""
+    vector (``params['pi']`` is (K,); p(0) = 1 - sum(pi)).
+
+    The value set Phi is static config by default; ``to_learn=(..., "phi")``
+    makes it a learned (K,) parameter with a closed-form M-step: the
+    expected complete-data log-likelihood is quadratic in phi, so
+    phi <- M^-1 c with the E-step's ``phi_c`` / ``phi_M`` sums.  When W is
+    learned too, the (W -> aW, phi -> phi/a) scale degeneracy is gauge-fixed
+    after each update: the initially largest |phi_k| keeps its magnitude and
+    W absorbs the inverse."""
 
     signed_select = True
 
     def __init__(self, D, H, Hprime, gamma, phi=(-1.0, 1.0, 2.0),
                  to_learn=None, chunk=2048, ncut_current: bool = False,
-                 s_block: int = 0, compute_dtype=None):
-        if to_learn is not None and "phi" in to_learn:
-            raise not_ported("learning Phi (to_learn with 'phi')",
-                             "DSC learned Phi, compute_dtype and partial "
-                             "parity")
+                 s_block: int = 0, compute_dtype=None,
+                 backend: str = "cuda"):
         super().__init__(D, H, Hprime, gamma, values=list(phi),
                          to_learn=to_learn, chunk=chunk,
                          ncut_current=ncut_current, s_block=s_block,
-                         compute_dtype=compute_dtype)
+                         compute_dtype=compute_dtype, backend=backend)
         self.phi = np.asarray(phi, np.float64)
+        if "phi" in self.to_learn:
+            self.learn_phi = True
+            self.param_names = ("W", "pi", "sigma", "phi")
+            states_mod.slot_value_onehot(self.space)   # distinct values
+            self._phi_anchor = int(np.argmax(np.abs(self.phi)))
+            self._phi_anchor_val = float(self.phi[self._phi_anchor])
 
     def standard_init(self, data, seed: int = 0, device=None):
         params = super().standard_init(data, seed, device)
         K = len(self.phi)
+        dev = params["W"].device
         params["pi"] = torch.full((K,), 1.0 / (self.H * K),
-                                  dtype=torch.float32,
-                                  device=params["W"].device)
+                                  dtype=torch.float32, device=dev)
+        if self.learn_phi:
+            params["phi"] = torch.as_tensor(self.phi.astype(np.float32),
+                                            device=dev)
         return params
+
+    def m_step(self, params, sums, logA, logB):
+        new = super().m_step(params, sums, logA, logB)
+        if self.learn_phi:
+            K = len(self.phi)
+            M = sums["phi_M"]
+            ridge = 1e-6 * (torch.trace(M) / K + 1.0)
+            phi = solve(M + ridge * torch.eye(K, dtype=M.dtype,
+                                              device=M.device),
+                        sums["phi_c"][:, None])[:, 0]
+            if "W" in self.to_learn:
+                # gauge fix: |phi[anchor]| keeps its initial magnitude and W
+                # absorbs the scale (W s is invariant under it)
+                anchor = phi[self._phi_anchor]
+                alpha = torch.where(anchor.abs() > 1e-6,
+                                    self._phi_anchor_val / anchor,
+                                    torch.ones_like(anchor))
+                phi = phi * alpha
+                new["W"] = new["W"] / alpha
+            new["phi"] = phi
+        return new
 
     def log_odds(self, params):
         pi = params["pi"]
@@ -316,6 +418,8 @@ class DSC(LinearETModel):
         p0 = max(1.0 - pi.sum(), 0.0)
         probs = np.concatenate([[p0], pi])
         probs = probs / probs.sum()
-        vals = np.concatenate([[0.0], self.phi])
+        phi = (to_numpy(params["phi"]).astype(np.float64)
+               if "phi" in params else self.phi)
+        vals = np.concatenate([[0.0], phi])
         idx = rng.choice(len(vals), size=(N, self.H), p=probs)
         return vals[idx]

@@ -9,10 +9,15 @@ gives each observed dimension to its winning cause (``core/maxstep.py``):
     pi     <- ET-corrected mean activity      (as BSC)
     sigma  <- sqrt( sum <||y - ybar_s||^2> / (N_use * D) )
 
-With rho <= 0 (the hard winner) the E-step runs the fused CUDA kernel on a
-CUDA tensor and its plain version on a CPU tensor (``ops/max_cuda.py``);
-the softened max (rho > 0, an annealing window) runs the plain version on
-either device, as the JAX package's ``lax.cond`` sends it to XLA.
+With ``backend="cuda"`` (the default; the JAX package's "pallas" is taken
+for it) and rho <= 0 (the hard winner) the E-step runs the fused CUDA
+kernel on a CUDA tensor and its plain version on a CPU tensor
+(``ops/max_cuda.py``); the softened max (rho > 0, an annealing window) runs
+the plain version on either device, as the JAX package's ``lax.cond`` sends
+it to XLA.  ``backend="plain"`` (or "xla") runs the plain version on
+whatever device the tensors lie on, which is also how a state space larger
+than the kernel holds (H' > 8 or more than 128 multi states) trains on the
+card.
 """
 
 from __future__ import annotations
@@ -27,7 +32,9 @@ from prosper_tpu_torch.core.etstep import (LinearStateArrays,
                                            state_arrays_from,
                                            truncated_prior_logmass)
 from prosper_tpu_torch.core.states import binary_state_space
-from prosper_tpu_torch.models.base import ETModel, sched_floats, to_numpy
+from prosper_tpu_torch.models.base import (ETModel, device_sched, pattern_of,
+                                           resolve_backend, sched_floats,
+                                           to_numpy)
 from prosper_tpu_torch.models.linear import _no_state_sharding, not_ported
 from prosper_tpu_torch.ops import max_cuda
 
@@ -39,8 +46,12 @@ class MCA(ETModel):
     magnitude: bool = False
 
     def __init__(self, D, H, Hprime, gamma, to_learn=None, chunk=2048,
-                 ncut_current: bool = False):
+                 ncut_current: bool = False, backend: str = "cuda"):
         super().__init__(D, H, Hprime, gamma, to_learn, chunk)
+        #: "cuda": the hand-written kernel on a CUDA tensor (hard winner);
+        #: "plain": the plain PyTorch version on any device.  A switch the
+        #: caller sets, not a fallback.
+        self.backend = resolve_backend(backend)
         self.space = binary_state_space(Hprime, gamma)
         #: rank the Ncut data cut by the current iteration's F with a
         #: second E-step pass while the cut is active (as the linear family)
@@ -65,22 +76,25 @@ class MCA(ETModel):
 
     # -- the EM step ----------------------------------------------------------
 
-    def estep_sums(self, params, y, weight, sched, saturated: bool = False,
-                   state_axis=None, n_state_shards: int = 1):
+    def estep_sums(self, params, y, weight, sched, state_axis=None,
+                   n_state_shards: int = 1):
         """E-step over one block of data: (F (N,), sums).  rho > 0 runs the
         softened max (plain version); rho <= 0 the hard winner, through the
-        fused kernel on a CUDA tensor."""
+        fused kernel on a CUDA tensor unless ``backend="plain"``.  A
+        saturated step skips the un-annealed channel (F_true == F there)."""
         _no_state_sharding(state_axis, n_state_shards)
         W = params["W"]
         args = (y, weight, W, params["sigma"] ** 2, self._log_odds(params),
                 self.state_arrays(W.device), self.Hprime, self.magnitude,
                 sched["beta"], sched["prior_beta"])
-        if sched["rho"] > 0:
-            return maxstep.max_et_estep(*args, chunk=self.chunk,
-                                        rho=sched["rho"],
-                                        collect_true=not saturated)
+        pattern = pattern_of(sched)
+        if pattern.soft or self.backend == "plain":
+            return maxstep.max_et_estep(
+                *args, chunk=self.chunk,
+                rho=sched["rho"] if pattern.soft else None,
+                collect_true=not pattern.saturated)
         return max_cuda.max_et_estep(*args, chunk=self.chunk,
-                                     collect_true=not saturated)
+                                     collect_true=not pattern.saturated)
 
     def finalize_mstep(self, params, sums, N_total):
         """Winner-responsibility M-step and the per-iteration scalars.
@@ -108,17 +122,17 @@ class MCA(ETModel):
         }
         return new, scalars
 
-    def step_fn(self, params, data, sched, generator,
-                saturated: bool = False, state_axis=None,
+    def step_fn(self, params, data, sched, generator, state_axis=None,
                 n_state_shards: int = 1):
         """One EM iteration: noisify -> masks -> E-step -> M-step.
         Returns (new_params, F (N,), scalars)."""
         _no_state_sharding(state_axis, n_state_shards)
         y = data["y"]
+        sched = device_sched(sched, y.device)
         params = self.noisify(params, sched, generator)
 
         def estep(weight):
-            return self.estep_sums(params, y, weight, sched, saturated)
+            return self.estep_sums(params, y, weight, sched)
 
         F, sums, _, _, N_total = self.run_estep_with_ncut(
             estep, self.log_pi_active(params), data, sched, generator)
@@ -131,7 +145,7 @@ class MCA(ETModel):
         pi = float(to_numpy(params["pi"]))
         return (rng.random((N, self.H)) < pi).astype(np.float64)
 
-    def generate_from_hidden(self, params, s, block: int = 4096):
+    def generate_from_hidden(self, params, s, rng=None, block: int = 4096):
         """The winner over each row's active units only (rows hold few), in
         blocks of rows: the same numbers as the JAX package's (N, D, H)
         formulation, which does not fit in memory at patches width.  Ties

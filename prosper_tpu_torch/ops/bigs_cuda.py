@@ -26,12 +26,26 @@ import torch
 from prosper_tpu_torch.core import etstep
 from prosper_tpu_torch.core.etstep import LinearStateArrays
 from prosper_tpu_torch.ops.cuda_lib import (LAUNCHES, SMEM_LIMIT, cached_for,
-                                            check, device_floats,
-                                            load_library, raise_on)
+                                            check, in_row_chunks,
+                                            load_library, raise_on,
+                                            schedule_pair)
 
-__all__ = ["LAUNCHES", "bigs_multi_cuda", "linear_et_estep_bigs_cuda"]
+__all__ = ["LAUNCHES", "bigs_multi_cuda", "linear_et_estep_bigs",
+           "linear_et_estep_bigs_cuda"]
 
 LEAD = 4                     # floats: every tile row is a 16-byte copy
+NM_MAX = 152                 # moment columns the register tile holds
+
+
+def check_limits(Hp: int, K: int):
+    """Raise ValueError for more moment columns than the kernel holds."""
+    nM = Hp + Hp * (Hp + 1) // 2 + K + 2
+    if nM > NM_MAX:
+        raise ValueError(
+            f"kernel limit: {nM} moment columns (Hp + Hp (Hp + 1) / 2 + K "
+            f"+ 2) are more than the {NM_MAX} the register tile holds "
+            f"(Hp={Hp}, K={K}); backend=\"plain\" trains such a model on "
+            "the card through the plain PyTorch version")
 
 
 def tri_tables(lib, states_p, outer_p, vcounts_p, absst_p):
@@ -40,18 +54,19 @@ def tri_tables(lib, states_p, outer_p, vcounts_p, absst_p):
     kernel's column count.  Raises where the kernel does not hold the
     tables' width."""
     Hp, K = states_p.shape[1], vcounts_p.shape[1]
+    check_limits(Hp, K)
     nL = Hp + Hp * (Hp + 1) // 2
     nM = nL + K + 2
     cols = lib.bigs_multi_cols(nM)
     if cols == 0:
-        raise ValueError(f"kernel limit: {nM} moment columns "
-                         f"(Hp + Hp (Hp + 1) / 2 + K + 2) are more than the "
-                         f"register tile holds (Hp={Hp}, K={K})")
+        raise ValueError(f"the kernel holds no {nM} moment columns "
+                         f"(Hp={Hp}, K={K})")
     if lib.bigs_multi_warps(nL, nM) == 0:
         raise ValueError(
             f"a block needs {lib.bigs_multi_smem_bytes(nL, nM)} bytes of "
             f"shared memory, more than the {SMEM_LIMIT} a block may use "
-            f"(Hp={Hp})")
+            f"(Hp={Hp}); backend=\"plain\" trains such a model on the card "
+            "through the plain PyTorch version")
     return etstep.bigs_tables_tri(states_p, outer_p, vcounts_p, absst_p,
                                   LEAD, cols)
 
@@ -91,7 +106,7 @@ def bigs_multi_cuda(proj, Gf, states_p, outer_p, vcounts_p, prior, valid,
     check(B, "B", (S_pad, B.shape[1]), dev)
     X = etstep.bigs_operands_tri(proj, Gf, inv2s2, LEAD)
     PV = etstep.pad_last(torch.stack([prior, valid]), lda)
-    scal = device_floats((beta, prior_beta), dev)
+    scal = schedule_pair(beta, prior_beta, dev)
     acc = torch.empty((C, B.shape[1]), dtype=torch.float32, device=dev)
     stats = torch.empty((3, C), dtype=torch.float32, device=dev)
     err = lib.bigs_multi(
@@ -104,23 +119,43 @@ def bigs_multi_cuda(proj, Gf, states_p, outer_p, vcounts_p, prior, valid,
     return etstep.split_moments_tri(stats[0], stats[1], stats[2], acc, Hp, K)
 
 
+def linear_et_estep_bigs(y, weight, W, sigma2, log_odds,
+                         sa: LinearStateArrays, Hp: int, signed_select: bool,
+                         beta, prior_beta, s_block: int,
+                         collect_true: bool = True, multi=etstep.bigs_multi
+                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The big-S E-step around ``multi`` (the plain ``bigs_multi`` or its
+    kernel), any N, on either device: the rows are cut where the larger of
+    the (rows, H) and the two (rows, H', H) float32 workspaces of
+    ``core.etstep._chunk_estats_bigs`` (``slot_sum_ss``) would exceed
+    ``cuda_lib.P_LIMIT_BYTES``, F concatenated and the sums added in chunk
+    order; where all rows fit it is one call, as without the cut."""
+    N, H = y.shape[0], W.shape[1]
+    gram = W.T @ W
+    gram_diag = torch.diagonal(gram)
+    return in_row_chunks(
+        N, max(H, Hp * H), lambda i, j: etstep._chunk_estats_bigs(
+            y[i:j], weight[i:j], W, gram, gram_diag, sigma2, log_odds, sa,
+            Hp, signed_select, beta, prior_beta, s_block, collect_true,
+            multi=multi))
+
+
 def linear_et_estep_bigs_cuda(y, weight, W, sigma2, log_odds,
                               sa: LinearStateArrays, Hp: int,
                               signed_select: bool, beta, prior_beta,
                               s_block: int, collect_true: bool = True
                               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The big-S E-step on CUDA tensors: the torch front end and sums of
-    ``core.etstep._chunk_estats_bigs`` around one kernel launch over all
-    rows (any N, no chunking).  ``s_block`` tiles only the plain version:
-    the kernel masks states past S itself, so the tables go to it unpadded
-    (a padding unit of 1), and their reduced form is built once per state
-    space."""
+    ``core.etstep._chunk_estats_bigs`` around one kernel launch per chunk
+    of rows (``linear_et_estep_bigs``; one chunk unless N is very large).
+    ``s_block`` tiles only the plain version: the kernel masks states past
+    S itself, so the tables go to it unpadded (a padding unit of 1), and
+    their reduced form is built once per state space."""
     if y.device.type != "cuda":
         raise ValueError(f"the CUDA kernels take CUDA tensors, got {y.device}")
     tables = cached_for(sa.states, "bigs_tri", lambda: tri_tables(
         load_library(), sa.states, sa.outer, sa.value_counts, sa.abs_states))
-    gram = W.T @ W
-    return etstep._chunk_estats_bigs(
-        y, weight, W, gram, torch.diagonal(gram), sigma2, log_odds, sa, Hp,
-        signed_select, beta, prior_beta, 1, collect_true,
+    return linear_et_estep_bigs(
+        y, weight, W, sigma2, log_odds, sa, Hp, signed_select, beta,
+        prior_beta, 1, collect_true,
         multi=functools.partial(bigs_multi_cuda, tables=tables))

@@ -35,7 +35,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 SOURCES = ("sgemm.cu", "linear_et_estep.cu", "linear_et_decode.cu",
            "max_et_estep.cu", "bigs_multi.cu")
-HEADERS = ("linear_et_frontend.cuh", "cp_async.cuh")
+HEADERS = ("linear_et_frontend.cuh", "cp_async.cuh", "launch_once.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC")
 SMEM_LIMIT = 232448          # bytes of shared memory a block may use
@@ -152,11 +152,25 @@ def device_floats(values, device) -> torch.Tensor:
                           torch.device(device))
 
 
+def schedule_pair(beta, prior_beta, device) -> torch.Tensor:
+    """[beta, prior_beta] as a float32 tensor on ``device``.  Host numbers
+    go through ``device_floats``; 0-d tensors on the device (a step that
+    reads its schedule from device memory, as a CUDA graph's must) are
+    stacked there, with no copy from the host."""
+    if isinstance(beta, torch.Tensor) and isinstance(prior_beta, torch.Tensor):
+        return torch.stack([beta.reshape(()), prior_beta.reshape(())]).to(
+            device=device, dtype=torch.float32)
+    if isinstance(beta, torch.Tensor) or isinstance(prior_beta, torch.Tensor):
+        raise TypeError("beta and prior_beta must both be host numbers or "
+                        "both be tensors")
+    return device_floats((beta, prior_beta), device)
+
+
 def scalars(sigma2, beta, prior_beta, device) -> torch.Tensor:
     """[sigma2, beta, prior_beta] as a float32 tensor on ``device``."""
     s2 = torch.as_tensor(sigma2, dtype=torch.float32, device=device)
     return torch.cat([s2.reshape(1),
-                      device_floats((beta, prior_beta), device)])
+                      schedule_pair(beta, prior_beta, device)])
 
 
 _PER_TENSOR: Dict[tuple, tuple] = {}
@@ -183,11 +197,16 @@ def blocks_per_sm(smem: int) -> int:
     return max(1, min(8, (SMEM_LIMIT + 1024) // (smem + 1024)))
 
 
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The card's number of SMs, asked once per device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def n_blocks(device, smem: int, n_tiles: int) -> int:
     """Persistent blocks for a kernel of ``smem`` bytes per block: as many
     as fit on the card at once, at most one per tile."""
-    props = torch.cuda.get_device_properties(device)
-    return min(n_tiles, props.multi_processor_count * blocks_per_sm(smem))
+    return min(n_tiles, sm_count(torch.device(device)) * blocks_per_sm(smem))
 
 
 def row_chunks(N: int, H: int):
@@ -200,13 +219,14 @@ def row_chunks(N: int, H: int):
 
 def in_row_chunks(N: int, H: int, run):
     """(F, sums) of ``run(i, j)`` over the ``row_chunks``: F concatenated
-    and the sums added in order."""
+    and the sums (one tensor, or a dict of them) added in chunk order."""
     parts = [run(i, j) for i, j in row_chunks(N, H)]
     if len(parts) == 1:
         return parts[0]
     sums = parts[0][1]
     for p in parts[1:]:
-        sums = sums + p[1]
+        sums = ({k: sums[k] + p[1][k] for k in sums}
+                if isinstance(sums, dict) else sums + p[1])
     return torch.cat([p[0] for p in parts]), sums
 
 

@@ -48,6 +48,16 @@ HP_MAX, K_MAX, H_MAX = 32, 8, 1024
 ROWS_TILE = 8                # datapoints per tile of the per-datapoint kernels
 
 
+def check_limits(Hp: int, K: int, H: int):
+    """Raise ValueError for a model wider than the fused kernels hold."""
+    if not (Hp <= HP_MAX and K <= K_MAX and H <= H_MAX):
+        raise ValueError(
+            f"kernel limits: Hp <= {HP_MAX}, K <= {K_MAX}, H <= {H_MAX}; "
+            f"got {Hp=} {K=} {H=}.  The fused E-step and decode kernels do "
+            'not hold such a model; backend="plain" trains and serves it on '
+            "the card through the plain PyTorch version")
+
+
 def _check_common(y, W, log_odds, sa: LinearStateArrays, Hp: int):
     """Validate the shared inputs, then build/load the kernels.
     Returns (lib, N, D, H, S, K)."""
@@ -67,9 +77,7 @@ def _check_common(y, W, log_odds, sa: LinearStateArrays, Hp: int):
     check(sa.values, "values", (K,), dev)
     if N < 1:
         raise ValueError("need at least one datapoint")
-    if not (Hp <= HP_MAX and K <= K_MAX and H <= H_MAX):
-        raise ValueError(f"kernel limits: Hp <= {HP_MAX}, K <= {K_MAX}, "
-                         f"H <= {H_MAX}; got {Hp=} {K=} {H=}")
+    check_limits(Hp, K, H)
     return load_library(), N, D, H, S, K
 
 
@@ -79,7 +87,8 @@ def _check_smem(smem: int, S: int):
             f"the enumerated state space (S={S} multi states) is too large "
             f"for the fused kernel: a block needs {smem} bytes of shared "
             f"memory, more than the {SMEM_LIMIT} it may use; train such a "
-            "model with s_block > 0 (the big-S E-step)")
+            "model with s_block > 0 (the big-S E-step), or with "
+            'backend="plain" (the plain PyTorch version on the card)')
 
 
 def _state_minor(sa: LinearStateArrays):

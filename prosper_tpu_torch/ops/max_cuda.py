@@ -37,6 +37,16 @@ TILE = 16                    # datapoints per tile, as TILE in the source
 KEYS = ("abs", "resid", "y2", "n", "F", "F_true")
 
 
+def check_limits(Hp: int, S: int):
+    """Raise ValueError for a state space larger than the kernel holds."""
+    if not (Hp <= HP_MAX and S <= S_MAX):
+        raise ValueError(
+            f"kernel limits: Hp <= {HP_MAX}, S <= {S_MAX} multi states; got "
+            f"{Hp=} {S=}.  The max E-step kernel does not hold such a model; "
+            'backend="plain" trains it on the card through the plain '
+            "PyTorch version")
+
+
 def _estep_rows(lib, y, weight, W, WT, gdiag, states, plan, lo, scal,
                 sa: LinearStateArrays, Hp: int, magnitude: bool,
                 collect_true: bool, smem: int):
@@ -90,14 +100,14 @@ def max_et_estep_cuda(y, weight, W, sigma2, log_odds, sa: LinearStateArrays,
     check(sa.values, "values", (1,), dev)     # binary states: values [1.0]
     if N < 1:
         raise ValueError("need at least one datapoint")
-    if not (Hp <= HP_MAX and S <= S_MAX):
-        raise ValueError(f"kernel limits: Hp <= {HP_MAX}, S <= {S_MAX}; "
-                         f"got {Hp=} {S=}")
+    check_limits(Hp, S)
     lib = load_library()
     smem = lib.max_et_smem_bytes(D, H, Hp, S)
     if smem > SMEM_LIMIT:
         raise ValueError(f"a tile needs {smem} bytes of shared memory, more "
-                         f"than the {SMEM_LIMIT} a block may use")
+                         f"than the {SMEM_LIMIT} a block may use; "
+                         'backend="plain" trains such a model on the card '
+                         "through the plain PyTorch version")
     plan = maxstep.dp_plan(sa.states).flat
     WT = W.T.contiguous()
     gdiag = (W * W).sum(dim=0)

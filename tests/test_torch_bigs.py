@@ -31,7 +31,8 @@ from prosper_tpu_torch.core import etstep as tet
 from prosper_tpu_torch.core.states import discrete_state_space
 from prosper_tpu_torch.io.weights import params_from_numpy, params_to_numpy
 from prosper_tpu_torch.models import BSC, DSC, TSC
-from prosper_tpu_torch.models.base import make_blank_data, sched_floats
+from prosper_tpu_torch.models.base import (device_sched, make_blank_data,
+                                           sched_floats)
 from prosper_tpu_torch.ops import bigs_cuda, linear_cuda
 
 KEYS = ("xs", "ss", "s", "vc", "abs", "y2", "n", "F", "F_true")
@@ -196,7 +197,7 @@ def test_tsc_bigs_step_matches_jax_jit_step(backend, saturated):
     tm = TSC(D, H, Hp, gamma, chunk=N, s_block=16)
     p_t, F_t, s_t = tm.step_fn(params_from_numpy(params, "cpu"),
                                make_blank_data(y, valid, device="cpu"),
-                               sched_floats(ta), torch.Generator(), saturated)
+                               sched_floats(ta), torch.Generator())
     got = params_to_numpy(p_t)
     for k in got:
         np.testing.assert_allclose(got[k], np.asarray(p_j[k]), rtol=1e-4,
@@ -221,11 +222,13 @@ def test_saturated_bigs_step_bit_identical(family):
     a = LinearAnnealing(10)
     a["W_noise"] = 0.3
     a["Ncut_factor"] = 0.5
-    sched = sched_floats(a)                        # beta = prior_beta = 1
-    p0, F0, s0 = model.step_fn(params, data, sched,
-                               torch.Generator().manual_seed(3), False)
+    sched = device_sched(sched_floats(a), "cpu")   # beta = prior_beta = 1
+    assert sched["pattern"].saturated
+    unsat = dict(sched, pattern=sched["pattern"]._replace(saturated=False))
+    p0, F0, s0 = model.step_fn(params, data, unsat,
+                               torch.Generator().manual_seed(3))
     p1, F1, s1 = model.step_fn(params, data, sched,
-                               torch.Generator().manual_seed(3), True)
+                               torch.Generator().manual_seed(3))
     for k in p0:
         assert torch.equal(p0[k], p1[k]), k
     assert torch.equal(F0, F1)

@@ -437,3 +437,346 @@ def test_fused_estep_names_s_block_for_a_big_state_space(device):
         linear_cuda.linear_et_estep_cuda(*args)
     F, _ = linear_cuda.linear_et_estep(*args, s_block=1024)
     assert torch.isfinite(F).all()
+
+
+# -- run_scanned: the EM step as a CUDA graph ---------------------------------
+
+def _scan_models():
+    from prosper_tpu_torch.models import BSC, MCA, TSC
+    return {
+        "bsc": lambda **kw: BSC(25, 16, 6, 3, chunk=256, **kw),
+        "mca": lambda **kw: MCA(25, 16, 6, 3, chunk=256, **kw),
+        "tsc_bigs": lambda **kw: TSC(25, 12, 6, 4, chunk=256, s_block=64,
+                                     **kw),
+    }
+
+
+def _scan_anneal(steps=8, partial=False, rho=False):
+    """Annealed -> saturated, W noise on -> off, the data cut off -> on."""
+    from prosper_tpu_torch import LinearAnnealing
+    a = LinearAnnealing(steps)
+    a["T"] = [(0.0, 2.0), (0.5, 1.0)]
+    a["W_noise"] = [(0.0, 0.5), (0.5, 0.0)]
+    a["Ncut_factor"] = [(0.3, 0.0), (1.0, 1.0)]
+    if partial:
+        a["partial"] = [(0.0, 0.7), (0.4, 0.7), (0.45, 1.0)]
+    if rho:
+        a["rho"] = [(0.0, 4.0), (0.4, 4.0), (0.45, 0.0)]
+    return a
+
+
+def _scan_data(name, N, seed=3):
+    rng = np.random.default_rng(seed)
+    y = (rng.standard_normal((N, 25)) * 2.0).astype(np.float32)
+    return np.abs(y) if name == "mca" else y
+
+
+def _scan_pair(name, N, device, seed=7, anneal=_scan_anneal, **kw):
+    from prosper_tpu_torch import EM
+    y = _scan_data(name, N)
+    make = _scan_models()[name]
+    return [EM(make(**kw), anneal(), {"y": y}, seed=seed, device=device)
+            for _ in range(2)]
+
+
+def _assert_same_run(a, b):
+    for k in a.params:
+        assert torch.equal(a.params[k], b.params[k]), k
+    assert torch.equal(a.data["F_prev"], b.data["F_prev"])
+    assert len(a.history) == len(b.history)
+    for ha, hb in zip(a.history, b.history):
+        for k in ha:
+            if k != "dt":
+                assert ha[k] == hb[k], (ha["iteration"], k)
+    # the generator's state: the next draw
+    assert torch.equal(
+        torch.randn(64, generator=a.generator, device=a.device),
+        torch.randn(64, generator=b.generator, device=b.device))
+
+
+@pytest.mark.parametrize("N", [256, 777], ids=["N256", "N777_padded"])
+@pytest.mark.parametrize("name", ["bsc", "mca", "tsc_bigs"])
+def test_run_scanned_replays_are_bit_identical_to_run(name, N, device):
+    """Graph replays against eager ``run``: parameters, F_prev, every
+    scalar and the generator's next draw; every pattern is captured.
+    ``LAUNCHES`` counts launch sites: the eager first steps and the
+    captures pass them, a replay passes none, and what the replays hold is
+    in ``scan_stats["replayed_launches"]``."""
+    ref, em = _scan_pair(name, N, device)
+    for k in cuda_lib.LAUNCHES:
+        cuda_lib.LAUNCHES[k] = 0
+    ref.run()
+    torch.cuda.synchronize()
+    eager = dict(cuda_lib.LAUNCHES)
+    for k in cuda_lib.LAUNCHES:
+        cuda_lib.LAUNCHES[k] = 0
+    em.run_scanned()
+    torch.cuda.synchronize()
+    mine = ({"bigs"} if name == "tsc_bigs" else
+            {"estep" if name == "bsc" else "max_estep", "sgemm_nn",
+             "sgemm_tn"})
+    assert eager == {k: 8 if k in mine else 0 for k in eager}
+    _assert_same_run(em, ref)
+    stats = em.scan_stats
+    # iterations 0-2, 3 and 4-7 are three patterns: the first iteration of
+    # each runs eagerly, the two runs longer than one are captured
+    assert (stats["graphs"], stats["eager_steps"], stats["replays"]) == (
+        2, 3, 5)
+    assert dict(cuda_lib.LAUNCHES) == {k: 3 + 2 if k in mine else 0
+                                       for k in eager}
+    assert stats["replayed_launches"] == {k: 5 for k in mine}
+
+
+@pytest.mark.parametrize("name", ["bsc", "mca", "tsc_bigs"])
+def test_run_scanned_mixes_with_run_and_reuses_its_graphs(name, device):
+    """``run_scanned(3)``, two ``step_once``, ``run_scanned()``: one
+    trajectory; the second call replays the graphs of the first where the
+    pattern is the same."""
+    ref, em = _scan_pair(name, 512, device)
+    ref.run()
+    em.run_scanned(3)
+    graphs = em.scan_stats["graphs"]
+    em.step_once()
+    em.step_once()
+    em.run_scanned()
+    _assert_same_run(em, ref)
+    assert em.scan_stats["graphs"] >= graphs
+
+
+def test_second_em_on_one_model_reuses_nothing_stale(device):
+    """Fresh data and a fresh seed on the same model object: the same
+    result as its own eager run."""
+    from prosper_tpu_torch import EM
+    model = _scan_models()["bsc"]()
+    EM(model, _scan_anneal(), {"y": _scan_data("bsc", 512, seed=1)}, seed=1,
+       device=device).run_scanned()
+    y = _scan_data("bsc", 640, seed=2)
+    em = EM(model, _scan_anneal(), {"y": y}, seed=9, device=device)
+    ref = EM(model, _scan_anneal(), {"y": y}, seed=9, device=device)
+    em.run_scanned()
+    ref.run()
+    _assert_same_run(em, ref)
+
+
+def test_replays_run_the_kernels_of_eager_steps(device):
+    """A profiler trace of the card: four replays of one graph run each of
+    the path's kernels as often as four eager steps do."""
+    from torch.profiler import ProfilerActivity, profile
+    from prosper_tpu_torch import EM, LinearAnnealing
+
+    def traced(run):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        return {k: sum(k in n for n in names)
+                for k in ("rows_kernel", "nn_kernel", "tn_kernel")}
+
+    def em():
+        return EM(_scan_models()["bsc"](), LinearAnnealing(9),
+                  {"y": _scan_data("bsc", 512)}, seed=7, device=device)
+    scanned, eager = em(), em()
+    scanned.run_scanned(5)                # one eager step, a capture, replays
+    for _ in range(5):
+        eager.step_once()
+    replays = scanned.scan_stats["replays"]
+    in_replays = traced(lambda: scanned.run_scanned(4))
+    assert scanned.scan_stats["replays"] == replays + 4
+    in_steps = traced(lambda: [eager.step_once() for _ in range(4)])
+    assert in_replays == in_steps
+    assert all(v >= 4 for v in in_replays.values())
+    _assert_same_run(scanned, eager)
+
+
+def _assert_close_run(a, b, rtol):
+    for k in a.params:
+        torch.testing.assert_close(a.params[k], b.params[k], rtol=rtol,
+                                   atol=rtol, msg=k)
+    for ha, hb in zip(a.history, b.history):
+        for k in ("F_mean", "Q_mean", "n_used", "N_total"):
+            assert ha[k] == pytest.approx(hb[k], rel=rtol), k
+    assert torch.equal(a.generator.get_state(), b.generator.get_state())
+
+
+@pytest.mark.parametrize("what", ["partial", "rho", "plain", "phi"])
+def test_run_scanned_other_patterns_follow_run(what, device):
+    """``partial`` < 1 (a sort), the softened max, ``backend="plain"`` and
+    learned Phi capture like the rest.  The last three run the plain
+    version on the card, whose ``index_add_`` sums with atomics in an order
+    that changes from run to run: ``run_scanned`` is held to ``run`` as
+    closely as two eager runs agree, bit for bit where they do, else within
+    rtol 1e-3 after eight iterations (and the generator's state exactly)."""
+    from prosper_tpu_torch import EM
+    from prosper_tpu_torch.models import DSC
+
+    def three():
+        if what == "phi":
+            y = _scan_data("dsc", 512)
+            return [EM(DSC(25, 12, 5, 3, chunk=256, backend="plain",
+                           to_learn=("W", "pi", "sigma", "phi")),
+                       _scan_anneal(), {"y": y}, seed=7, device=device)
+                    for _ in range(3)]
+        name = "mca" if what in ("rho", "plain") else "bsc"
+        kw = {"backend": "plain"} if what == "plain" else {}
+        anneal = lambda: _scan_anneal(partial=what == "partial",  # noqa: E731
+                                      rho=what == "rho")
+        return (_scan_pair(name, 512, device, anneal=anneal, **kw)
+                + _scan_pair(name, 512, device, anneal=anneal, **kw)[:1])
+    ref, em, again = three()
+    ref.run()
+    again.run()
+    em.run_scanned()
+    assert em.scan_stats["graphs"] >= 2
+    if all(torch.equal(ref.params[k], again.params[k]) for k in ref.params):
+        _assert_same_run(em, ref)
+    else:
+        assert what != "partial"          # the kernels' path is deterministic
+        _assert_close_run(em, ref, rtol=1e-3)
+
+
+def test_run_scanned_raises_where_a_step_cannot_be_captured(device):
+    """A step that reads a device value on the host cannot be captured:
+    ``run_scanned`` raises and names the pattern; ``run`` steps such a
+    model, and another EM still captures afterwards."""
+    from prosper_tpu_torch import EM
+    from prosper_tpu_torch.models import BSC
+
+    class Peeking(BSC):
+        def noisify(self, params, sched, generator):
+            float(params["sigma"])                  # a host read
+            return super().noisify(params, sched, generator)
+
+    y = _scan_data("bsc", 512)
+    ref, em = (EM(Peeking(25, 16, 6, 3, chunk=256), _scan_anneal(),
+                  {"y": y}, seed=7, device=device) for _ in range(2))
+    with pytest.raises(RuntimeError, match="W_noise=True.*could not be captured"):
+        em.run_scanned()
+    assert em.scan_stats["graphs"] == 0 and em.scan_stats["replays"] == 0
+    assert all(torch.isfinite(v).all() for v in ref.run().values())
+    ok, ok_ref = _scan_pair("bsc", 512, device)
+    ok.run_scanned()
+    ok_ref.run()
+    _assert_same_run(ok, ok_ref)
+    assert ok.scan_stats["graphs"] == 2
+
+
+# -- schedule values on the device, limits, big-S row chunks, learned Phi -----
+
+def test_kernels_take_beta_as_device_tensors(device):
+    """beta and prior_beta as 0-d tensors on the card give the bits of the
+    host floats, for the three E-step wrappers."""
+    b, pb = 0.6, 0.8
+    bt, pbt = (torch.tensor(v, device=device) for v in (b, pb))
+    y, w, W, lo, sa, Hp, signed = _inputs(CASES[1], device)
+    s2 = torch.tensor(2.5, device=device)
+    outs = [linear_cuda.linear_et_estep_cuda(y, w, W, s2, lo, sa, Hp, signed,
+                                             *pair) for pair in ((b, pb),
+                                                                 (bt, pbt))]
+    bigs = [linear_cuda.linear_et_estep(y, w, W, s2, lo, sa, Hp, signed,
+                                        *pair, s_block=64)
+            for pair in ((b, pb), (bt, pbt))]
+    sam = etstep.state_arrays_from(binary_state_space(6, 3), device)
+    ym, Wm = y.abs(), W.abs()
+    mx = [max_cuda.max_et_estep_cuda(ym, w, Wm, s2, lo[0], sam, 6, False,
+                                     *pair) for pair in ((b, pb), (bt, pbt))]
+    torch.cuda.synchronize()
+    for (F0, s0), (F1, s1) in (outs, bigs, mx):
+        assert torch.equal(F0, F1)
+        for k in s0:
+            assert torch.equal(s0[k], s1[k]), k
+    with pytest.raises(TypeError):
+        cuda_lib.schedule_pair(bt, pb, device)
+
+
+def test_model_past_the_max_kernel_limit_trains_with_backend_plain(device):
+    """MCA with H' = 8, gamma = 4 has 154 multi states: the kernel's wrapper
+    raises and names ``backend="plain"``; with it the model trains on the
+    card, and one step agrees with the CPU (rtol 1e-4, sums in another
+    order)."""
+    from prosper_tpu_torch import EM
+    from prosper_tpu_torch.io.weights import params_from_numpy
+    from prosper_tpu_torch.models import MCA
+    from prosper_tpu_torch.models.base import make_blank_data, sched_floats
+    y = _scan_data("mca", 256)
+    with pytest.raises(ValueError, match='backend="plain"'):
+        EM(MCA(25, 16, 8, 4), _scan_anneal(), {"y": y}, device=device).run()
+    before = dict(cuda_lib.LAUNCHES)
+    model = MCA(25, 16, 8, 4, backend="plain")
+    em = EM(model, _scan_anneal(), {"y": y}, seed=1, device=device)
+    params = em.run_scanned()
+    assert dict(cuda_lib.LAUNCHES) == before        # no kernel of ours ran
+    assert all(torch.isfinite(v).all() for v in params.values())
+    p0 = {k: v.cpu().numpy() for k, v in
+          model.standard_init({"y": y}, seed=2, device="cpu").items()}
+    # the two devices' generators differ: compare a noise-free step
+    sched = dict(sched_floats(_scan_anneal()), W_noise=0.0)
+    out = {d: model.step_fn(params_from_numpy(p0, d),
+                            make_blank_data(y, device=d), sched,
+                            torch.Generator(device=d))
+           for d in ("cpu", device)}
+    for k, v in out["cpu"][0].items():
+        torch.testing.assert_close(out[device][0][k].cpu(), v, rtol=1e-4,
+                                   atol=1e-6, msg=k)
+
+
+def test_bigs_estep_in_two_row_chunks_on_the_card(device, monkeypatch):
+    """The big-S E-step cut into two chunks of rows by a small workspace
+    limit against one chunk: F bit-identical, sums within rtol 1e-5 of each
+    sum's largest entry (two partial sums added); two kernel launches."""
+    args, _ = _bigs_inputs(BIGS_CASES[1], 0.6, 1.0, device)
+    N = args[0].shape[0]
+    y, w = (torch.cat([t, t[: 1536 - N]]) if N < 1536 else t[:1536]
+            for t in args[:2])
+    args = (y.contiguous(), w.contiguous(), *args[2:])
+    F1, s1 = linear_cuda.linear_et_estep(*args, s_block=48)
+    Hp, H = args[6], args[2].shape[1]
+    monkeypatch.setattr(cuda_lib, "P_LIMIT_BYTES", 4 * Hp * H * 1024)
+    before = cuda_lib.LAUNCHES["bigs"]
+    F2, s2 = linear_cuda.linear_et_estep(*args, s_block=48)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["bigs"] == before + 2
+    assert torch.equal(F1, F2)
+    for k in s1:
+        torch.testing.assert_close(
+            s2[k], s1[k], rtol=1e-5,
+            atol=1e-5 * s1[k].abs().max().item(), msg=k)
+
+
+def test_learned_phi_step_on_the_card_matches_the_cpu(device):
+    """DSC with learned Phi and ``backend="plain"`` takes the plain version
+    on the card (no kernel launch); one noise-free step agrees with the CPU
+    within rtol 1e-4.  With the default backend the step and the decode
+    raise on the card and name ``backend="plain"``: no kernel collects the
+    value-set sums."""
+    from prosper_tpu_torch import LinearAnnealing
+    from prosper_tpu_torch.io.weights import params_from_numpy
+    from prosper_tpu_torch.models import DSC
+    from prosper_tpu_torch.models.base import make_blank_data, sched_floats
+    kw = dict(to_learn=("W", "pi", "sigma", "phi"), chunk=256)
+    model = DSC(25, 12, 5, 3, backend="plain", **kw)
+    y = np.round(_scan_data("dsc", 512) * 4) / 4
+    p0 = {k: v.numpy() for k, v in
+          model.standard_init({"y": y}, seed=2, device="cpu").items()}
+    p0["phi"] = np.float32([-0.5, 1.25, 1.75])
+    a = LinearAnnealing(4)
+    a["T"] = 1.5
+    before = dict(cuda_lib.LAUNCHES)
+    kernels = DSC(25, 12, 5, 3, **kw)
+    on_card = params_from_numpy(p0, device)
+    with pytest.raises(ValueError, match='backend="plain"'):
+        kernels.step_fn(on_card, make_blank_data(y.astype(np.float32),
+                                                 device=device),
+                        sched_floats(a), torch.Generator(device=device))
+    with pytest.raises(ValueError, match='backend="plain"'):
+        kernels.inference(on_card, {"y": y.astype(np.float32)})
+    out = {d: model.step_fn(params_from_numpy(p0, d),
+                            make_blank_data(y.astype(np.float32), device=d),
+                            sched_floats(a), torch.Generator(device=d))
+           for d in ("cpu", device)}
+    assert dict(cuda_lib.LAUNCHES) == before
+    for k, v in out["cpu"][0].items():
+        torch.testing.assert_close(out[device][0][k].cpu(), v, rtol=1e-4,
+                                   atol=1e-5, msg=k)
+    torch.testing.assert_close(out[device][1].cpu(), out["cpu"][1],
+                               rtol=1e-4, atol=1e-4)

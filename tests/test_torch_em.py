@@ -20,7 +20,8 @@ from prosper_tpu_torch import EM, LinearAnnealing
 from prosper_tpu_torch.data.bars import bars_gt_params, count_recovered_bars
 from prosper_tpu_torch.io.weights import params_from_numpy, params_to_numpy
 from prosper_tpu_torch.models import BSC, DSC, TSC
-from prosper_tpu_torch.models.base import make_blank_data, sched_floats
+from prosper_tpu_torch.models.base import (device_sched, make_blank_data,
+                                           sched_floats)
 from prosper_tpu_torch.ops import linear_cuda
 
 PORT = pathlib.Path(__file__).resolve().parent.parent / "prosper_tpu_torch"
@@ -165,11 +166,13 @@ def test_saturated_step_bit_identical(family):
     a = LinearAnnealing(10)
     a["W_noise"] = 0.3
     a["Ncut_factor"] = 0.5
-    sched = sched_floats(a)                        # beta = prior_beta = 1
-    p0, F0, s0 = model.step_fn(params, data, sched,
-                               torch.Generator().manual_seed(3), False)
+    sched = device_sched(sched_floats(a), "cpu")   # beta = prior_beta = 1
+    assert sched["pattern"].saturated
+    unsat = dict(sched, pattern=sched["pattern"]._replace(saturated=False))
+    p0, F0, s0 = model.step_fn(params, data, unsat,
+                               torch.Generator().manual_seed(3))
     p1, F1, s1 = model.step_fn(params, data, sched,
-                               torch.Generator().manual_seed(3), True)
+                               torch.Generator().manual_seed(3))
     for k in p0:
         assert torch.equal(p0[k], p1[k]), k
     assert torch.equal(F0, F1)
@@ -179,13 +182,16 @@ def test_saturated_step_bit_identical(family):
 
 def test_em_pads_like_jax():
     """N above the chunk is padded with weight-0 rows to a chunk multiple,
-    and standard_init sees the padded data, as in the JAX package."""
+    as in the JAX package.  The default init reads the valid rows only (the
+    JAX package's also reads its padding): it equals the JAX package's
+    standard_init on the unpadded data, and from there both runs agree."""
     rng = np.random.default_rng(2)
     y = rng.standard_normal((100, 16)).astype(np.float32)
     a, ja = LinearAnnealing(3), JAnneal(3)
     a["T"] = ja["T"] = [(0.0, 2.0), (1.0, 1.0)]
+    jm = jlinear.BSC(16, 8, 5, 3, chunk=64)
     em_t = EM(BSC(16, 8, 5, 3, chunk=64), a, {"y": y}, device="cpu")
-    em_j = JEM(jlinear.BSC(16, 8, 5, 3, chunk=64), ja, {"y": y})
+    em_j = JEM(jm, ja, {"y": y}, params=jm.standard_init({"y": y}))
     assert em_t.data["y"].shape == tuple(em_j.data["y"].shape) == (128, 16)
     assert em_t.data["valid"].sum().item() == 100
     _assert_params_close(em_t.params, em_j.params, rtol=0, atol=0)
@@ -210,8 +216,7 @@ def test_unported_options_raise():
     y = np.zeros((8, 25), np.float32)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TSC(25, 10, 6, 3, compute_dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DSC(25, 10, 6, 3, to_learn=("W", "pi", "sigma", "phi"))
+    assert DSC(25, 10, 6, 3, to_learn=("W", "pi", "sigma", "phi")).learn_phi
     for name in ("runtime", "dlog", "log_params_every", "checkpoint_path",
                  "checkpoint_every", "revive_duplicates", "split_norm_frac",
                  "split_coact", "reseed_worst_frac"):

@@ -32,7 +32,8 @@ from prosper_tpu_torch.core.states import binary_state_space
 from prosper_tpu_torch.data.bars import bars_gt_params, count_recovered_bars
 from prosper_tpu_torch.io.weights import params_from_numpy, params_to_numpy
 from prosper_tpu_torch.models import MCA, MMCA
-from prosper_tpu_torch.models.base import make_blank_data, sched_floats
+from prosper_tpu_torch.models.base import (device_sched, make_blank_data,
+                                           sched_floats)
 from prosper_tpu_torch.ops import max_cuda
 
 KEYS = ("numer", "denom", "s", "abs", "resid", "y2", "n", "F", "F_true")
@@ -183,12 +184,14 @@ def test_saturated_step_bit_identical(family):
     a = LinearAnnealing(10)
     a["W_noise"] = 0.3
     a["Ncut_factor"] = 0.5
-    sched = sched_floats(a)                        # beta = prior_beta = 1
+    sched = device_sched(sched_floats(a), "cpu")   # beta = prior_beta = 1
+    assert sched["pattern"].saturated
+    unsat = dict(sched, pattern=sched["pattern"]._replace(saturated=False))
     params = params_from_numpy(p_np, "cpu")
-    p0, F0, s0 = model.step_fn(params, data, sched,
-                               torch.Generator().manual_seed(3), False)
+    p0, F0, s0 = model.step_fn(params, data, unsat,
+                               torch.Generator().manual_seed(3))
     p1, F1, s1 = model.step_fn(params, data, sched,
-                               torch.Generator().manual_seed(3), True)
+                               torch.Generator().manual_seed(3))
     for k in p0:
         assert torch.equal(p0[k], p1[k]), k
     assert torch.equal(F0, F1)
@@ -198,12 +201,15 @@ def test_saturated_step_bit_identical(family):
 
 def test_em_pads_like_jax():
     """N = 100 above the chunk of 32 pads with weight-0 rows to 128, and
-    the run follows the JAX package's (no parameter noise)."""
+    the run follows the JAX package's (no parameter noise) from the
+    port's default init, which reads the 100 valid rows only."""
     a = _inputs(16, 12, 5, 3, 100, 2, False)
     ta, ja = LinearAnnealing(3), JAnneal(3)
     ta["T"] = ja["T"] = [(0.0, 2.0), (1.0, 1.0)]
+    jm = jmca.MCA(16, 12, 5, 3, chunk=32)
     em_t = EM(MCA(16, 12, 5, 3, chunk=32), ta, {"y": a["y"]}, device="cpu")
-    em_j = JEM(jmca.MCA(16, 12, 5, 3, chunk=32), ja, {"y": a["y"]})
+    em_j = JEM(jm, ja, {"y": a["y"]},
+               params=jm.standard_init({"y": a["y"]}))
     assert em_t.data["y"].shape == tuple(em_j.data["y"].shape) == (128, 16)
     em_t.run()
     em_j.run()

@@ -15,9 +15,19 @@ D=64, H=32, H'=10, gamma=5, s_block=1024; decode of 8192 rows).
         `times` of an unpacked parent commit in DIR and of this checkout, in
         turns (parent, change, change, parent), one process each.
     python3 tools/torch_kernel_times.py profile
-        torch.profiler over EM iterations of BSC, MCA and big-S TSC and
-        over BSC inference calls of 8192 rows: device time by kernel, the
+        torch.profiler over EM iterations of BSC, MCA and big-S TSC, four
+        through `EM.step_once` (the loop of `run`) and four through
+        `EM.run_scanned` (replays of the captured step; the schedule's
+        upload and the scalars' read-back are inside the window), and over
+        BSC inference calls of 8192 rows: device time by kernel, the
         device's busy time and its idle share of the window.
+    python3 tools/torch_kernel_times.py capture
+        What one capture of the EM step into a CUDA graph costs on the host
+        (`EM.scan_stats["capture_s"]`) for BSC, MCA and big-S TSC, as the
+        engine captures and with what `torch.cuda.graph` does on entry put
+        before it (a synchronise, `gc.collect()`, `empty_cache()`), in turns
+        (as it is, with, with, as it is), a fresh EM each; and the device
+        memory reserved afterwards.
     python3 tools/torch_kernel_times.py ablate [--only TEXT]
         Builds edited copies of the sources with one part of the linear
         rows kernel, of the max kernel or of the big-S kernel switched off
@@ -263,8 +273,20 @@ def cmd_profile(args):
             for _ in range(3):
                 em.step_once()
             torch.cuda.synchronize()
-            _device_profile(torch, f"{name} {tag}", card,
+            _device_profile(torch, f"{name} {tag}, run", card,
                             lambda: [em.step_once() for _ in range(4)], 4)
+            a = LinearAnnealing(12)
+            a["T"], a["Ncut_factor"] = T, ncut
+            em = EM(model, a, {"y": y}, params=init, seed=4,
+                    device=torch.device("cuda"))
+            em.run_scanned(4)              # one eager step, the capture
+            torch.cuda.synchronize()
+            _device_profile(torch, f"{name} {tag}, run_scanned", card,
+                            lambda: em.run_scanned(4), 4)
+            if em.scan_stats["replays"] != 7:
+                sys.exit(f"run_scanned did not replay: {em.scan_stats}")
+            print(f"[profile] {name} {tag}: host clock per iteration, "
+                  f"run_scanned {em.history[-1]['dt'] * 1e3:.3f} ms  [{card}]")
         if name == "bsc":        # serving: 8192 rows from the card and from
             held = y[:N_DECODE].contiguous()                  # host memory
             for tag, data in (("tensor on the card", held),
@@ -277,6 +299,46 @@ def cmd_profile(args):
                 torch.cuda.synchronize()
                 _device_profile(torch, f"bsc inference of {N_DECODE} rows, "
                                 f"{tag}", card, serve, 4)
+
+
+def cmd_capture(args):
+    sys.path.insert(0, str(ROOT))
+    import gc
+    import numpy as np
+    import torch
+    from prosper_tpu_torch import EM, LinearAnnealing
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = smi()
+    plain_capture = EM._capture
+
+    def cleared_first(self, scan, pattern):
+        torch.cuda.synchronize(self.device)
+        gc.collect()
+        torch.cuda.empty_cache()
+        return plain_capture(self, scan, pattern)
+
+    for name, (model, y, init) in setups(torch, np).items():
+        def one(capture):
+            EM._capture = capture
+            a = LinearAnnealing(8)
+            a["T"], a["Ncut_factor"] = 1.5, 0.5
+            em = EM(model, a, {"y": y}, params=init, seed=4,
+                    device=torch.device("cuda"))
+            em.run_scanned(4)
+            torch.cuda.synchronize()
+            if em.scan_stats["graphs"] != 1 or em.scan_stats["replays"] != 3:
+                sys.exit(f"run_scanned did not replay: {em.scan_stats}")
+            return (em.scan_stats["capture_s"] * 1e3,
+                    torch.cuda.memory_reserved() / 2 ** 20)
+        one(plain_capture)                        # kernels built, tables made
+        ms = [one(c) for c in (plain_capture, cleared_first, cleared_first,
+                               plain_capture)]
+        EM._capture = plain_capture
+        print(f"[capture] {name}: one capture as it is {ms[0][0]:.1f} / "
+              f"{ms[3][0]:.1f} ms, after synchronize + gc.collect + "
+              f"empty_cache {ms[1][0]:.1f} / {ms[2][0]:.1f} ms; MiB reserved "
+              f"afterwards {ms[0][1]:.0f} / {ms[3][1]:.0f} and {ms[1][1]:.0f} "
+              f"/ {ms[2][1]:.0f}  [{card}]", flush=True)
 
 
 def cmd_ablate(args):
@@ -318,6 +380,7 @@ def main():
     c.add_argument("--parent", required=True)
     c.set_defaults(fn=cmd_compare)
     sub.add_parser("profile").set_defaults(fn=cmd_profile)
+    sub.add_parser("capture").set_defaults(fn=cmd_capture)
     a = sub.add_parser("ablate")
     a.add_argument("--only", default="",
                    help="only the parts whose name contains this text")
