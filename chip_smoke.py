@@ -32,6 +32,18 @@ One DSC step with a learned value set (``backend="plain"``) and a big-S
 E-step cut into two chunks of rows are held against the CPU and against
 one chunk.
 
+GSC and the mixtures have no kernel (plain PyTorch on the card; no launch
+count may move while they run):
+
+* GSC bars (the tuned configuration of examples/barstest/param_bars_gsc.py)
+  through ``EM.run`` on CUDA, 8/8 bars; GSC at the patches width of
+  bench.py:652 (D=256, H=300, H'=6, gamma=3, 35 multi states) on 131072
+  planted-dictionary rows with a slab, through ``run`` and ``run_scanned``,
+  one E-step against the CPU, a decode of 8192 rows;
+* MoG and MoP at bench.py:714-727 (D=256, K=300) on 131072 rows through
+  ``run`` and ``run_scanned``, an inference of 8192 rows, one step against
+  the CPU.
+
 Each path's launch counts are set to 0 just before it and checked just
 after.  Every phase raises on failure.  Prints one JSON line of the
 iteration times through ``run`` and ``run_scanned``, one of per-kernel
@@ -48,14 +60,23 @@ import time
 
 BARS_SEED = 0          # a seed whose noisy bars run recovers all 10 bars
 MCA_BARS_SEED = 0      # a seed whose MCA bars run on CUDA recovers all 8
+GSC_BARS_SEED = 17     # a seed whose GSC bars run on CUDA recovers all 8
 # published peaks of one H100 SXM (NVIDIA's data sheet): float32 outside the
 # tensor cores, and device memory
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
 
+T0 = time.perf_counter()
+
+
 def log(*a):
     print(*a, flush=True)
+
+
+def stamp(what):
+    """Log the seconds since the start, after ``what``."""
+    log(f"[time] {what} done at {time.perf_counter() - T0:.1f} s")
 
 
 def cuda_ms(torch, fn, reps):
@@ -802,6 +823,205 @@ def learned_phi_step(torch, np, dev, cuda_lib):
         + ", ".join(f"{v:.4f}" for v in phi))
 
 
+def quantised(np, a, step):
+    """``a`` rounded to multiples of ``step`` (a power of two), float32."""
+    return (np.round(np.asarray(a, np.float64) / step) * step).astype(
+        np.float32)
+
+
+def against_cpu(torch, tag, got, ref, rtol):
+    """A result on the card against the same call on the CPU: tensors (or
+    dicts of them) within ``rtol``, with an absolute floor of ``rtol`` of
+    each tensor's largest entry (an entry that cancels to near zero carries
+    the rounding of its large terms).  Returns the largest difference."""
+    if isinstance(ref, dict):
+        return max(against_cpu(torch, f"{tag} {k}", got[k], v, rtol)
+                   for k, v in ref.items())
+    got = got.cpu()
+    floor = max(ref.abs().max().item(), 1.0) * rtol
+    torch.testing.assert_close(got, ref, rtol=rtol, atol=floor, msg=tag)
+    return (got - ref).abs().max().item()
+
+
+def gsc_path(torch, np, dev, smi, patches_anneal, N=131072):
+    """Phases 15-16: GSC bars on the card, and GSC at the patches width of
+    bench.py:652 (D=256, H=300, H'=6, gamma=3, 35 multi states) through
+    ``run`` and ``run_scanned``, one E-step against the CPU and a decode.
+    GSC is plain PyTorch: no kernel of the port may launch.  Returns the
+    ``scanned`` entry and the decode's rows/s."""
+    from prosper_tpu_torch import EM, LinearAnnealing
+    from prosper_tpu_torch.data.bars import (bars_gt_params,
+                                             count_recovered_bars,
+                                             planted_dictionary)
+    from prosper_tpu_torch.io.weights import params_from_numpy
+    from prosper_tpu_torch.models import GSC
+    from prosper_tpu_torch.models.base import sched_floats
+    from prosper_tpu_torch.ops import cuda_lib
+
+    # ---- 15. GSC bars on the card ---------------------------------------------
+    # the tuned configuration of examples/barstest/param_bars_gsc.py
+    R = 4
+    model = GSC(R * R, 2 * R, 5, 3, chunk=1500)
+    gt = bars_gt_params(model, intensity=5.0, sigma=1.0)
+    gt["mu"], gt["psi"] = np.float32(1.0), np.float32(0.09)
+    data = model.generate_data(gt, 1500, seed=31)
+    anneal = LinearAnnealing(70)
+    anneal["T"] = [(0.0, 2.0), (0.7, 1.0)]
+    anneal["W_noise"] = [(0.0, 0.5), (0.7, 0.0)]
+    reset_launches(cuda_lib)
+    params = EM(model, anneal, {"y": data["y"]}, seed=GSC_BARS_SEED,
+                device=dev).run()
+    n_rec = count_recovered_bars(params["W"].cpu().numpy(), gt["W"], 0.8,
+                                 signed=True)
+    sig, mu, psi = (float(params[k]) for k in ("sigma", "mu", "psi"))
+    log(f"[gsc bars] {n_rec}/8 bars at signed cosine > 0.8, sigma {sig:.4f}, "
+        f"mu {mu:.4f}, psi {psi:.4f}")
+    if n_rec != 8 or abs(sig - 1.0) >= 0.4:
+        raise AssertionError("GSC bars not recovered on the card")
+    expect_launches(cuda_lib, "[gsc bars]")
+    stamp("phase 15")
+
+    # ---- 16. GSC at patches width ---------------------------------------------
+    D, H, Hp, gamma, iters = 256, 300, 6, 3, 6
+    model = GSC(D, H, Hp, gamma, chunk=8192)
+    gt = {"W": planted_dictionary(D, H, seed=0), "pi": np.float32(2.0 / H),
+          "sigma": np.float32(1.0), "mu": np.float32(1.0),
+          "psi": np.float32(0.25)}
+    data = model.generate_data(gt, N, seed=1)
+    held_out = model.generate_data(gt, 8192, seed=2)
+    init = model.standard_init(data, seed=3, device=dev)
+    y_dev = torch.tensor(data["y"], device=dev)
+    torch.cuda.synchronize()
+    tag = "[gsc patches]"
+    reset_launches(cuda_lib)
+    em = EM(model, patches_anneal(iters), {"y": y_dev}, params=init, seed=4,
+            device=dev)
+    params = em.run()
+    serve = {dense: model.inference(params, held_out, top_L=10,
+                                    dense_states=dense)
+             for dense in (False, True)}
+    torch.cuda.synchronize()
+    expect_launches(cuda_lib, tag)
+    check_path(torch, np, tag, em, serve, H)
+    log(f"{tag} mu {float(params['mu']):.4f}, psi {float(params['psi']):.4f}"
+        f", sigma {float(params['sigma']):.4f} after {iters} iterations "
+        "(planted: 1, 0.25, 1)")
+    scanned, _ = scanned_path(
+        torch, np, cuda_lib, tag, em,
+        lambda: EM(model, patches_anneal(iters), {"y": y_dev}, params=init,
+                   seed=4, device=dev),
+        init, 4, smi)
+    stamp(f"{tag} run and run_scanned")
+
+    # one annealed E-step on 4096 rows against the CPU; y in quarters and W
+    # in 1/64ths, so P = y W and the Gram matrix are exact in float32 and
+    # the candidates agree; the rest within rtol 1e-4 (the small Cholesky
+    # solves and the sums round differently on the two devices)
+    p_q = {k: v.cpu().numpy() for k, v in params.items()}
+    p_q["W"] = quantised(np, p_q["W"], 1 / 64)
+    y_q = quantised(np, data["y"][:4096], 0.25)
+    w_q = (np.arange(4096) % 5 > 0).astype(np.float32)
+    a = LinearAnnealing(4)
+    a["T"] = 1.5
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        p = params_from_numpy(p_q, d)
+        out[d.type] = model.estep_sums(p, torch.tensor(y_q, device=d),
+                                       torch.tensor(w_q, device=d),
+                                       sched_floats(a))
+    err = max(against_cpu(torch, f"{tag} E-step F", out[dev.type][0],
+                          out["cpu"][0], 1e-4),
+              against_cpu(torch, f"{tag} E-step", out[dev.type][1],
+                          out["cpu"][1], 1e-4))
+    log(f"{tag} one annealed E-step on 4096 rows on the card agrees with the "
+        f"CPU within rtol 1e-4 (largest difference {err:.3e})")
+
+    # the decode: 8192 rows from the card, compact and dense
+    y_ho = torch.tensor(held_out["y"], device=dev)
+    dec = {dense: cuda_ms(torch, lambda d=dense: model.inference(
+        params, {"y": y_ho}, top_L=10, dense_states=d), 3)
+        for dense in (False, True)}
+    expect_launches(cuda_lib, tag)
+    log(f"{tag} decode of 8192 rows: compact {dec[False]:.3f} ms = "
+        f"{8192 / dec[False] * 1e3:.0f} rows/s, dense {dec[True]:.3f} ms = "
+        f"{8192 / dec[True] * 1e3:.0f} rows/s  [{smi}]")
+    return scanned, {"compact_ms": dec[False], "dense_ms": dec[True],
+                     "rows_per_s": 8192 / dec[False] * 1e3}
+
+
+def mixture_path(torch, np, dev, smi, patches_anneal, N=131072):
+    """Phase 17: MoG and MoP at the clustering width of bench.py:714-727
+    (D=256, K=300; MoP's data is abs(floor(3y))): 131072 rows through
+    ``run`` and ``run_scanned``, an inference of 8192 rows, one step against
+    the CPU.  Plain PyTorch: no kernel of the port may launch.  Returns the
+    ``scanned`` entries."""
+    from prosper_tpu_torch import EM, LinearAnnealing
+    from prosper_tpu_torch.io.weights import params_from_numpy
+    from prosper_tpu_torch.models.base import make_blank_data, sched_floats
+    from prosper_tpu_torch.models.mixtures import MoG, MoP
+    from prosper_tpu_torch.ops import cuda_lib
+
+    D, K, iters = 256, 300, 6
+    scanned = {}
+    for name, cls in (("mog", MoG), ("mop", MoP)):
+        tag = f"[{name}]"
+        model = cls(D, K)
+        y = np.random.default_rng(5).standard_normal((N, D)).astype(
+            np.float32)
+        if cls is MoP:
+            y = np.abs(np.floor(3.0 * y))                       # counts
+        init = model.standard_init({"y": y}, seed=6, device=dev)
+        y_dev = torch.tensor(y, device=dev)
+        torch.cuda.synchronize()
+        reset_launches(cuda_lib)
+        em = EM(model, patches_anneal(iters), {"y": y_dev}, params=init,
+                seed=4, device=dev)
+        params = em.run()
+        out = model.inference(params, {"y": y_dev[:8192]})
+        torch.cuda.synchronize()
+        expect_launches(cuda_lib, tag)
+        Q = [h["Q_mean"] for h in em.history]
+        log(f"{tag} Q_mean by iteration: " + " ".join(f"{q:.3f}" for q in Q))
+        if not (np.isfinite(Q).all() and Q[-1] > Q[0]):
+            raise AssertionError(f"{tag} Q_mean is not finite or did not rise")
+        if not (all(torch.isfinite(v).all() for v in params.values())
+                and torch.isfinite(out["F"]).all()
+                and torch.allclose(out["resp"].sum(1),
+                                   torch.ones(8192, device=dev), atol=1e-5)
+                and out["assign"].shape == (8192,)
+                and int(out["assign"].max()) < K):
+            raise AssertionError(f"{tag} non-finite parameters or a bad "
+                                 "inference")
+        scanned[name], _ = scanned_path(
+            torch, np, cuda_lib, tag, em,
+            lambda: EM(model, patches_anneal(iters), {"y": y_dev},
+                       params=init, seed=4, device=dev),
+            init, 4, smi)
+        # one annealed step on 4096 rows against the CPU: F within rtol
+        # 1e-5, the new parameters within rtol 1e-4 of each one's largest
+        # entry (the responsibilities are near one-hot at D=256, so a
+        # component that holds a small fraction of a row gets its mean from
+        # ratios of tiny sums, which round differently on the two devices)
+        a = LinearAnnealing(4)
+        a["T"] = 1.5
+        p0 = {k: v.cpu().numpy() for k, v in init.items()}
+        step = {d.type: model.step_fn(params_from_numpy(p0, d),
+                                      make_blank_data(y[:4096], device=d),
+                                      sched_floats(a),
+                                      torch.Generator(device=d))
+                for d in (dev, torch.device("cpu"))}
+        err = max(against_cpu(torch, f"{tag} step", step[dev.type][0],
+                              step["cpu"][0], 1e-4),
+                  against_cpu(torch, f"{tag} step F", step[dev.type][1],
+                              step["cpu"][1], 1e-5))
+        log(f"{tag} one annealed step on 4096 rows on the card agrees with "
+            f"the CPU (F within rtol 1e-5, the parameters within 1e-4; "
+            f"largest difference {err:.3e}); "
+            f"{N} rows, {iters} iterations, inference of 8192 rows, no kernel "
+            "launch")
+    return scanned
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1024,14 +1244,25 @@ def main() -> int:
         f"(N=8192) = {8192 / dec[0] * 1e3:.0f} vs {8192 / dec[1] * 1e3:.0f} "
         f"rows/s  [{smi}]")
 
+    stamp("phases 1-6")
     # ---- 7.-10. the max family -----------------------------------------------
     mx = max_family(torch, np, dev, smi, err, patches_anneal)
 
+    stamp("phases 7-10")
     # ---- 11.-13. the big-S linear E-step ------------------------------------
     bg = bigs_path(torch, np, dev, smi, err, patches_anneal)
 
+    stamp("phases 11-13")
     # ---- 14. one DSC step with a learned value set, against the CPU ----------
     learned_phi_step(torch, np, dev, cuda_lib)
+    stamp("phase 14")
+
+    # ---- 15.-17. GSC and the mixtures (plain PyTorch, no kernel) --------------
+    scanned["gsc_patches"], gsc_decode = gsc_path(torch, np, dev, smi,
+                                                  patches_anneal)
+    stamp("phases 15-16")
+    scanned.update(mixture_path(torch, np, dev, smi, patches_anneal))
+    stamp("phase 17")
 
     # the bounds, from this run's shapes: the two D x H products, the
     # logits over [proj | Gram] and the moments over the state tables per
@@ -1108,7 +1339,8 @@ def main() -> int:
         if k["name"] != "linear_et_decode" and k["scanned_launches"] < 1:
             raise AssertionError(f"{k['name']} was launched no time through "
                                  "run_scanned")
-    log(json.dumps({"scanned": dict(scanned, card=smi)}))
+    log(json.dumps({"scanned": dict(scanned, card=smi),
+                    "gsc_decode": dict(gsc_decode, card=smi)}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -107,7 +107,8 @@ class EM:
 
     Parameters
     ----------
-    model : an ET model of the port (BSC, TSC, DSC, MCA, MMCA)
+    model : a model of the port: an ET model (BSC, TSC, DSC, MCA, MMCA,
+        GSC) or a mixture (``models.mixtures.MoG``, ``MoP``)
     anneal : LinearAnnealing
     data : dict with 'y' (N, D) (and optional 'valid', 'F_prev'), numpy or
         tensors; moved to ``device`` and padded with weight-0 rows to a

@@ -27,7 +27,9 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from prosper_tpu_torch.core.etstep import truncated_prior_logmass
+from prosper_tpu_torch.core.etstep import (LinearStateArrays,
+                                           state_arrays_from,
+                                           truncated_prior_logmass)
 from prosper_tpu_torch.core.select import (exact_count_mask,
                                            global_quantile_threshold,
                                            ncut_keep_count)
@@ -137,6 +139,15 @@ class ETModel:
         self.to_learn = (tuple(to_learn) if to_learn is not None
                          else self.param_names)
         self.chunk = int(chunk)
+        self._sa: Dict[torch.device, LinearStateArrays] = {}
+
+    def state_arrays(self, device) -> LinearStateArrays:
+        """The enumerated state tables of ``self.space`` (the subclass's
+        ``core.states.StateSpace``) on ``device``, built once each."""
+        device = torch.device(device)
+        if device not in self._sa:
+            self._sa[device] = state_arrays_from(self.space, device)
+        return self._sa[device]
 
     # -- subclass contract ----------------------------------------------------
 

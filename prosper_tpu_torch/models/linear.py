@@ -34,7 +34,6 @@ from prosper_tpu_torch.core import states as states_mod
 from prosper_tpu_torch.core.etstep import (LinearStateArrays,
                                            linear_et_posterior,
                                            linear_et_posterior_kernel,
-                                           state_arrays_from,
                                            traced_state_arrays,
                                            truncated_prior_logmass)
 from prosper_tpu_torch.models.base import (ETModel, device_sched,
@@ -91,18 +90,10 @@ class LinearETModel(ETModel):
         self.ncut_current = bool(ncut_current)
         self.space = states_mod.discrete_state_space(
             Hprime, gamma, values, min_active=min_active)
-        self._sa: Dict[torch.device, LinearStateArrays] = {}
         #: DSC sets this when the value set Phi is learned; the state arrays
         #: then follow ``params["phi"]`` step by step (``_sa_for``)
         self.learn_phi: bool = False
         self._onehot: Dict[torch.device, torch.Tensor] = {}
-
-    def state_arrays(self, device) -> LinearStateArrays:
-        """The enumerated state tables on ``device`` (built once each)."""
-        device = torch.device(device)
-        if device not in self._sa:
-            self._sa[device] = state_arrays_from(self.space, device)
-        return self._sa[device]
 
     def slot_onehot(self, device) -> torch.Tensor:
         """(S, Hp, K) slot-carries-value indicator on ``device`` (built
@@ -246,9 +237,7 @@ class LinearETModel(ETModel):
         compact fields (``core.etstep.densify_top_states`` rebuilds the
         dense tensor), None picks by output size."""
         if runtime is not None:
-            raise not_ported("runtime (sharded serving)",
-                             "GSC, mixtures, recovery protocol, streaming, "
-                             "distributed, CLI/IO")
+            raise not_ported("runtime (sharded serving)", "distributed")
         sched = sched_floats(anneal) if anneal is not None else None
         beta = sched["beta"] if sched else 1.0
         prior_beta = sched["prior_beta"] if sched else 1.0

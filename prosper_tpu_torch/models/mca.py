@@ -22,15 +22,11 @@ card.
 
 from __future__ import annotations
 
-from typing import Dict
-
 import numpy as np
 import torch
 
 from prosper_tpu_torch.core import maxstep
-from prosper_tpu_torch.core.etstep import (LinearStateArrays,
-                                           state_arrays_from,
-                                           truncated_prior_logmass)
+from prosper_tpu_torch.core.etstep import truncated_prior_logmass
 from prosper_tpu_torch.core.states import binary_state_space
 from prosper_tpu_torch.models.base import (ETModel, device_sched, pattern_of,
                                            resolve_backend, sched_floats,
@@ -56,14 +52,6 @@ class MCA(ETModel):
         #: rank the Ncut data cut by the current iteration's F with a
         #: second E-step pass while the cut is active (as the linear family)
         self.ncut_current = bool(ncut_current)
-        self._sa: Dict[torch.device, LinearStateArrays] = {}
-
-    def state_arrays(self, device) -> LinearStateArrays:
-        """The enumerated state tables on ``device`` (built once each)."""
-        device = torch.device(device)
-        if device not in self._sa:
-            self._sa[device] = state_arrays_from(self.space, device)
-        return self._sa[device]
 
     # -- prior helpers --------------------------------------------------------
 

@@ -780,3 +780,81 @@ def test_learned_phi_step_on_the_card_matches_the_cpu(device):
                                    atol=1e-5, msg=k)
     torch.testing.assert_close(out[device][1].cpu(), out["cpu"][1],
                                rtol=1e-4, atol=1e-4)
+
+
+# -- GSC and the mixtures: plain PyTorch on the card ---------------------------
+
+def _plain_models():
+    from prosper_tpu_torch.models import GSC
+    from prosper_tpu_torch.models.mixtures import MoG, MoP
+    return {"gsc": lambda: GSC(25, 12, 6, 3, chunk=256),
+            "mog": lambda: MoG(25, 6), "mop": lambda: MoP(25, 6)}
+
+
+def _plain_data(name, N, seed=3):
+    y = _scan_data(name, N, seed)
+    return np.abs(np.floor(y)) if name == "mop" else y
+
+
+@pytest.mark.parametrize("name", ["gsc", "mog", "mop"])
+def test_plain_model_step_on_the_card_matches_the_cpu(name, device):
+    """One noise-free annealed step on the card against the CPU: parameters
+    and F within rtol 1e-4 (float32 on both, summed in other orders; GSC's
+    small Cholesky factors differ in the last bits); GSC's decode too.  No
+    kernel of the port is launched."""
+    from prosper_tpu_torch import LinearAnnealing
+    from prosper_tpu_torch.io.weights import params_from_numpy
+    from prosper_tpu_torch.models.base import make_blank_data, sched_floats
+    model = _plain_models()[name]()
+    y = _plain_data(name, 512)
+    p0 = {k: v.numpy() for k, v in
+          model.standard_init({"y": y}, seed=2, device="cpu").items()}
+    if name == "gsc":
+        p0.update(mu=np.float32(0.5), psi=np.float32(0.6),
+                  pi=np.float32(0.2))
+    a = LinearAnnealing(4)
+    a["T"] = 1.5
+    before = dict(cuda_lib.LAUNCHES)
+    out = {d: model.step_fn(params_from_numpy(p0, d),
+                            make_blank_data(y, device=d), sched_floats(a),
+                            torch.Generator(device=d))
+           for d in ("cpu", device)}
+    for k, v in out["cpu"][0].items():
+        torch.testing.assert_close(out[device][0][k].cpu(), v, rtol=1e-4,
+                                   atol=1e-5, msg=k)
+    torch.testing.assert_close(out[device][1].cpu(), out["cpu"][1],
+                               rtol=1e-4, atol=1e-4)
+    for k, v in out["cpu"][2].items():
+        assert float(out[device][2][k]) == pytest.approx(float(v), rel=1e-4)
+    if name == "gsc":
+        dec = {d: model.inference(params_from_numpy(p0, d), {"y": y},
+                                  top_L=5) for d in ("cpu", device)}
+        for k in ("F", "b_mean", "s_mean", "recon", "top_probs"):
+            torch.testing.assert_close(dec[device][k].cpu(), dec["cpu"][k],
+                                       rtol=1e-4, atol=1e-5, msg=k)
+    torch.cuda.synchronize()
+    assert dict(cuda_lib.LAUNCHES) == before
+
+
+@pytest.mark.parametrize("name", ["gsc", "mog", "mop"])
+def test_plain_model_run_scanned_is_bit_identical_to_run(name, device):
+    """Graph replays against eager ``run`` for GSC, MoG and MoP: parameters,
+    F_prev, every scalar and the generator's next draw; three patterns, two
+    captured; ``LAUNCHES`` stays at zero (no kernel of the port)."""
+    from prosper_tpu_torch import EM
+    y = _plain_data(name, 777)
+    make = _plain_models()[name]
+    model = make()
+    ref, em = (EM(model, _scan_anneal(), {"y": y}, seed=7, device=device)
+               for _ in range(2))
+    before = dict(cuda_lib.LAUNCHES)
+    ref.run()
+    em.run_scanned()
+    torch.cuda.synchronize()
+    _assert_same_run(em, ref)
+    stats = em.scan_stats
+    assert (stats["graphs"], stats["eager_steps"], stats["replays"]) == (
+        2, 3, 5)
+    assert stats["replayed_launches"] == {}
+    assert dict(cuda_lib.LAUNCHES) == before
+    assert all(torch.isfinite(v).all() for v in em.params.values())

@@ -14,13 +14,18 @@ D=64, H=32, H'=10, gamma=5, s_block=1024; decode of 8192 rows).
     python3 tools/torch_kernel_times.py compare --parent DIR
         `times` of an unpacked parent commit in DIR and of this checkout, in
         turns (parent, change, change, parent), one process each.
-    python3 tools/torch_kernel_times.py profile
-        torch.profiler over EM iterations of BSC, MCA and big-S TSC, four
-        through `EM.step_once` (the loop of `run`) and four through
-        `EM.run_scanned` (replays of the captured step; the schedule's
-        upload and the scalars' read-back are inside the window), and over
-        BSC inference calls of 8192 rows: device time by kernel, the
-        device's busy time and its idle share of the window.
+    python3 tools/torch_kernel_times.py profile [--only NAMES]
+        torch.profiler over EM iterations of BSC, MCA, big-S TSC and GSC
+        (D=256, H=300, H'=6, gamma=3 in chunks of 8192 rows, and of 32768:
+        "gsc_chunk32768"), four through `EM.step_once` (the loop of `run`)
+        and four through `EM.run_scanned` (replays of the captured step; the
+        schedule's upload and the scalars' read-back are inside the window),
+        and over BSC inference calls of 8192 rows: device time by kernel,
+        the device's busy time and its idle share of the window, the host
+        clock per iteration both ways; for GSC also the share of the busy
+        time that `slot_sum_ss` (the <sz sz^T> scatter) takes, timed alone
+        at the chunk's shape.  NAMES: a comma-separated subset of
+        bsc,mca,tsc,gsc,gsc_chunk32768.
     python3 tools/torch_kernel_times.py capture
         What one capture of the EM step into a CUDA graph costs on the host
         (`EM.scan_stats["capture_s"]`) for BSC, MCA and big-S TSC, as the
@@ -129,23 +134,31 @@ def queued_ms(torch, fn, reps=20):
     return start.elapsed_time(end) / reps
 
 
+PROFILED = ("bsc", "mca", "tsc", "gsc", "gsc_chunk32768")
+
+
 def setups(torch, np, which=("bsc", "mca", "tsc")):
-    """Models, data on the card and initial parameters of the three paths,
-    as chip_smoke.py makes them."""
+    """Models, data on the card and initial parameters of the paths, as
+    chip_smoke.py makes them."""
     from prosper_tpu_torch.data.bars import planted_dictionary
-    from prosper_tpu_torch.models import BSC, MCA, TSC
+    from prosper_tpu_torch.models import BSC, GSC, MCA, TSC
     dev = torch.device("cuda")
     out = {}
     for name, model, pi in (
             ("bsc", lambda: BSC(256, 300, 8, 4, chunk=8192), 2.0 / 300),
             ("mca", lambda: MCA(256, 300, 6, 3), 2.0 / 300),
             ("tsc", lambda: TSC(64, 32, 10, 5, chunk=8192, s_block=1024),
-             0.1)):
+             0.1),
+            ("gsc", lambda: GSC(256, 300, 6, 3, chunk=8192), 2.0 / 300),
+            ("gsc_chunk32768", lambda: GSC(256, 300, 6, 3, chunk=32768),
+             2.0 / 300)):
         if name not in which:
             continue
         m = model()
         gt = {"W": planted_dictionary(m.D, m.H, seed=0), "pi": np.float32(pi),
               "sigma": np.float32(1.0)}
+        if isinstance(m, GSC):                 # the slab of bench.py:657
+            gt.update(mu=np.float32(1.0), psi=np.float32(0.25))
         data = m.generate_data(gt, N, seed=1)
         out[name] = (m, torch.tensor(data["y"], device=dev),
                      m.standard_init(data, seed=3, device=dev))
@@ -254,6 +267,7 @@ def _device_profile(torch, tag, card, run, n):
           f"{100 * (1 - busy / span):.1f} %  [{card}]")
     for k, v in sorted(by.items(), key=lambda kv: -kv[1])[:10]:
         print(f"[profile]   {v:8.3f} ms  {k[:100]}")
+    return busy
 
 
 def cmd_profile(args):
@@ -261,9 +275,11 @@ def cmd_profile(args):
     import numpy as np
     import torch
     from prosper_tpu_torch import EM, LinearAnnealing
+    from prosper_tpu_torch.core.etstep import slot_sum_ss
     torch.backends.cuda.matmul.allow_tf32 = False
     card = smi()
-    for name, (model, y, init) in setups(torch, np).items():
+    which = args.only.split(",") if args.only else PROFILED
+    for name, (model, y, init) in setups(torch, np, which).items():
         for tag, T, ncut in (("annealed, Ncut on", 1.5, 0.5),
                              ("saturated", 1.0, 1.0)):
             a = LinearAnnealing(8)
@@ -273,8 +289,24 @@ def cmd_profile(args):
             for _ in range(3):
                 em.step_once()
             torch.cuda.synchronize()
-            _device_profile(torch, f"{name} {tag}, run", card,
-                            lambda: [em.step_once() for _ in range(4)], 4)
+            print(f"[profile] {name} {tag}: host clock per iteration, run "
+                  f"{em.history[-1]['dt'] * 1e3:.3f} ms (unprofiled)  "
+                  f"[{card}]")
+            busy = _device_profile(torch, f"{name} {tag}, run", card,
+                                   lambda: [em.step_once() for _ in range(4)],
+                                   4)
+            if name.startswith("gsc"):
+                # slot_sum_ss alone at the chunk's shape, once per chunk
+                C, Hp, H = model.chunk, model.Hprime, model.H
+                gen = torch.Generator(device="cuda").manual_seed(0)
+                cand = torch.rand(C, H, generator=gen, device="cuda").argsort(
+                    dim=1)[:, :Hp]
+                ssw = torch.randn(C, Hp * Hp, generator=gen, device="cuda")
+                ms = cuda_ms(torch, lambda: slot_sum_ss(ssw, cand, H)) * (
+                    y.shape[0] // C)
+                print(f"[profile] {name} {tag}: slot_sum_ss {ms:.3f} ms per "
+                      f"iteration ({y.shape[0] // C} chunks of {C} rows) = "
+                      f"{100 * ms / busy:.1f} % of the busy time  [{card}]")
             a = LinearAnnealing(12)
             a["T"], a["Ncut_factor"] = T, ncut
             em = EM(model, a, {"y": y}, params=init, seed=4,
@@ -379,7 +411,10 @@ def main():
     c = sub.add_parser("compare")
     c.add_argument("--parent", required=True)
     c.set_defaults(fn=cmd_compare)
-    sub.add_parser("profile").set_defaults(fn=cmd_profile)
+    p = sub.add_parser("profile")
+    p.add_argument("--only", default="",
+                   help="comma-separated subset of " + ",".join(PROFILED))
+    p.set_defaults(fn=cmd_profile)
     sub.add_parser("capture").set_defaults(fn=cmd_capture)
     a = sub.add_parser("ablate")
     a.add_argument("--only", default="",
