@@ -132,26 +132,27 @@ def next_draw(torch, generator):
     return torch.randn(64, generator=twin, device=generator.device)
 
 
-def same_run(torch, tag, ref, em):
+def same_run(torch, tag, ref, em, first=0):
     """``em`` went where ``ref`` went, bit for bit: parameters, F_prev,
-    every scalar of every iteration, the generator's next draw."""
+    every scalar of every iteration (``em``'s history starts at iteration
+    ``first``: a resumed run), the generator's next draw."""
     for k in ref.params:
         if not torch.equal(ref.params[k], em.params[k]):
-            raise AssertionError(f"{tag} run_scanned: {k} differs from run's")
+            raise AssertionError(f"{tag}: {k} differs from the reference's")
     if not torch.equal(ref.data["F_prev"], em.data["F_prev"]):
-        raise AssertionError(f"{tag} run_scanned: F_prev differs from run's")
-    if len(ref.history) != len(em.history):
-        raise AssertionError(f"{tag} run_scanned: history length")
-    for hr, he in zip(ref.history, em.history):
+        raise AssertionError(f"{tag}: F_prev differs from the reference's")
+    if len(ref.history) - first != len(em.history):
+        raise AssertionError(f"{tag}: history length")
+    for hr, he in zip(ref.history[first:], em.history):
         for k in hr:
             if k != "dt" and hr[k] != he[k]:
                 raise AssertionError(
-                    f"{tag} run_scanned: {k} of iteration {hr['iteration']} "
-                    f"is {he[k]!r}, run's {hr[k]!r}")
+                    f"{tag}: {k} of iteration {hr['iteration']} is "
+                    f"{he[k]!r}, the reference's {hr[k]!r}")
     if not torch.equal(next_draw(torch, ref.generator),
                        next_draw(torch, em.generator)):
-        raise AssertionError(f"{tag} run_scanned: the generator's next draw "
-                             "differs from run's")
+        raise AssertionError(f"{tag}: the generator's next draw differs "
+                             "from the reference's")
 
 
 #: the device function behind each launch count (prosper_tpu_torch/csrc)
@@ -208,13 +209,13 @@ def scanned_path(torch, np, cuda_lib, tag, ref, make_em, init, seed, smi,
         raise AssertionError(f"{tag} run_scanned: its {stats['replays']} "
                              f"replays hold {replayed}, a step of run "
                              f"launches {per_step}")
-    same_run(torch, tag, ref, em)
+    same_run(torch, f"{tag} run_scanned", ref, em)
     first_ms = em.history[-1]["dt"] * 1e3
     capture_ms = stats["capture_s"] * 1e3 / stats["graphs"]
 
     fresh = make_em()
     fresh.run_scanned()
-    same_run(torch, tag, ref, fresh)
+    same_run(torch, f"{tag} run_scanned", ref, fresh)
     fresh_ms = fresh.history[-1]["dt"] * 1e3
 
     def replay_all():
@@ -227,7 +228,7 @@ def scanned_path(torch, np, cuda_lib, tag, ref, make_em, init, seed, smi,
         fresh.history.clear()
         before = fresh.scan_stats["replays"]
         fresh.run_scanned()
-        same_run(torch, tag, ref, fresh)
+        same_run(torch, f"{tag} run_scanned", ref, fresh)
         if fresh.scan_stats["replays"] - before != iters:
             raise AssertionError(f"{tag} the rewound run_scanned did not "
                                  f"replay every iteration: "
@@ -1022,6 +1023,394 @@ def mixture_path(torch, np, dev, smi, patches_anneal, N=131072):
     return scanned
 
 
+def read_logs(np, out_dir):
+    """result.h5 (every channel but dt) and metrics.jsonl (each row but dt)
+    of an output directory."""
+    import os
+
+    from prosper_tpu_torch.io import hdf5
+    with hdf5.File(os.path.join(out_dir, "result.h5")) as f:
+        h5 = {k: np.asarray(f[k]) for k in f if k != "dt"}
+    with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+        rows = [{k: v for k, v in json.loads(line).items() if k != "dt"}
+                for line in f]
+    return h5, rows
+
+
+def same_logs(np, tag, a, b, rows):
+    """Two output directories hold the same logs, of ``rows`` iterations."""
+    (ha, ja), (hb, jb) = read_logs(np, a), read_logs(np, b)
+    if set(ha) != set(hb) or len(ja) != rows or ja != jb:
+        raise AssertionError(f"{tag}: the logs of {a} and {b} differ "
+                             f"({len(ja)} and {len(jb)} rows)")
+    for k in ha:
+        if not np.array_equal(ha[k], hb[k]):
+            raise AssertionError(f"{tag}: {k} differs between the logs")
+        if ha[k].shape[0] != rows:
+            raise AssertionError(f"{tag}: {k} holds {ha[k].shape[0]} rows")
+
+
+def expect_step_launches(cuda_lib, tag, em, scanned, iters):
+    """An E-step counts once per iteration: through ``run`` each iteration
+    passes the launch sites of the E-step and its two GEMMs; through
+    ``run_scanned`` the eager first steps and the captures pass them and
+    the replays hold the rest."""
+    if not scanned:
+        return expect_launches(cuda_lib, tag, estep=iters, sgemm_nn=iters,
+                               sgemm_tn=iters)
+    st = em.scan_stats
+    sited = st["eager_steps"] + st["graphs"]
+    got = expect_launches(cuda_lib, tag, estep=sited, sgemm_nn=sited,
+                          sgemm_tn=sited)
+    want = {k: st["replays"] for k in ("estep", "sgemm_nn", "sgemm_tn")}
+    if (st["eager_steps"] + st["replays"] != iters
+            or st["replayed_launches"] != want):
+        raise AssertionError(f"{tag}: {st} for {iters} iterations")
+    return got
+
+
+def io_path(torch, np, dev, smi, model, y_dev, init, patches_anneal):
+    """Phase 18: BSC patches (the main path's model, rows and init) with a
+    data log (result.h5 and metrics.jsonl) and checkpoints every 3
+    iterations, through ``run`` and through ``run_scanned`` (with
+    ``collect_params``): a run killed after 4 iterations and resumed from
+    its step-3 checkpoint into a fresh EM with another seed ends
+    bit-identical to the uninterrupted run (parameters, F_prev, scalars,
+    the generator's next draw), its logs rewound by ``_truncate_logs`` and
+    continued hold the uninterrupted run's 6 rows, and the two loops'
+    logs are equal.  Then host ms per iteration through ``run`` without the
+    log and with it at ``log_params_every`` 1 and 10, and the cost of a
+    checkpoint.  Returns the numbers."""
+    import os
+    import tempfile
+
+    from prosper_tpu_torch import EM
+    from prosper_tpu_torch.cli import _truncate_logs
+    from prosper_tpu_torch.io.datalog import DataLog, StoreToH5, StoreToJSONL
+    from prosper_tpu_torch.ops import cuda_lib
+
+    iters = 6
+    out = {}
+
+    def open_log(out_dir, mode="w"):
+        """The command line's data log: result.h5 and metrics.jsonl."""
+        os.makedirs(out_dir, exist_ok=True)
+        dlog = DataLog()
+        dlog.set_handler(None, StoreToH5, os.path.join(out_dir, "result.h5"),
+                         mode)
+        dlog.set_handler(None, StoreToJSONL,
+                         os.path.join(out_dir, "metrics.jsonl"), mode)
+        return dlog
+
+    def logged(out_dir, **kw):
+        return EM(model, patches_anneal(iters), {"y": y_dev}, params=init,
+                  seed=4, device=dev, dlog=open_log(out_dir), **kw)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for loop in ("run", "run_scanned"):
+            tag = f"[io {loop}]"
+            scanned = loop == "run_scanned"
+
+            def go(em, n=None):
+                if scanned:
+                    em.run_scanned(n, collect_params=True)
+                elif n is None:
+                    em.run()
+                else:
+                    for _ in range(n):
+                        em.step_once()
+                torch.cuda.synchronize()
+                em.dlog.close()
+
+            ref_dir, cut_dir = (os.path.join(tmp, loop, d)
+                                for d in ("ref", "cut"))
+            ckpt = os.path.join(cut_dir, "checkpoint.h5")
+            reset_launches(cuda_lib)
+            ref = logged(ref_dir)
+            go(ref)
+            launches = expect_step_launches(cuda_lib, tag, ref, scanned,
+                                            iters)
+            cut = logged(cut_dir, checkpoint_path=ckpt, checkpoint_every=3)
+            go(cut, 4)                     # killed after 4: checkpoint at 3
+            res = EM(model, patches_anneal(iters), {"y": y_dev}, params=init,
+                     seed=99, device=dev, checkpoint_path=ckpt,
+                     checkpoint_every=3)
+            if res.resume(ckpt) != 3:
+                raise AssertionError(f"{tag}: the checkpoint is not at 3")
+            _truncate_logs(cut_dir, 3, 1)
+            res.dlog = open_log(cut_dir, "a")
+            go(res)
+            same_run(torch, f"{tag} resumed at 3", ref, res, first=3)
+            same_logs(np, tag, ref_dir, cut_dir, iters)
+            log(f"{tag} killed after 4 iterations, resumed from the step-3 "
+                f"checkpoint into a fresh EM (seed 99): bit-identical to the "
+                f"uninterrupted run (parameters, F_prev, scalars, the "
+                f"generator's next draw); the logs rewound and continued "
+                f"hold its {iters} rows; launch sites {launches}")
+        same_logs(np, "[io] run_scanned(collect_params=True) against run",
+                  os.path.join(tmp, "run", "ref"),
+                  os.path.join(tmp, "run_scanned", "ref"), iters)
+
+        # host ms per iteration without the log and with it: the wall time
+        # of run (history's dt ends before the log is written)
+        times = {"none": [], 1: [], 10: []}
+        for every in ("none", 1, 10, "none"):
+            if every == "none":
+                em = EM(model, patches_anneal(iters), {"y": y_dev},
+                        params=init, seed=4, device=dev)
+            else:
+                em = logged(os.path.join(tmp, f"every{every}"),
+                            log_params_every=every)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            em.run()
+            torch.cuda.synchronize()
+            times[every].append((time.perf_counter() - t0) / iters * 1e3)
+            if em.dlog is not None:
+                em.dlog.close()
+        out["run_ms_no_dlog"] = float(np.mean(times["none"]))
+        out["run_ms_dlog_every_1"] = times[1][0]
+        out["run_ms_dlog_every_10"] = times[10][0]
+        t0 = time.perf_counter()
+        for i in range(3):
+            ref.save_checkpoint(os.path.join(tmp, f"c{i}.h5"))
+        out["checkpoint_ms_131072"] = (time.perf_counter() - t0) / 3 * 1e3
+    log(f"[io] wall ms per iteration of run (N={y_dev.shape[0]}): "
+        f"{out['run_ms_no_dlog']:.3f} without a data log, "
+        f"{out['run_ms_dlog_every_1']:.3f} with one at log_params_every=1 "
+        f"(W read and written every iteration), "
+        f"{out['run_ms_dlog_every_10']:.3f} at 10; a checkpoint "
+        f"{out['checkpoint_ms_131072']:.1f} ms  [{smi}]")
+    return out
+
+
+def cli_path(torch, np, dev, smi, N=131072):
+    """Phase 19: the command line in this process on a JSON config at the
+    patches width (BSC D=256, H=300, H'=8, gamma=4 on N=131072 planted-
+    dictionary rows, 6 iterations, checkpoints every 3): ``generate``;
+    ``train --scan``; ``train`` killed after 4 iterations and ``train
+    --resume``, which ends bit-identical to the ``--scan`` run; ``infer``
+    (one decode); ``diagnose --json``; one ``python -m
+    prosper_tpu_torch.cli train`` in a subprocess (bit-identical again); a
+    ``traced_region`` around one step in a profiler trace beside
+    ``rows_kernel``.  Returns the numbers."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    from prosper_tpu_torch import EM, cli
+    from prosper_tpu_torch.data.bars import planted_dictionary
+    from prosper_tpu_torch.io import hdf5
+    from prosper_tpu_torch.io.tracing import profile_trace, traced_region
+    from prosper_tpu_torch.ops import cuda_lib
+
+    iters = 6
+    on = ["--device", str(dev)]
+    cfg = {"model": {"type": "bsc", "D": 256, "H": 300, "Hprime": 8,
+                     "gamma": 4, "chunk": 8192},
+           "anneal": {"steps": iters, "T": [[0.0, 2.0], [0.6, 1.0]],
+                      "W_noise": [[0.0, 0.5], [0.6, 0.0]],
+                      "Ncut_factor": [[0.4, 0.0], [1.0, 1.0]]},
+           "gt_params": {"W": planted_dictionary(256, 300, seed=0).tolist(),
+                         "pi": 2.0 / 300, "sigma": 1.0},
+           "seed": 4, "checkpoint_every": 3}
+    out = {}
+
+    def final(run_dir):
+        with hdf5.File(os.path.join(run_dir, "checkpoint.h5")) as f:
+            return ({k: np.asarray(v) for k, v in f["params"].items()},
+                    np.asarray(f["torch_rng"]), int(f.attrs["step"]))
+
+    def same_end(tag, a, b):
+        pa, ra, sa = final(a)
+        pb, rb, sb = final(b)
+        if (sa, sb) != (iters, iters) or not np.array_equal(ra, rb) or any(
+                not np.array_equal(pa[k], pb[k]) for k in pa):
+            raise AssertionError(f"{tag}: the final checkpoints of {a} and "
+                                 f"{b} differ")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "cfg.json")
+        with open(path, "w") as f:
+            json.dump(cfg, f)
+        data = os.path.join(tmp, "d.h5")
+        run = {k: os.path.join(tmp, k) for k in ("scan", "resumed", "proc")}
+        t0 = time.perf_counter()
+        cli.main(["generate", path, "-N", str(N), "--seed", "1", "-o", data])
+        reset_launches(cuda_lib)
+        t1 = time.perf_counter()
+        cli.main(["train", path, "--data", data, "-o", run["scan"], "-q",
+                  "--scan"] + on)
+        torch.cuda.synchronize()
+        out["train_scan_s"] = time.perf_counter() - t1
+        launches = dict(cuda_lib.LAUNCHES)
+        if not (launches["estep"] >= 1 and launches["sgemm_nn"]
+                == launches["sgemm_tn"] == launches["estep"]):
+            raise AssertionError(f"[cli] train --scan launches {launches}")
+
+        calls = []
+        real_step = EM.step_once
+
+        def killed_after_4(self, *a, **k):
+            if len(calls) == 4:
+                raise KeyboardInterrupt("killed")
+            calls.append(1)
+            return real_step(self, *a, **k)
+        EM.step_once = killed_after_4
+        try:
+            cli.main(["train", path, "--data", data, "-o", run["resumed"],
+                      "-q"] + on)
+            raise AssertionError("[cli] the killed run was not killed")
+        except KeyboardInterrupt:
+            pass
+        finally:
+            EM.step_once = real_step
+        reset_launches(cuda_lib)
+        cli.main(["train", path, "--data", data, "-o", run["resumed"], "-q",
+                  "--resume"] + on)
+        torch.cuda.synchronize()
+        resumed = expect_launches(cuda_lib, "[cli] train --resume", estep=3,
+                                  sgemm_nn=3, sgemm_tn=3)
+        same_end("[cli] train --resume against train --scan", run["scan"],
+                 run["resumed"])
+        same_logs(np, "[cli] train --resume against train --scan",
+                  run["scan"], run["resumed"], iters)
+
+        reset_launches(cuda_lib)
+        inf = os.path.join(tmp, "inference.h5")
+        cli.main(["infer", path, "-c",
+                  os.path.join(run["scan"], "checkpoint.h5"), "--data", data,
+                  "-o", inf] + on)
+        torch.cuda.synchronize()
+        inferred = expect_launches(cuda_lib, "[cli] infer", decode=1,
+                                   sgemm_nn=1)
+        with hdf5.File(inf) as f:
+            if not (f["F"].shape == (N,) and np.isfinite(f["F"][...]).all()
+                    and f["s_mean"].shape == (N, 300)):
+                raise AssertionError("[cli] infer wrote bad outputs")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.main(["diagnose", "-c",
+                      os.path.join(run["scan"], "checkpoint.h5"), "--gt",
+                      path, "--json"])
+        report = json.loads(buf.getvalue())
+        out["diagnose"] = {k: report[k] for k in ("recovered", "total")}
+
+        t1 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "prosper_tpu_torch.cli", "train", path,
+             "--data", data, "-o", run["proc"], "-q"] + on,
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=600)
+        out["subprocess_train_s"] = time.perf_counter() - t1
+        if proc.returncode != 0:
+            raise AssertionError(f"[cli] python -m prosper_tpu_torch.cli "
+                                 f"train failed:\n{proc.stderr[-2000:]}")
+        same_end("[cli] python -m prosper_tpu_torch.cli train", run["scan"],
+                 run["proc"])
+
+        c = cli.load_config(path)
+        with hdf5.File(data) as f:
+            y = np.asarray(f["patches"])
+        em = EM(c["model"], c["anneal"], {"y": y}, seed=4, device=dev)
+        em.step_once()
+        with profile_trace(os.path.join(tmp, "prof")) as prof:
+            with traced_region("em step"):
+                em.step_once()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()]
+        cuda_names = [e.name for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA]
+        if "em step" not in names or not any("rows_kernel" in n
+                                             for n in cuda_names):
+            raise AssertionError("[cli] the traced region or rows_kernel is "
+                                 "missing from the profiler trace")
+        if not os.path.exists(os.path.join(tmp, "prof", "trace.0.json")):
+            raise AssertionError("[cli] profile_trace wrote no trace")
+        out["seconds"] = time.perf_counter() - t0
+    log(f"[cli] generate, train --scan (launch sites {launches}), train "
+        f"killed after 4 iterations + train --resume (launches {resumed}; "
+        f"bit-identical to --scan), infer (launches {inferred}), diagnose "
+        f"--json ({out['diagnose']}), python -m prosper_tpu_torch.cli train "
+        f"in a subprocess ({out['subprocess_train_s']:.1f} s, bit-identical "
+        f"to --scan), a traced_region beside rows_kernel in the profiler "
+        f"trace; train --scan took {out['train_scan_s']:.1f} s  [{smi}]")
+    return out
+
+
+def recovery_path(torch, np, dev, smi):
+    """Phase 20: seed 0 of prosper_tpu_torch/examples/patches_scale_run.py
+    at its defaults (BSC D=256, H=300, H'=8, gamma=4 on N = 10^6 planted-
+    dictionary rows: 120 iterations with revival, worst-F re-seeding and
+    co-activation splits, 40 of the gamma=5 refinement, the blend-split
+    sweeps and their polish, all through ``run_scanned``).  Fails below
+    295/300.  Times each revival that fired and a checkpoint at this size.
+    Returns the numbers."""
+    import os
+    import tempfile
+
+    from prosper_tpu_torch.engine.em import EM
+    from prosper_tpu_torch.examples.patches_scale_run import run_protocol
+    from prosper_tpu_torch.ops import cuda_lib
+
+    fired = []
+    real = EM._maybe_revive_duplicates
+
+    def timed(self):
+        last = self._last_revive
+        t0 = time.perf_counter()
+        real(self)
+        if self._last_revive != last:
+            fired.append((time.perf_counter() - t0) * 1e3)
+    reset_launches(cuda_lib)
+    EM._maybe_revive_duplicates = timed
+    try:
+        r = run_protocol(0, device=dev, log=log)
+    finally:
+        EM._maybe_revive_duplicates = real
+    if not fired:
+        raise AssertionError("[recovery] no revival fired")
+    torch.cuda.synchronize()
+    launches = dict(cuda_lib.LAUNCHES)
+    # at N = 10^6 an E-step cuts its rows into chunks whose (rows, H)
+    # workspace fits, each chunk one sgemm_nn and one sgemm_tn
+    chunks = len(cuda_lib.row_chunks(r["em"].data["y"].shape[0], 300))
+    if not (launches["estep"] >= 1 and launches["decode"] == 0
+            and launches["sgemm_nn"] == launches["sgemm_tn"]
+            == chunks * launches["estep"]):
+        raise AssertionError(f"[recovery] launches {launches} for E-steps "
+                             f"of {chunks} row chunks")
+    em = r.pop("em")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        for i in range(3):
+            em.save_checkpoint(os.path.join(tmp, f"c{i}.h5"))
+        ckpt_ms = (time.perf_counter() - t0) / 3 * 1e3
+    del em
+    graphs = [s["graphs"] for s in r["scan_stats"]]
+    replays = [s["replays"] for s in r["scan_stats"]]
+    eager = [s["eager_steps"] for s in r["scan_stats"]]
+    log(f"[recovery] seed 0, N=10^6: recovered {r['recovered']}/{r['of']} "
+        f"(stages {r['stages']}); revival {r['revival_stats']}; "
+        f"{r['ms_per_iter']:.3f} ms an iteration (first stage, "
+        f"run_scanned), {r['wall_s']:.1f} s wall (+{r['gen_s']:.1f} s data); "
+        f"scan_stats per stage: graphs {graphs}, replays {replays}, eager "
+        f"steps {eager}; {len(fired)} revivals, "
+        f"{np.mean(fired):.1f} ms each (max {max(fired):.1f}); a checkpoint "
+        f"{ckpt_ms:.1f} ms; launch sites {launches}; missed "
+        f"{r['missed_classes'] or 'none'}  [{smi}]")
+    if r["recovered"] < 295:
+        raise AssertionError(f"[recovery] {r['recovered']}/300 < 295")
+    return {"recovered": r["recovered"], "of": r["of"],
+            "stages": r["stages"], "revival_stats": r["revival_stats"],
+            "ms_per_iter": r["ms_per_iter"], "wall_s": r["wall_s"],
+            "data_s": r["gen_s"], "graphs": graphs, "replays": replays,
+            "eager_steps": eager, "revival_ms": fired,
+            "checkpoint_ms_1e6": ckpt_ms, "missed": r["missed_classes"],
+            "launches": launches}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1264,6 +1653,22 @@ def main() -> int:
     scanned.update(mixture_path(torch, np, dev, smi, patches_anneal))
     stamp("phase 17")
 
+    # ---- 18.-20. logs and resume, the command line, the recovery protocol ---
+    seconds = {}
+    t0 = time.perf_counter()
+    recovery = io_path(torch, np, dev, smi, model, y_dev, init,
+                       patches_anneal)
+    seconds["18"] = time.perf_counter() - t0
+    stamp("phase 18")
+    t0 = time.perf_counter()
+    recovery["cli"] = cli_path(torch, np, dev, smi)
+    seconds["19"] = time.perf_counter() - t0
+    stamp("phase 19")
+    t0 = time.perf_counter()
+    recovery.update(recovery_path(torch, np, dev, smi))
+    seconds["20"] = time.perf_counter() - t0
+    stamp("phase 20")
+
     # the bounds, from this run's shapes: the two D x H products, the
     # logits over [proj | Gram] and the moments over the state tables per
     # (row, state); each input read once, each output written once
@@ -1341,6 +1746,7 @@ def main() -> int:
                                  "run_scanned")
     log(json.dumps({"scanned": dict(scanned, card=smi),
                     "gsc_decode": dict(gsc_decode, card=smi)}))
+    log(json.dumps({"recovery": dict(recovery, phase_s=seconds, card=smi)}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,7 +7,11 @@ mixtures (``models.mixtures.MoG``, ``MoP``):
 ``EM(model, anneal, {"y": y}).run()`` trains (``run_scanned()``
 follows the same trajectory with no host work between iterations: CUDA
 graph replays of the step), ``model.inference(params, data, top_L)``
-serves posterior decodes.  With ``backend="cuda"`` (the default) the
+serves posterior decodes.  Around it the run a user starts: data logs and
+checkpoints (``io/``), resume (``EM.resume``), the recovery protocol
+(``EM(revive_duplicates=...)``, ``data/diagnosis.py``) and the command line
+(``python -m prosper_tpu_torch.cli train / infer / generate / diagnose``).
+With ``backend="cuda"`` (the default) the
 E-steps (and the linear family's decode) run in hand-written CUDA kernels
 on a CUDA device (``ops/linear_cuda.py``, ``ops/max_cuda.py``, built with
 nvcc at first use by ``ops/cuda_lib.py``) and in their plain PyTorch
@@ -21,6 +25,6 @@ this port is held to; the port imports neither it nor JAX.
 __version__ = "0.1.0"
 
 from prosper_tpu_torch.engine.anneal import LinearAnnealing
-from prosper_tpu_torch.engine.em import EM
+from prosper_tpu_torch.engine.em import EM, run_restarts
 
-__all__ = ["EM", "LinearAnnealing", "__version__"]
+__all__ = ["EM", "LinearAnnealing", "run_restarts", "__version__"]

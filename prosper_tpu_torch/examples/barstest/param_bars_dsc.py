@@ -1,0 +1,23 @@
+"""Bars test for Discrete Sparse Coding with value set Phi = {1, 2}.
+
+The port's copy of examples/barstest/param_bars_dsc.py, built from prosper_tpu_torch
+(add --device cpu to train without a CUDA device).
+
+Run:  python -m prosper_tpu_torch.cli train prosper_tpu_torch/examples/barstest/param_bars_dsc.py
+"""
+
+from prosper_tpu_torch.engine.anneal import LinearAnnealing
+from prosper_tpu_torch.models import DSC
+from prosper_tpu_torch.data.bars import bars_gt_params
+
+R = 4
+model = DSC(D=R * R, H=2 * R, Hprime=6, gamma=3, phi=(1.0, 2.0))
+
+gt_params = bars_gt_params(model, intensity=10.0, sigma=1.0)
+N = 2000
+seed = 43
+
+anneal = LinearAnnealing(80)
+anneal["T"] = [(0.0, 2.0), (0.7, 1.0)]
+anneal["W_noise"] = [(0.0, 1.0), (0.7, 0.0)]
+anneal["Ncut_factor"] = [(0.5, 0.0), (0.8, 1.0)]

@@ -858,3 +858,182 @@ def test_plain_model_run_scanned_is_bit_identical_to_run(name, device):
     assert stats["replayed_launches"] == {}
     assert dict(cuda_lib.LAUNCHES) == before
     assert all(torch.isfinite(v).all() for v in em.params.values())
+
+
+# -- checkpoints, resume, the recovery protocol and the CLI on the card -------
+
+def _resume_anneal(steps=10):
+    from prosper_tpu_torch import LinearAnnealing
+    a = LinearAnnealing(steps)
+    a["T"] = [(0.0, 2.0), (0.5, 1.0)]
+    a["W_noise"] = [(0.0, 0.5), (0.5, 0.0)]
+    a["Ncut_factor"] = [(0.5, 0.0), (1.0, 1.0)]
+    return a
+
+
+@pytest.mark.parametrize("loop", ["run", "scanned"])
+def test_resume_on_the_card_equals_uninterrupted(loop, device, tmp_path):
+    """BSC through the kernels with revival every 3: interrupted at 4 (a
+    checkpoint between two revivals), resumed into a fresh EM with another
+    seed; parameters, F_prev, every scalar and the generator's next draw
+    bit-identical to the uninterrupted run (the kernel path is
+    deterministic on the card)."""
+    from prosper_tpu_torch import EM
+    make = _scan_models()["bsc"]
+    y = _scan_data("bsc", 777)
+    kw = dict(device=device, revive_duplicates=(3, 0.5, 1.0))
+    go = (lambda em: em.run()) if loop == "run" else (
+        lambda em: em.run_scanned())
+    ref = EM(make(), _resume_anneal(), {"y": y}, seed=7, **kw)
+    go(ref)
+    ckpt = str(tmp_path / "c.h5")
+    em = EM(make(), _resume_anneal(), {"y": y}, seed=7, checkpoint_path=ckpt,
+            checkpoint_every=4, **kw)
+    if loop == "run":
+        for _ in range(4):
+            em.step_once()
+    else:
+        em.run_scanned(4)
+    assert em.revival_stats["revived"] > 0
+    fresh = EM(make(), _resume_anneal(), {"y": y}, seed=1, **kw)
+    assert fresh.resume(ckpt) == 4
+    go(fresh)
+    ref.history = ref.history[4:]
+    _assert_same_run(fresh, ref)
+    np.testing.assert_array_equal(fresh.revival_rng_state(),
+                                  ref.revival_rng_state())
+
+
+def test_collect_params_on_the_card_logs_what_run_logs(device, tmp_path):
+    from prosper_tpu_torch import EM
+    from prosper_tpu_torch.io import hdf5
+    from prosper_tpu_torch.io.datalog import DataLog, StoreToH5
+    files = []
+    for collect in (None, True):
+        log = DataLog()
+        files.append(str(tmp_path / f"{collect}.h5"))
+        log.set_handler(("W", "pi", "F_mean"), StoreToH5, files[-1])
+        em = EM(_scan_models()["bsc"](), _resume_anneal(),
+                {"y": _scan_data("bsc", 512)}, seed=7, device=device,
+                dlog=log, log_params_every=3)
+        em.run() if collect is None else em.run_scanned(collect_params=True)
+        log.close()
+    with hdf5.File(files[0]) as a, hdf5.File(files[1]) as b:
+        assert a["W"].shape[0] == 4 and set(a) == set(b)
+        for k in a:
+            np.testing.assert_array_equal(np.asarray(b[k]), np.asarray(a[k]))
+
+
+@pytest.mark.parametrize("branch", ["coact", "symmetric", "dead_worst"])
+def test_revival_on_the_card_equals_the_cpu(branch, device):
+    """One ``_maybe_revive_duplicates`` on a CUDA EM and on a CPU EM built
+    from the same params, data, F_prev and seed: the same W, bit for bit."""
+    from prosper_tpu_torch import EM, LinearAnnealing
+    from prosper_tpu_torch.data.bars import bars_gt_params
+    from prosper_tpu_torch.models import BSC
+    model = BSC(25, 10, 6, 3)
+    gt = bars_gt_params(model, intensity=10.0, sigma=1.0)
+    data = model.generate_data(gt, 1500, seed=3)
+    W0 = np.asarray(gt["W"]).copy()
+    W0[:, 8] = gt["W"][:, 8] + gt["W"][:, 9]
+    W0[:, 9] = gt["W"][:, 0]
+    W0[:, 3] = 1e-4
+    opts = {"coact": dict(split_norm_frac=1.25, split_coact=True),
+            "symmetric": dict(split_norm_frac=1.25),
+            "dead_worst": dict(reseed_worst_frac=0.1)}[branch]
+    feed = {"y": data["y"], "F_prev": np.random.default_rng(5)
+            .standard_normal(1500).astype(np.float32)}
+    ems = [EM(model, LinearAnnealing(4), dict(feed),
+              params={"W": W0, "pi": np.float32(0.2),
+                      "sigma": np.float32(1.0)}, seed=9, device=d,
+              revive_duplicates=(1, 0.9, 1.0, 0.1), **opts)
+           for d in (device, "cpu")]
+    for em in ems:
+        em.anneal.next()
+        em._maybe_revive_duplicates()
+    assert torch.equal(ems[0].params["W"].cpu(), ems[1].params["W"])
+    assert ems[0].revival_stats == ems[1].revival_stats
+    assert ems[0].revival_stats["revived"] >= 2
+    np.testing.assert_array_equal(ems[0].revival_rng_state(),
+                                  ems[1].revival_rng_state())
+
+
+def test_card_checkpoint_restores_on_the_card(device, tmp_path):
+    """The CUDA generator's state goes to ``torch_rng`` marked cuda and
+    comes back on the card; on the CPU there is no state for it, and
+    ``EM.resume`` warns that the noise chain restarts from the seed."""
+    from prosper_tpu_torch import EM
+    from prosper_tpu_torch.io import checkpoint, hdf5
+    em = EM(_scan_models()["bsc"](), _resume_anneal(),
+            {"y": _scan_data("bsc", 512)}, seed=7, device=device)
+    em.run_scanned(3)
+    path = str(tmp_path / "c.h5")
+    em.save_checkpoint(path)
+    with hdf5.File(path) as f:
+        assert f["torch_rng"].attrs["device_type"] == "cuda"
+    params, step, state, _ = checkpoint.restore_full(path, device)
+    assert step == 3 and params["W"].device.type == "cuda"
+    assert torch.equal(state, em.generator.get_state())
+    assert checkpoint.restore_full(path, "cpu")[2] is None
+    cpu = EM(_scan_models()["bsc"](), _resume_anneal(),
+             {"y": _scan_data("bsc", 512)}, seed=7, device="cpu")
+    with pytest.warns(RuntimeWarning, match="restart from the seed"):
+        assert cpu.resume(path) == 3
+
+
+def _cli_config(tmp_path):
+    import json
+    from prosper_tpu_torch.data.bars import planted_dictionary
+    cfg = {"model": {"type": "bsc", "D": 64, "H": 40, "Hprime": 6,
+                     "gamma": 3, "chunk": 1024},
+           "anneal": {"steps": 5, "T": [[0.0, 2.0], [0.6, 1.0]],
+                      "W_noise": [[0.0, 0.3], [0.6, 0.0]]},
+           "gt_params": {"W": planted_dictionary(64, 40).tolist(),
+                         "pi": 0.05, "sigma": 1.0},
+           "N": 4096, "seed": 3, "checkpoint_every": 2}
+    path = tmp_path / "cfg.json"
+    path.write_text(json.dumps(cfg))
+    return str(path)
+
+
+@pytest.mark.parametrize("scan", [False, True], ids=["run", "scan"])
+def test_cli_train_and_infer_on_the_card_launch_the_kernels(scan, device,
+                                                            tmp_path):
+    from prosper_tpu_torch import cli
+    cfg = _cli_config(tmp_path)
+    out, data = str(tmp_path / "run"), str(tmp_path / "d.h5")
+    assert cli.main(["generate", cfg, "-N", "4096", "-o", data]) == 0
+    for k in cuda_lib.LAUNCHES:
+        cuda_lib.LAUNCHES[k] = 0
+    assert cli.main(["train", cfg, "--data", data, "-o", out, "-q"]
+                    + (["--scan"] if scan else [])) == 0
+    torch.cuda.synchronize()
+    got = dict(cuda_lib.LAUNCHES)
+    # run: one E-step an iteration; --scan: the eager first steps and the
+    # captures of its patterns pass the launch sites, the replays do not
+    if not scan:
+        assert got["estep"] == 5
+    assert got["estep"] >= 1
+    assert got["sgemm_nn"] == got["sgemm_tn"] == got["estep"]
+    for k in cuda_lib.LAUNCHES:
+        cuda_lib.LAUNCHES[k] = 0
+    assert cli.main(["infer", cfg, "-c", f"{out}/checkpoint.h5", "--data",
+                     data, "-o", str(tmp_path / "i.h5")]) == 0
+    torch.cuda.synchronize()
+    assert {k: v for k, v in cuda_lib.LAUNCHES.items() if v} == {
+        "decode": 1, "sgemm_nn": 1}
+
+
+def test_cli_device_cpu_launches_no_kernel(device, tmp_path):
+    from prosper_tpu_torch import cli
+    cfg = _cli_config(tmp_path)
+    out, data = str(tmp_path / "run"), str(tmp_path / "d.h5")
+    assert cli.main(["generate", cfg, "-N", "4096", "-o", data]) == 0
+    for k in cuda_lib.LAUNCHES:
+        cuda_lib.LAUNCHES[k] = 0
+    assert cli.main(["train", cfg, "--data", data, "-o", out, "-q", "--scan",
+                     "--device", "cpu"]) == 0
+    assert cli.main(["infer", cfg, "-c", f"{out}/checkpoint.h5", "--data",
+                     data, "-o", str(tmp_path / "i.h5"), "--device",
+                     "cpu"]) == 0
+    assert not any(cuda_lib.LAUNCHES.values())

@@ -217,12 +217,16 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TSC(25, 10, 6, 3, compute_dtype=torch.bfloat16)
     assert DSC(25, 10, 6, 3, to_learn=("W", "pi", "sigma", "phi")).learn_phi
-    for name in ("runtime", "dlog", "log_params_every", "checkpoint_path",
-                 "checkpoint_every", "revive_duplicates", "split_norm_frac",
-                 "split_coact", "reseed_worst_frac"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            EM(BSC(25, 10, 6, 3), LinearAnnealing(2), {"y": y},
-               device="cpu", **{name: 1})
+    with pytest.raises(NotImplementedError, match="ROADMAP.*distributed"):
+        EM(BSC(25, 10, 6, 3), LinearAnnealing(2), {"y": y}, device="cpu",
+           runtime=1)
+    # the options of the data log, the checkpoints and the recovery protocol
+    # are ported
+    em = EM(BSC(25, 10, 6, 3), LinearAnnealing(2), {"y": y}, device="cpu",
+            dlog=None, log_params_every=2, checkpoint_path=None,
+            checkpoint_every=1, revive_duplicates=(1, 0.9),
+            split_norm_frac=1.5, split_coact=True, reseed_worst_frac=0.1)
+    assert em.revive_duplicates == (1, 0.9, 0.75, 0.0)
     with pytest.raises(TypeError):
         EM(BSC(25, 10, 6, 3), LinearAnnealing(2), {"y": y}, device="cpu",
            no_such_option=1)

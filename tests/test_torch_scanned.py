@@ -130,7 +130,7 @@ def test_run_scanned_is_bit_identical_to_run(name, mode):
 def test_run_scanned_contract():
     """k <= 0 returns at once; the history has k records with the keys of
     ``step_once``'s and one ``dt = total / k``; the annealer is read without
-    being moved; ``collect_params`` names the item that ports it."""
+    being moved; ``collect_params`` without a data log changes nothing."""
     y = _data(MODELS["bsc"]())
     em = _em("bsc", y)
     before = em.params
@@ -145,8 +145,7 @@ def test_run_scanned_contract():
     assert [h["iteration"] for h in em.history] == list(range(4))
     assert [h["T"] for h in em.history] == [
         float(_crossing_anneal().value_at("T", j)) for j in range(4)]
-    with pytest.raises(NotImplementedError, match="CLI/IO"):
-        em.run_scanned(collect_params=True)
+    em.run_scanned(1, collect_params=True)       # no data log: nothing read
     em.run_scanned()
     assert em.run_scanned() is em.params and len(em.history) == 6
     assert em.scan_stats["graphs"] == 0           # no graph on the CPU
