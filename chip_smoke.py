@@ -62,8 +62,9 @@ BARS_SEED = 0          # a seed whose noisy bars run recovers all 10 bars
 MCA_BARS_SEED = 0      # a seed whose MCA bars run on CUDA recovers all 8
 GSC_BARS_SEED = 17     # a seed whose GSC bars run on CUDA recovers all 8
 # published peaks of one H100 SXM (NVIDIA's data sheet): float32 outside the
-# tensor cores, and device memory
+# tensor cores, TF32 on the tensor cores (dense), and device memory
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 
 
@@ -99,6 +100,14 @@ def interleaved_ms(torch, plain, kernel, reps):
     k2 = cuda_ms(torch, kernel, reps)
     p2 = cuda_ms(torch, plain, reps)
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def bound_split_tf32(flops, nbytes):
+    """``bound`` for a float32 product of ``flops`` done as split TF32 on
+    the tensor cores: three TF32 products at the TF32 peak."""
+    t_ops, t_bytes = 3 * flops / PEAK_TF32_FLOPS, nbytes / PEAK_BYTES
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
 def bound(flops, nbytes):
@@ -268,10 +277,14 @@ def gemm_phase(torch, np, dev, smi, err):
     float32), within rounding on Gaussian ones, repeated calls
     bit-identical; then their times at the main path's shape beside
     ``torch.matmul`` in float32 (the library call, which the port never
-    makes).  Returns each kernel's times for the JSON line."""
+    makes), at the main path's rows and a decode's, with the bound of the
+    split-TF32 work the kernels do and that of a float32 product on the CUDA
+    cores; the MMAs in their SASS.  Returns each kernel's entries for the
+    JSON line."""
     from prosper_tpu_torch.ops import gemm_cuda
 
     gen = torch.Generator(device=dev).manual_seed(7)
+    share = {"sgemm_nn": 0.0, "sgemm_tn": 0.0}
     shapes = [(131072, 256, 300)] + [(N, D, H) for N in (1000, 16385)
                                      for D in (25, 256) for H in (10, 300)]
     for N, D, H in shapes:
@@ -308,25 +321,94 @@ def gemm_phase(torch, np, dev, smi, err):
                 torch.testing.assert_close(out.double(), ref, rtol=1e-5,
                                            atol=tol, msg=f"{name} {N}x{D}x{H}")
                 err[name] = max(err[name], e)
+                if not quantised:       # the largest share of the tolerance
+                    used = ((out.double() - ref).abs()
+                            / (tol + 1e-5 * ref.abs())).max().item()
+                    share[name] = max(share[name], used)
+                    log(f"[gemm] {name} {N}x{D}x{H} on Gaussian inputs: max "
+                        f"abs error {e:.3e}, {100 * used:.1f} % of the "
+                        "tolerance")
     log(f"[gemm] sgemm_nn and sgemm_tn_splitn agree with float64 matmul at "
         f"{len(shapes)} shapes (exactly on quantised inputs; repeated calls "
         "bit-identical)")
 
-    N, D, H = shapes[0]
-    y, W, sw = draw(N, D), draw(D, H), draw(N, H)
-    nn = interleaved_ms(torch, lambda: torch.matmul(y, W),
-                        lambda: gemm_cuda.sgemm_nn_cuda(y, W), reps=10)
-    tn = interleaved_ms(torch, lambda: torch.matmul(y.T, sw),
-                        lambda: gemm_cuda.sgemm_tn_splitn_cuda(y, sw), reps=10)
-    flops = 2.0 * N * D * H
-    log(f"[gemm] N={N}, D={D}, H={H}: sgemm_nn {nn[0]:.3f} ms "
-        f"({flops / nn[0] / 1e9:.1f} TFLOP/s) vs torch.matmul {nn[1]:.3f} ms; "
-        f"sgemm_tn_splitn {tn[0]:.3f} ms ({flops / tn[0] / 1e9:.1f} TFLOP/s) "
-        f"vs torch.matmul {tn[1]:.3f} ms  [{smi}]")
-    nbytes = 4.0 * (N * D + D * H + N * H)
-    return {name: {"ms": t[0], "plain_ms": t[1], "library_ms": t[1],
-                   **bound(flops, nbytes)}
-            for name, t in (("sgemm_nn", nn), ("sgemm_tn", tn))}
+    sass = gemm_sass()
+    out = {}
+    for N in (131072, 8192):          # the main path's rows; a decode's
+        D, H = 256, 300
+        y, W, sw = draw(N, D), draw(D, H), draw(N, H)
+        nn = interleaved_ms(torch, lambda: torch.matmul(y, W),
+                            lambda: gemm_cuda.sgemm_nn_cuda(y, W), reps=10)
+        tn = interleaved_ms(torch, lambda: torch.matmul(y.T, sw),
+                            lambda: gemm_cuda.sgemm_tn_splitn_cuda(y, sw),
+                            reps=10)
+        flops = 2.0 * N * D * H
+        nbytes = 4.0 * (N * D + D * H + N * H)
+        tc, f32 = bound_split_tf32(flops, nbytes), bound(flops, nbytes)
+        log(f"[gemm] N={N}, D={D}, H={H}: sgemm_nn {nn[0]:.3f} ms "
+            f"({flops / nn[0] / 1e9:.1f} TFLOP/s of the float32 product) vs "
+            f"torch.matmul {nn[1]:.3f} ms; sgemm_tn_splitn {tn[0]:.3f} ms "
+            f"({flops / tn[0] / 1e9:.1f} TFLOP/s) vs torch.matmul "
+            f"{tn[1]:.3f} ms; bound of the split-TF32 work "
+            f"{tc['bound_ms']:.3f} ms by {tc['bound_by']} (sgemm_nn "
+            f"{100 * tc['bound_ms'] / nn[0]:.1f} %, sgemm_tn_splitn "
+            f"{100 * tc['bound_ms'] / tn[0]:.1f} % of it), of a float32 "
+            f"product on the CUDA cores {f32['bound_ms']:.3f} ms  [{smi}]")
+        for name, t in (("sgemm_nn", nn), ("sgemm_tn", tn)):
+            if N == 131072:
+                out[name] = {"ms": t[0], "plain_ms": t[1], "library_ms": t[1],
+                             **tc, "bound_f32_cuda_cores_ms": f32["bound_ms"],
+                             "tolerance_share": share[name],
+                             "sass": sass[name]}
+            else:
+                out[name].update({f"ms_{N}_rows": t[0],
+                                  f"library_ms_{N}_rows": t[1],
+                                  f"bound_ms_{N}_rows": tc["bound_ms"]})
+    return out
+
+
+def gemm_sass():
+    """Instructions of the built GEMM kernels by kind, from the library's
+    SASS (``cuobjdump -sass`` of the CUDA toolkit, or the copy in Triton's
+    package): the tensor-core MMAs must be there.  Where no cuobjdump is
+    found, says so and returns None for each."""
+    import os
+    import shutil
+    from prosper_tpu_torch.ops import cuda_lib
+    tools = [os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                          "bin", "cuobjdump"), shutil.which("cuobjdump")]
+    try:
+        import triton
+        tools.append(os.path.join(os.path.dirname(triton.__file__), "backends",
+                                  "nvidia", "bin", "cuobjdump"))
+    except ImportError:
+        pass
+    tool = next((t for t in tools if t and os.path.exists(t)), None)
+    if tool is None:
+        log("[gemm] SASS: no cuobjdump found, not read")
+        return {"sgemm_nn": None, "sgemm_tn": None}
+    text = subprocess.run([tool, "-sass", cuda_lib.load_library()._name],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts, fn = {}, None
+    for line in text.splitlines():
+        if "Function : " in line:
+            fn = line.split("Function : ")[1].strip()
+            counts[fn] = {}
+        elif fn is not None:
+            for op in ("HGMMA", "HMMA", "FFMA"):
+                if f" {op}." in line or f" {op} " in line:
+                    counts[fn][op] = counts[fn].get(op, 0) + 1
+    out = {}
+    for name, func in (("sgemm_nn", KERNEL_FUNCS["sgemm_nn"]),
+                       ("sgemm_tn", KERNEL_FUNCS["sgemm_tn"])):
+        found = {fn: c for fn, c in counts.items() if func in fn}
+        log(f"[gemm] SASS of {func}: {found}")
+        if not found or any(c.get("HGMMA", 0) < 1 for c in found.values()):
+            raise AssertionError(f"{func}: no HGMMA in its SASS: the "
+                                 "tensor cores are not used")
+        out[name] = {fn: c.get("HGMMA", 0) for fn, c in found.items()}
+    return out
 
 
 def check_path(torch, np, tag, em, serve, H):
@@ -1445,9 +1527,12 @@ def main() -> int:
     t0 = time.perf_counter()
     cuda_lib.load_library()
     log(f"[build] kernels built and loaded in {time.perf_counter() - t0:.1f} s")
+    func = None
     for line in cuda_lib.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line:
-            log("[build]", line.strip())
+        if "Compiling entry function" in line:
+            func = line.split("'")[1]
+        elif "registers" in line or "spill" in line:
+            log("[build]", func, line.strip())
     lib = cuda_lib.load_library()
     for name, smem in (
             ("linear E-step rows kernel (H=300, H'=8, S=154, K=1)",
@@ -1458,7 +1543,9 @@ def main() -> int:
              lib.max_et_smem_bytes(256, 300, 6, 35)),
             (f"big-S kernel (H'=10, K=2: 65 logit and 69 moment columns, "
              f"{lib.bigs_multi_warps(65, 69)} warps a block)",
-             lib.bigs_multi_smem_bytes(65, 69))):
+             lib.bigs_multi_smem_bytes(65, 69)),
+            ("sgemm_nn kernel", lib.sgemm_smem_bytes(0)),
+            ("sgemm_tn_splitn kernel", lib.sgemm_smem_bytes(1))):
         log(f"[build] {name}: {smem} bytes of shared memory a block, "
             f"{cuda_lib.blocks_per_sm(smem)} blocks an SM")
 

@@ -36,8 +36,13 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 SOURCES = ("sgemm.cu", "linear_et_estep.cu", "linear_et_decode.cu",
            "max_et_estep.cu", "bigs_multi.cu")
 HEADERS = ("linear_et_frontend.cuh", "cp_async.cuh", "launch_once.cuh")
+#: -fno-gnu-unique: the launchers' function-local statics (a kernel's
+#: shared-memory attribute, set once) stay private to each library, so
+#: that two builds loaded in one process (edited copies of the sources, as
+#: tools/torch_kernel_times.py loads them) do not share them
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC")
+              "-O3", "-fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC",
+              "-Xcompiler", "-fno-gnu-unique")
 SMEM_LIMIT = 232448          # bytes of shared memory a block may use
 #: most bytes an E-step's (N, H) workspace for P may take; a larger N is cut
 #: into chunks of rows whose sums are added in order
@@ -102,7 +107,9 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(_build()))
     p, i, z = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
     for name, argtypes, restype in (
-            ("sgemm_nn", [p] * 3 + [i] * 3 + [p], i),
+            ("sgemm_nn", [p] * 4 + [i] * 3 + [p], i),
+            ("sgemm_nn_ws_floats", [i, i], z),
+            ("sgemm_smem_bytes", [i], z),
             ("sgemm_tn_splitn", [p] * 4 + [i] * 5 + [p], i),
             ("linear_et_estep_rows", [p] * 14 + [i] * 9 + [p], i),
             ("linear_et_decode_rows", [p] * 15 + [i] * 9 + [p], i),

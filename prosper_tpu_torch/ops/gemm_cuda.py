@@ -12,7 +12,14 @@ They stand for the products inside the bodies of the TPU kernels
 ``prosper_tpu/ops/max_pallas.py::_kernel``), which is why they are kernels
 of this package and not library calls.  On a CPU tensor a wrapper runs the
 plain version (``torch.matmul``); on a CUDA tensor it launches the kernel or
-raises.  Both run in full float32 (``fmaf`` on the CUDA cores).
+raises.  Both run on the tensor cores in split TF32: each operand is cut
+into two TF32 numbers (hi + lo, to 2^-22 relative), a product is the sum
+of three TF32 products (lo x lo dropped), and the tensor cores' sums of
+short runs of depth (a slab of 32, or 8 where the whole depth is one slab)
+are added to a float32 running sum.  That keeps float32 accuracy (not the
+rounding of an IEEE ``fmaf`` chain: the tests' float32 tolerances, rtol
+1e-5 and atol 2e-7 per unit of depth), is exact on inputs quantised to
+1/4, and gives the same bits on every call.
 """
 
 from __future__ import annotations
@@ -25,13 +32,22 @@ from prosper_tpu_torch.ops.cuda_lib import (LAUNCHES, check, load_library,
                                             raise_on)
 
 __all__ = ["sgemm_nn", "sgemm_nn_cuda", "sgemm_tn_splitn",
-           "sgemm_tn_splitn_cuda", "SPLIT_ROWS"]
+           "sgemm_tn_splitn_cuda", "split_rows"]
 
-#: rows of N per split of ``sgemm_tn_splitn``; the number of splits, and so
-#: the order of the sum, depends on N alone
-SPLIT_ROWS = 1024
+#: ``sgemm_tn_splitn`` cuts its sum over N into about this many splits, of
+#: a multiple of 32 rows and at least ``MIN_SPLIT_ROWS`` each: at the
+#: patches width 33 splits of a 2 x 2 tile grid are 132 blocks, one for each
+#: SM of an H100.  The number of splits, and so the order of the sum,
+#: depends on N alone.
+SPLITS = 33
+MIN_SPLIT_ROWS = 256
 #: the kernels index their grids with 16 bits in two dimensions
 N_MAX = 65535 * 128
+
+
+def split_rows(N: int) -> int:
+    """Rows of N in each split of ``sgemm_tn_splitn``'s sum."""
+    return max(MIN_SPLIT_ROWS, -(-N // (32 * SPLITS)) * 32)
 
 
 def _check_pair(a: torch.Tensor, b: torch.Tensor, rows_match: bool):
@@ -61,7 +77,10 @@ def sgemm_nn_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"kernel limit: at most {N_MAX} rows, got {N}")
     out = torch.empty((N, H), dtype=torch.float32, device=a.device)
     lib = load_library()
-    err = lib.sgemm_nn(a.data_ptr(), b.data_ptr(), out.data_ptr(), N, D, H,
+    img = torch.empty(lib.sgemm_nn_ws_floats(D, H), dtype=torch.float32,
+                      device=a.device)               # b's split TF32 image
+    err = lib.sgemm_nn(a.data_ptr(), b.data_ptr(), img.data_ptr(),
+                       out.data_ptr(), N, D, H,
                        torch.cuda.current_stream(a.device).cuda_stream)
     raise_on(lib, err, "sgemm_nn")
     LAUNCHES["sgemm_nn"] += 1
@@ -72,7 +91,7 @@ def sgemm_tn_splitn_cuda(a: torch.Tensor, b: torch.Tensor,
                          out: Optional[torch.Tensor] = None,
                          accumulate: bool = False) -> torch.Tensor:
     """``a.T @ b`` by the ``sgemm_tn_splitn`` kernel: one partial per
-    ``SPLIT_ROWS`` rows, the partials summed in order into ``out`` (added to
+    ``split_rows(N)`` rows, the partials summed in order into ``out`` (added to
     what it holds when ``accumulate``)."""
     if a.device.type != "cuda":
         raise ValueError(f"the CUDA kernels take CUDA tensors, got {a.device}")
@@ -86,12 +105,13 @@ def sgemm_tn_splitn_cuda(a: torch.Tensor, b: torch.Tensor,
         out = torch.empty((M, K), dtype=torch.float32, device=a.device)
     else:
         check(out, "out", (M, K), a.device)
-    n_split = -(-N // SPLIT_ROWS)
+    rows = split_rows(N)
+    n_split = -(-N // rows)
     ws = torch.empty(n_split * M * K, dtype=torch.float32, device=a.device)
     lib = load_library()
     err = lib.sgemm_tn_splitn(
         a.data_ptr(), b.data_ptr(), ws.data_ptr(), out.data_ptr(), N, M, K,
-        SPLIT_ROWS, int(accumulate),
+        rows, int(accumulate),
         torch.cuda.current_stream(a.device).cuda_stream)
     raise_on(lib, err, "sgemm_tn_splitn")
     LAUNCHES["sgemm_tn"] += 1

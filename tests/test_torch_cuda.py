@@ -223,6 +223,125 @@ def test_gemm_wrappers_reject_bad_outputs_and_dispatch(device):
     assert gemm_cuda.LAUNCHES["sgemm_tn"] == before["sgemm_tn"] + 1
 
 
+def _gemm_draw(rng, quantised, device, *shape):
+    a = rng.standard_normal(shape)
+    a = np.round(a * 4) / 4 if quantised else a
+    return torch.as_tensor(a.astype(np.float32), device=device)
+
+
+def _exact_or_close(out, again, ref, quantised, depth):
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    if quantised:
+        assert torch.equal(out.double(), ref)
+    else:
+        torch.testing.assert_close(out.double(), ref, rtol=1e-5,
+                                   atol=2e-7 * depth)
+
+
+@pytest.mark.parametrize("quantised", [True, False], ids=["quarters", "randn"])
+def test_gemm_nn_at_the_decode_shape(quantised, device):
+    """sgemm_nn at a decode's shape (8192 rows of the patches width)."""
+    rng = np.random.default_rng(8192)
+    y = _gemm_draw(rng, quantised, device, 8192, 256)
+    W = _gemm_draw(rng, quantised, device, 256, 300)
+    _exact_or_close(gemm_cuda.sgemm_nn_cuda(y, W),
+                    gemm_cuda.sgemm_nn_cuda(y, W), y.double() @ W.double(),
+                    quantised, 256)
+
+
+@pytest.mark.parametrize("N", [16385, 131072])
+@pytest.mark.parametrize("quantised", [True, False], ids=["quarters", "randn"])
+def test_gemm_tn_in_the_max_familys_orientation(N, quantised, device):
+    """The max family's singleton numer: out (300, 256) += P^T y for P
+    (N, 300), y (N, 256), the register side of the kernel the narrower
+    operand (the product stored transposed)."""
+    rng = np.random.default_rng(N)
+    P = _gemm_draw(rng, quantised, device, N, 300)
+    y = _gemm_draw(rng, quantised, device, N, 256)
+    base = _gemm_draw(rng, quantised, device, 300, 256)
+    P[:40] = 0.0
+    _exact_or_close(
+        gemm_cuda.sgemm_tn_splitn_cuda(P, y, out=base.clone(),
+                                       accumulate=True),
+        gemm_cuda.sgemm_tn_splitn_cuda(P, y, out=base.clone(),
+                                       accumulate=True),
+        base.double() + P.double().T @ y.double(), quantised, N)
+
+
+@pytest.mark.parametrize("shape", [(4096, 256, 300), (1000, 25, 10)],
+                         ids=lambda s: "N%dD%dH%d" % s)
+def test_gemm_wide_dynamic_range(shape, device):
+    """Rows of y and columns of W (nn), columns of both operands (tn),
+    scaled by 2^k for k in -20..20: each output is a scaled Gaussian sum,
+    held to the float32 tolerance relative to its own scale.  A missing or
+    wrong lo term (2^-11 relative) fails it."""
+    N, D, H = shape
+    rng = np.random.default_rng(N + D)
+    y = _gemm_draw(rng, False, device, N, D)
+    W = _gemm_draw(rng, False, device, D, H)
+    sw = _gemm_draw(rng, False, device, N, H)
+
+    def powers(n):
+        return torch.as_tensor(2.0 ** (np.arange(n) % 41 - 20),
+                               dtype=torch.float32, device=device)
+    r, c, cy = powers(N), powers(H).flip(0), powers(D)
+    ys, Ws = y * r[:, None], W * c[None, :]
+    out = gemm_cuda.sgemm_nn_cuda(ys, Ws)
+    scale = (r[:, None] * c[None, :]).double()
+    ref = ys.double() @ Ws.double()
+    torch.testing.assert_close(out.double() / scale, ref / scale, rtol=1e-5,
+                               atol=2e-7 * D)
+    yc, swc = y * cy[None, :], sw * c[None, :]
+    out = gemm_cuda.sgemm_tn_splitn_cuda(yc, swc)
+    scale = (cy[:, None] * c[None, :]).double()
+    ref = yc.double().T @ swc.double()
+    torch.testing.assert_close(out.double() / scale, ref / scale, rtol=1e-5,
+                               atol=2e-7 * N)
+
+
+@pytest.mark.parametrize("shape", [(4096, 256, 300), (1000, 25, 10)],
+                         ids=lambda s: "N%dD%dH%d" % s)
+def test_gemm_wrappers_replay_in_a_cuda_graph(shape, device):
+    """Each wrapper captured into a CUDA graph (the split image of W and the
+    split partials come from the graph's pool) and replayed on new inputs
+    copied into the captured ones: the same bits as eager calls."""
+    N, D, H = shape
+    rng = np.random.default_rng(N + D + H)
+    y, W = (_gemm_draw(rng, False, device, *s) for s in ((N, D), (D, H)))
+    sw, base = (_gemm_draw(rng, False, device, *s) for s in ((N, H), (D, H)))
+    acc = torch.empty_like(base)
+
+    def calls():
+        acc.copy_(base)
+        return (gemm_cuda.sgemm_nn_cuda(y, W),
+                gemm_cuda.sgemm_tn_splitn_cuda(y, sw),
+                gemm_cuda.sgemm_tn_splitn_cuda(sw, y),
+                gemm_cuda.sgemm_tn_splitn_cuda(y, sw, out=acc,
+                                               accumulate=True))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        calls()                                    # built, attributes set
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = calls()
+    for seed in (1, 2):
+        rng = np.random.default_rng(seed)
+        for t in (y, W, sw, base):
+            t.copy_(_gemm_draw(rng, False, device, *t.shape))
+        graph.replay()
+        replayed = [t.clone() for t in captured]
+        eager = [t.clone() for t in calls()]
+        torch.cuda.synchronize()
+        for a, b in zip(replayed, eager):
+            assert torch.equal(a, b)
+        torch.testing.assert_close(replayed[0].double(),
+                                   y.double() @ W.double(), rtol=1e-5,
+                                   atol=2e-7 * D)
+
+
 # ---- the max-family E-step kernel (MCA / MMCA) ------------------------------
 
 MAX_CASES = [  # (N, D, H, Hp, gamma): bars, mca_small, patches

@@ -37,8 +37,10 @@ D=64, H=32, H'=10, gamma=5, s_block=1024; decode of 8192 rows).
         Builds edited copies of the sources with one part of the linear
         rows kernel, of the max kernel or of the big-S kernel switched off
         (the results are then wrong; only the time is read) and prints what
-        each part saves; then the GEMM kernels with a register cap for 4
-        and 5 blocks an SM.
+        each part saves; then variants that keep the results right: the
+        GEMM kernels with other numbers of stages, the TF32 split by cvt,
+        every depth of sgemm_nn summed one k8 step at a time, and the big-S
+        kernel at its largest block.
 
 Every line of output ends with the card's name and power limit.
 """
@@ -83,16 +85,36 @@ ABLATIONS = [
      "for (int s4 = 0; s4 < 0; s4 += 4) {"),
     ("bigs: staging of the A and B tiles after the first", "bigs_multi.cu",
      "if (t + 1 < nt) {", "if (false) {"),
+    ("gemm nn: the copies of B's split image", "sgemm.cu",
+     "      cp_async16(dst + 4 * c, src + 4 * c, true);",
+     "      cp_async16(dst + 4 * c, src + 4 * c, false);"),
+    ("gemm nn: the stores of C", "sgemm.cu",
+     "      if (r >= N || c >= H) continue;\n"
+     "      float* p = C + (size_t)r * H + c;",
+     "      if (r >= 0) continue;\n      float* p = C + (size_t)r * H + c;"),
+    ("gemm tn: the loads of the raw slabs", "sgemm.cu",
+     "    load_rows<VEC, BM>(xs_of(s), XS, X, P, r0, p0, r_end);\n"
+     "    load_rows<VEC, BN>(ys_of(s), YS, Y, Q, r0, q0, r_end);", ""),
+    ("gemm tn: the split and transposition of the B slab", "sgemm.cu",
+     "  auto split_b = [&](int s, int b, int j0, int j1) {",
+     "  auto split_b = [&](int s, int b, int j0, int j1) {\n    return;"),
 ]
 #: the calls `ablate` times for every edited copy
 ABLATED = ("linear_et_estep", "linear_et_decode", "max_et_estep",
            "bigs_multi_annealed", "bigs_multi_saturated",
            "bigs_multi_annealed_16k_rows", "sgemm_nn", "sgemm_tn_splitn")
-#: variants of the GEMM kernels (right results, other register caps)
+#: variants of the kernels (right results, other choices)
 VARIANTS = [
-    (f"nothing, but the GEMMs capped for {n} blocks an SM", "sgemm.cu",
-     "__launch_bounds__(THREADS)\n", f"__launch_bounds__(THREADS, {n})\n")
-    for n in (4, 5)] + [
+    ("nothing, but sgemm_nn with 3 stages of slabs in flight", "sgemm.cu",
+     "constexpr int NN_STAGES = 4;", "constexpr int NN_STAGES = 3;"),
+    ("nothing, but sgemm_tn_splitn with 4 raw stages", "sgemm.cu",
+     "constexpr int TN_STAGES = 3;", "constexpr int TN_STAGES = 4;"),
+    ("nothing, but the sgemm kernels' TF32 split by cvt.rna",
+     "sgemm.cu", "return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;",
+     'uint32_t r;\n  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));\n'
+     "  return r;"),
+    ("nothing, but sgemm_nn summing every depth one k8 step at a time",
+     "sgemm.cu", "one = n_slabs == 1;", "one = true;"),
     ("nothing, but the big-S kernel at its largest block whatever the rows",
      "bigs_multi.cu", "while (nw > 1 &&", "while (false &&")]
 
