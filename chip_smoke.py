@@ -44,6 +44,15 @@ count may move while they run):
   ``run`` and ``run_scanned``, an inference of 8192 rows, one step against
   the CPU.
 
+Phase 21 drives ``StreamingEM``: BSC at the patches width on phase 20's
+N = 10^6 host rows in 8 segments of 131072 rows, the rolling tier from the
+ndarray (page-locked in place) and from an np.memmap (pinned staging
+buffers), the cached tier and the in-memory ``EM.run``, bit-identical
+among the streamed runs and within the tolerance of the in-memory one with
+the same kept counts, a resumed run, MCA and big-S TSC on 262144 rows in 2
+segments, and a profiled rolling iteration that shows how much of the
+uploads lies under the compute (the ``stream`` line).
+
 Each path's launch counts are set to 0 just before it and checked just
 after.  Every phase raises on failure.  Prints one JSON line of the
 iteration times through ``run`` and ``run_scanned``, one of per-kernel
@@ -1448,7 +1457,7 @@ def recovery_path(torch, np, dev, smi):
     reset_launches(cuda_lib)
     EM._maybe_revive_duplicates = timed
     try:
-        r = run_protocol(0, device=dev, log=log)
+        r = run_protocol(0, device=dev, log=log, keep_data=True)
     finally:
         EM._maybe_revive_duplicates = real
     if not fired:
@@ -1463,7 +1472,7 @@ def recovery_path(torch, np, dev, smi):
             == chunks * launches["estep"]):
         raise AssertionError(f"[recovery] launches {launches} for E-steps "
                              f"of {chunks} row chunks")
-    em = r.pop("em")
+    em, y_host = r.pop("em"), r.pop("y")
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         for i in range(3):
@@ -1490,7 +1499,363 @@ def recovery_path(torch, np, dev, smi):
             "data_s": r["gen_s"], "graphs": graphs, "replays": replays,
             "eager_steps": eager, "revival_ms": fired,
             "checkpoint_ms_1e6": ckpt_ms, "missed": r["missed_classes"],
-            "launches": launches}
+            "launches": launches}, y_host
+
+
+def same_stream(torch, tag, ref, sem, first=0):
+    """Where ``sem`` differs from ``ref`` bit for bit (parameters, F_prev,
+    every scalar but dt of every iteration from ``first`` on, the
+    generator's next draw): a list of findings, empty when they agree."""
+    bad = [f"{tag}: {k} differs" for k in ref.params
+           if not torch.equal(ref.params[k], sem.params[k])]
+    if not torch.equal(ref.F_prev, sem.F_prev):
+        bad.append(f"{tag}: F_prev differs")
+    hr = [{k: v for k, v in h.items() if k != "dt"}
+          for h in ref.history[first:]]
+    he = [{k: v for k, v in h.items() if k != "dt"} for h in sem.history]
+    if hr != he:
+        bad.append(f"{tag}: scalars differ: {he} against {hr}")
+    if not torch.equal(next_draw(torch, ref.generator),
+                       next_draw(torch, sem.generator)):
+        bad.append(f"{tag}: the generator's next draw differs")
+    return bad
+
+
+def in_memory_cut_as_segments(torch, np, fam, anneal, y_host, seg, init,
+                              dev):
+    """The in-memory ``EM.run`` on ``y_host`` padded with weight-0 rows to
+    whole segments of ``seg`` rows, its E-steps cutting the rows into
+    chunks of ``seg`` (``cuda_lib.P_LIMIT_BYTES``) and adding the chunks'
+    sums in order: the arithmetic of the streamed run, so it must equal it
+    bit for bit."""
+    from prosper_tpu_torch import EM
+    from prosper_tpu_torch.ops import cuda_lib
+    N = y_host.shape[0]
+    rows = -(-N // seg) * seg
+    y = torch.zeros((rows, y_host.shape[1]), dtype=torch.float32,
+                    device=dev)
+    y[:N] = torch.as_tensor(y_host, device=dev)
+    valid = (torch.arange(rows, device=dev) < N).float()
+    # the workspace the row chunks are cut by: (rows, H) floats, (rows,
+    # H' H) for the big-S E-step
+    width = max(fam.H, fam.Hprime * fam.H) if getattr(fam, "s_block", 0) \
+        else fam.H
+    saved = cuda_lib.P_LIMIT_BYTES
+    cuda_lib.P_LIMIT_BYTES = seg * 4 * width
+    try:
+        em = EM(fam, anneal, {"y": y, "valid": valid}, params=init, seed=4,
+                device=dev)
+        em.run()
+    finally:
+        cuda_lib.P_LIMIT_BYTES = saved
+    return em
+
+
+def against_in_memory(torch, np, tag, sem, cut, em):
+    """Where the streamed run ``sem`` leaves the in-memory runs: ``cut``
+    (rows cut into chunks as the segments, ``in_memory_cut_as_segments``)
+    must equal it bit for bit (parameters, F_prev, every scalar but dt,
+    the generator's next draw); ``em`` (the default cut) must keep the same
+    rows in every iteration (n_used) with F_mean within rtol 1e-4.  Returns
+    (findings, the parameters' largest differences from ``em`` with the
+    largest entry of each)."""
+    bad = []
+    for k in em.params:
+        if not torch.equal(sem.params[k], cut.params[k]):
+            bad.append(f"{tag}: {k} differs from the in-memory run cut as "
+                       "the segments")
+    if not torch.equal(sem.F_prev, cut.data["F_prev"]):
+        bad.append(f"{tag}: F_prev differs from the in-memory run cut as "
+                   "the segments")
+    hs = [{k: v for k, v in h.items() if k != "dt"} for h in sem.history]
+    hc = [{k: v for k, v in h.items() if k != "dt"} for h in cut.history]
+    if hs != hc:
+        bad.append(f"{tag}: scalars {hs} differ from the in-memory run cut "
+                   f"as the segments {hc}")
+    if not torch.equal(next_draw(torch, sem.generator),
+                       next_draw(torch, cut.generator)):
+        bad.append(f"{tag}: the generator's next draw differs from the "
+                   "in-memory run's")
+    n_s = [h["n_used"] for h in sem.history]
+    n_m = [h["n_used"] for h in em.history]
+    if n_s != n_m:
+        bad.append(f"{tag}: n_used {n_s}, in memory {n_m}")
+    f_s = np.array([h["F_mean"] for h in sem.history])
+    f_m = np.array([h["F_mean"] for h in em.history])
+    if not np.allclose(f_s, f_m, rtol=1e-4, atol=0.0):
+        bad.append(f"{tag}: F_mean {f_s.tolist()}, in memory "
+                   f"{f_m.tolist()}")
+    diff = {k: {"max_abs_diff": (sem.params[k] - em.params[k]).abs().max()
+                .item(), "max_abs": em.params[k].abs().max().item(),
+                "within_rtol5e-4_atol1e-4": torch.allclose(
+                    sem.params[k], em.params[k], rtol=5e-4, atol=1e-4)}
+            for k in em.params}
+    return bad, diff
+
+
+def union_ms(spans):
+    """Merged [start, end) spans (microseconds) of a trace."""
+    out = []
+    for a, b in sorted(spans):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def overlap_figures(np, torch, sem, tmp, tag):
+    """One rolling iteration of ``sem`` under the profiler: the HtoD copy
+    time on the copy stream (the stream of the largest HtoD copy), the part
+    of it under kernels of the other streams (ms and share), the achieved
+    GB/s, the host's fill and wait per segment, and the iteration's ms."""
+    import os
+
+    from torch.profiler import ProfilerActivity, profile
+    st0 = dict(sem.uploader.stats)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        h = sem.step_once()
+        torch.cuda.synchronize()
+    path = os.path.join(tmp, "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    st = {k: sem.uploader.stats[k] - st0[k] for k in ("bytes", "segments",
+                                                      "fill_s", "wait_s")}
+    htod = [e for e in events if e.get("cat") == "gpu_memcpy"
+            and "HtoD" in e.get("name", "")]
+    if not htod:
+        raise AssertionError(f"{tag}: no HtoD copy in the trace")
+    copy_stream = max(htod, key=lambda e: e["dur"]).get("args",
+                                                        {}).get("stream")
+    copies = union_ms([(e["ts"], e["ts"] + e["dur"]) for e in htod
+                       if e.get("args", {}).get("stream") == copy_stream])
+    kernels = union_ms([(e["ts"], e["ts"] + e["dur"]) for e in events
+                        if e.get("cat") == "kernel"
+                        and e.get("args", {}).get("stream") != copy_stream])
+    if not kernels:
+        raise AssertionError(f"{tag}: no kernel on the compute stream")
+    under, i, j = 0.0, 0, 0
+    while i < len(copies) and j < len(kernels):
+        a = max(copies[i][0], kernels[j][0])
+        b = min(copies[i][1], kernels[j][1])
+        under += max(0.0, b - a)
+        if copies[i][1] < kernels[j][1]:
+            i += 1
+        else:
+            j += 1
+    copy_us = sum(b - a for a, b in copies)
+    busy_us = sum(b - a for a, b in kernels)
+    return {"iteration_ms": h["dt"] * 1e3, "htod_ms": copy_us / 1e3,
+            "htod_under_kernels_ms": under / 1e3,
+            "htod_under_kernels_share": under / copy_us,
+            "kernels_busy_ms": busy_us / 1e3,
+            "htod_GBps": st["bytes"] / (copy_us * 1e-6) / 1e9,
+            "bytes": st["bytes"], "segments": st["segments"],
+            "fill_ms_per_segment": st["fill_s"] / st["segments"] * 1e3,
+            "wait_ms_per_segment": st["wait_s"] / st["segments"] * 1e3}
+
+
+class forbid_plain:
+    """Within the block, the plain versions of the E-steps raise: a
+    streamed run on the card goes through the kernels alone."""
+
+    def __enter__(self):
+        from prosper_tpu_torch.core import etstep, maxstep
+        self.saved = [(m, n, getattr(m, n)) for m, n in (
+            (etstep, "linear_et_estep"), (etstep, "bigs_multi"),
+            (maxstep, "max_et_estep"))]
+
+        def make(name):
+            def boom(*a, **k):
+                raise AssertionError(f"the plain {name} ran on the "
+                                     "streamed path")
+            return boom
+        for m, n, _ in self.saved:
+            setattr(m, n, make(n))
+
+    def __exit__(self, *exc):
+        for m, n, f in self.saved:
+            setattr(m, n, f)
+
+
+def stream_path(torch, np, dev, smi, y_host, patches_anneal):
+    """Phase 21: ``StreamingEM`` at the patches width on phase 20's N = 10^6
+    host rows (BSC, D=256, H=300, H'=8, gamma=4), segments of 131072 rows
+    (8 segments, the tail 82,496 real rows), 6 iterations of phase 6's
+    schedule, four ways from the same parameters and seed: (a) the rolling
+    tier from the ndarray (page-locked in place), (b) the rolling tier from
+    an np.memmap of the same rows (two pinned staging buffers), (c) the
+    cached tier, (d) the in-memory ``EM.run`` on the card.  (a), (b), (c)
+    bit-identical; n_used equal to (d)'s in every iteration and the
+    parameters within rtol 5e-4 / atol 1e-4 of (d)'s; each kernel launched
+    once a segment and no plain version run; a run checkpointed at
+    iteration 3 and resumed in a fresh StreamingEM bit-identical to (a).
+    Then MCA (D=256, H=300, H'=6, gamma=3) and big-S TSC (D=64, H=32,
+    H'=10, gamma=5, s_block=1024) on 262144 rows in 2 segments, 3
+    iterations each, against their in-memory runs.  One profiled rolling
+    iteration of (a) and of (b) gives the overlap of the uploads with the
+    compute.  Returns the ``stream`` line's numbers and the streamed
+    launches by kernel (BSC's run (a), MCA's and TSC's)."""
+    import os
+    import tempfile
+
+    from prosper_tpu_torch import EM, StreamingEM
+    from prosper_tpu_torch.data.bars import planted_dictionary
+    from prosper_tpu_torch.models import BSC, MCA, TSC
+    from prosper_tpu_torch.ops import cuda_lib
+
+    bad = []
+    N, D, seg, iters = y_host.shape[0], y_host.shape[1], 131072, 6
+    model = BSC(D, 300, 8, 4, chunk=8192)
+    init = model.standard_init({"y": y_host[:seg]}, seed=3, device=dev)
+
+    def streamed(y, **kw):
+        return StreamingEM(model, patches_anneal(iters), y, seg_size=seg,
+                           params=init, seed=4, device=dev, **kw)
+
+    def ms(run):
+        dts = [h["dt"] * 1e3 for h in run.history]
+        return {"first": dts[0], "median_rest": float(np.median(dts[1:]))}
+
+    out = {"N": N, "seg_size": seg, "iters": iters}
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        path = os.path.join(tmp, "y.f32")
+        mm = np.memmap(path, np.float32, "w+", shape=y_host.shape)
+        mm[:] = y_host
+        mm.flush()
+        del mm
+        y_mm = np.memmap(path, np.float32, "r", shape=y_host.shape)
+        out["memmap_write_s"] = time.perf_counter() - t0
+        runs = {}
+        for name, y, kw in (("rolling_ndarray", y_host, {"cache_bytes": 0}),
+                            ("rolling_memmap", y_mm, {"cache_bytes": 0}),
+                            ("cached", y_host, {})):
+            reset_launches(cuda_lib)
+            sem = streamed(y, **kw)
+            with forbid_plain():
+                sem.run()
+            torch.cuda.synchronize()
+            n = sem.n_seg * iters
+            got = expect_launches(cuda_lib, f"[stream] {name}", estep=n,
+                                  sgemm_nn=n, sgemm_tn=n)
+            if name == "rolling_ndarray":
+                launches = dict(got)
+            runs[name] = sem
+            out[name] = dict(ms(sem), **{k: sem.uploader.stats[k] for k in (
+                "bytes", "segments", "registered", "register_s", "fill_s",
+                "wait_s")}, cached=sem._cache_all)
+            log(f"[stream] {name}: {sem.n_seg} segments of {sem.seg_size} "
+                f"rows (tail {N - (sem.n_seg - 1) * seg}), iteration ms "
+                f"{[round(h['dt'] * 1e3, 3) for h in sem.history]}, "
+                f"n_used {[h['n_used'] for h in sem.history]}, uploads "
+                f"{sem.uploader.stats}, launches {got}  [{smi}]")
+        if runs["rolling_ndarray"].n_seg != 8:
+            bad.append("[stream] expected 8 segments")
+        for name in ("rolling_memmap", "cached"):
+            bad += same_stream(torch, f"[stream] {name} vs rolling_ndarray",
+                               runs["rolling_ndarray"], runs[name])
+        y_dev = torch.as_tensor(y_host, device=dev)
+        em = EM(model, patches_anneal(iters), {"y": y_dev}, params=init,
+                seed=4, device=dev)
+        em.run()
+        del y_dev
+        cut = in_memory_cut_as_segments(torch, np, model,
+                                        patches_anneal(iters), y_host, seg,
+                                        init, dev)
+        out["in_memory"] = ms(em)
+        log(f"[stream] in-memory EM.run: iteration ms "
+            f"{[round(h['dt'] * 1e3, 3) for h in em.history]}, n_used "
+            f"{[h['n_used'] for h in em.history]}  [{smi}]")
+        found, out["params_vs_in_memory"] = against_in_memory(
+            torch, np, "[stream] BSC N=10^6", runs["cached"], cut, em)
+        bad += found
+        log(f"[stream] BSC N=10^6 against the in-memory run: "
+            f"{out['params_vs_in_memory']}; bit-identical to the in-memory "
+            f"run cut as the segments: {not found}  [{smi}]")
+        del em, cut
+
+        # resume: a run checkpointed at iteration 3, cut after 4, resumed
+        ck = os.path.join(tmp, "stream.h5")
+        a = streamed(y_host, cache_bytes=0, checkpoint_path=ck,
+                     checkpoint_every=3)
+        for _ in range(4):
+            a.step_once()
+        a.close()
+        b = StreamingEM(model, patches_anneal(iters), y_host, seg_size=seg,
+                        params=init, seed=999, device=dev, cache_bytes=0)
+        if b.resume(ck) != 3:
+            bad.append("[stream] resume did not return step 3")
+        b.run()
+        bad += same_stream(torch, "[stream] resumed vs rolling_ndarray",
+                           runs["rolling_ndarray"], b, first=3)
+        del a, b
+
+        # the overlap: one profiled rolling iteration from each source
+        for name, y in (("rolling_ndarray", y_host),
+                        ("rolling_memmap", y_mm)):
+            sem = streamed(y, cache_bytes=0)
+            sem.step_once()                     # set-up and first pass
+            fig = overlap_figures(np, torch, sem, tmp, f"[stream] {name}")
+            sem.close()
+            out[name]["overlap"] = fig
+            log(f"[stream] {name} overlap: HtoD {fig['htod_ms']:.3f} ms on "
+                f"the copy stream, {fig['htod_under_kernels_ms']:.3f} ms "
+                f"({100 * fig['htod_under_kernels_share']:.1f} %) under "
+                f"kernels of the compute stream (busy "
+                f"{fig['kernels_busy_ms']:.3f} ms), {fig['htod_GBps']:.2f} "
+                f"GB/s, host fill {fig['fill_ms_per_segment']:.3f} ms and "
+                f"wait {fig['wait_ms_per_segment']:.3f} ms a segment, "
+                f"iteration {fig['iteration_ms']:.3f} ms  [{smi}]")
+        del y_mm, runs
+
+    # MCA and big-S TSC: 262144 rows in 2 segments, 3 iterations
+    W_gt = planted_dictionary(256, 300, seed=0)
+    for tag, fam, kern in (
+            ("mca", MCA(256, 300, 6, 3),
+             {"max_estep": 6, "sgemm_nn": 6, "sgemm_tn": 6}),
+            ("tsc_bigs", TSC(64, 32, 10, 5, chunk=8192, s_block=1024),
+             {"bigs": 6})):
+        gt = {"W": W_gt if tag == "mca" else planted_dictionary(64, 32,
+                                                                 seed=0),
+              "pi": np.float32(2.0 / 300 if tag == "mca" else 0.1),
+              "sigma": np.float32(1.0)}
+        data = fam.generate_data(gt, 2 * seg, seed=1)
+        p0 = fam.standard_init(data, seed=3, device=dev)
+        reset_launches(cuda_lib)
+        sem = StreamingEM(fam, patches_anneal(3), data["y"], seg_size=seg,
+                          params=p0, seed=4, device=dev, cache_bytes=0)
+        with forbid_plain():
+            sem.run()
+        torch.cuda.synchronize()
+        got = expect_launches(cuda_lib, f"[stream] {tag}", **kern)
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        em = EM(fam, patches_anneal(3), {"y": torch.as_tensor(
+            data["y"], device=dev)}, params=p0, seed=4, device=dev)
+        em.run()
+        cut = in_memory_cut_as_segments(torch, np, fam, patches_anneal(3),
+                                        data["y"], seg, p0, dev)
+        found, diff = against_in_memory(torch, np, f"[stream] {tag}", sem,
+                                        cut, em)
+        bad += found
+        out[tag] = {"streamed": ms(sem), "in_memory": ms(em),
+                    "n_seg": sem.n_seg, "bytes": sem.uploader.stats["bytes"],
+                    "params_vs_in_memory": diff}
+        log(f"[stream] {tag}: {sem.n_seg} segments, streamed iteration ms "
+            f"{[round(h['dt'] * 1e3, 3) for h in sem.history]}, in memory "
+            f"{[round(h['dt'] * 1e3, 3) for h in em.history]}, n_used "
+            f"{[h['n_used'] for h in sem.history]} / "
+            f"{[h['n_used'] for h in em.history]}, launches {got}; against "
+            f"the in-memory run {diff}; bit-identical to the in-memory run "
+            f"cut as the segments: {not found}  [{smi}]")
+        del sem, em, cut, data
+    if bad:
+        raise AssertionError("[stream] " + "; ".join(bad))
+    return out, launches
 
 
 def main() -> int:
@@ -1752,9 +2117,17 @@ def main() -> int:
     seconds["19"] = time.perf_counter() - t0
     stamp("phase 19")
     t0 = time.perf_counter()
-    recovery.update(recovery_path(torch, np, dev, smi))
+    rec20, y_1e6 = recovery_path(torch, np, dev, smi)
+    recovery.update(rec20)
     seconds["20"] = time.perf_counter() - t0
     stamp("phase 20")
+    # ---- 21. streaming: StreamingEM over host segments on a copy stream ----
+    t0 = time.perf_counter()
+    stream, stream_launches = stream_path(torch, np, dev, smi, y_1e6,
+                                          patches_anneal)
+    del y_1e6
+    seconds["21"] = time.perf_counter() - t0
+    stamp("phase 21")
 
     # the bounds, from this run's shapes: the two D x H products, the
     # logits over [proj | Gram] and the moments over the state tables per
@@ -1783,11 +2156,13 @@ def main() -> int:
          "replaces": "prosper_tpu/ops/linear_pallas.py:244",
          "launches": launches["estep"],
          "scanned_launches": scanned_launches["estep"],
+         "stream_launches": stream_launches.get("estep", 0),
          "max_abs_err": err["estep"], "ms": est[0], "plain_ms": est[1], **est_bound, "library_ms": None},
         {"name": "linear_et_decode", "route": "cuda",
          "source": "prosper_tpu_torch/csrc/linear_et_decode.cu",
          "replaces": "prosper_tpu/ops/linear_pallas.py:435",
          "launches": launches["decode"], "scanned_launches": 0,
+         "stream_launches": stream_launches.get("decode", 0),
          "max_abs_err": err["decode"],
          "ms": dec[0], "plain_ms": dec[1], **dec_bound, "library_ms": None},
         {"name": "max_et_estep", "route": "cuda",
@@ -1795,12 +2170,14 @@ def main() -> int:
          "replaces": "prosper_tpu/ops/max_pallas.py:559; "
                      "prosper_tpu/ops/max_pallas.py:433",
          "launches": mxl["max_estep"], "scanned_launches": mxs["max_estep"],
+         "stream_launches": stream_launches.get("max_estep", 0),
          "max_abs_err": err["max_estep"],
          **mx, "library_ms": None},
         {"name": "bigs_multi", "route": "cuda",
          "source": "prosper_tpu_torch/csrc/bigs_multi.cu",
          "replaces": "prosper_tpu/ops/bigs_pallas.py:155",
          "launches": bgl["bigs"], "scanned_launches": bgs["bigs"],
+         "stream_launches": stream_launches.get("bigs", 0),
          "max_abs_err": err["bigs"], **bg,
          "library_ms": None},
         # the two products inside the bodies of the TPU kernels; one launch
@@ -1812,6 +2189,7 @@ def main() -> int:
                      "prosper_tpu/ops/max_pallas.py:65",
          "launches": gemm_launches("sgemm_nn"),
          "scanned_launches": scanned_gemm_launches("sgemm_nn"),
+         "stream_launches": stream_launches.get("sgemm_nn", 0),
          "max_abs_err": err["sgemm_nn"], **gm["sgemm_nn"]},
         {"name": "sgemm_tn_splitn", "route": "cuda",
          "source": "prosper_tpu_torch/csrc/sgemm.cu",
@@ -1819,6 +2197,7 @@ def main() -> int:
                      "prosper_tpu/ops/max_pallas.py:169",
          "launches": gemm_launches("sgemm_tn"),
          "scanned_launches": scanned_gemm_launches("sgemm_tn"),
+         "stream_launches": stream_launches.get("sgemm_tn", 0),
          "max_abs_err": err["sgemm_tn"], **gm["sgemm_tn"]},
     ]
     for k in kernels:
@@ -1827,13 +2206,17 @@ def main() -> int:
             f"({100 * k['bound_ms'] / k['ms']:.1f} % of it), "
             f"{k['launches']} launches through run, "
             f"{k['scanned_launches']} through run_scanned's eager steps and "
-            f"captures  [{smi}]")
+            f"captures, {k['stream_launches']} through StreamingEM  [{smi}]")
         if k["name"] != "linear_et_decode" and k["scanned_launches"] < 1:
             raise AssertionError(f"{k['name']} was launched no time through "
                                  "run_scanned")
+        if k["name"] != "linear_et_decode" and k["stream_launches"] < 1:
+            raise AssertionError(f"{k['name']} was launched no time through "
+                                 "StreamingEM")
     log(json.dumps({"scanned": dict(scanned, card=smi),
                     "gsc_decode": dict(gsc_decode, card=smi)}))
     log(json.dumps({"recovery": dict(recovery, phase_s=seconds, card=smi)}))
+    log(json.dumps({"stream": dict(stream, card=smi)}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,7 +10,9 @@ graph replays of the step), ``model.inference(params, data, top_L)``
 serves posterior decodes.  Around it the run a user starts: data logs and
 checkpoints (``io/``), resume (``EM.resume``), the recovery protocol
 (``EM(revive_duplicates=...)``, ``data/diagnosis.py``) and the command line
-(``python -m prosper_tpu_torch.cli train / infer / generate / diagnose``).
+(``python -m prosper_tpu_torch.cli train / infer / generate / diagnose``),
+and ``StreamingEM``, which trains on a data set that stays on the host and
+passes through the card in segments (``train --stream``).
 With ``backend="cuda"`` (the default) the
 E-steps (and the linear family's decode) run in hand-written CUDA kernels
 on a CUDA device (``ops/linear_cuda.py``, ``ops/max_cuda.py``, built with
@@ -26,5 +28,7 @@ __version__ = "0.1.0"
 
 from prosper_tpu_torch.engine.anneal import LinearAnnealing
 from prosper_tpu_torch.engine.em import EM, run_restarts
+from prosper_tpu_torch.engine.stream import StreamingEM
 
-__all__ = ["EM", "LinearAnnealing", "run_restarts", "__version__"]
+__all__ = ["EM", "LinearAnnealing", "StreamingEM", "run_restarts",
+           "__version__"]

@@ -6,13 +6,16 @@ declarative ``.toml`` / ``.json`` file, which both packages read alike:
 
   python -m prosper_tpu_torch.cli generate cfg.json -N 100000 -o d.h5
   python -m prosper_tpu_torch.cli train cfg.json --data d.h5 -o out [--scan] [--resume]
+  python -m prosper_tpu_torch.cli train cfg.json --data d.h5 -o out --stream 131072
   python -m prosper_tpu_torch.cli infer cfg.json -c out/checkpoint.h5 --data d.h5
   python -m prosper_tpu_torch.cli diagnose -c out/checkpoint.h5 --gt cfg.json --json
 
 ``train`` writes ``result.h5`` and ``metrics.jsonl`` (one row per
 iteration) and ``checkpoint.h5`` (every ``checkpoint_every`` iterations and
 at the end) into the output directory; ``--resume`` continues from that
-checkpoint on the same trajectory.  ``--device`` (default ``cuda``) says
+checkpoint on the same trajectory.  ``--stream SEG`` trains through
+``StreamingEM``: the data stay on the host and pass through the device in
+segments of SEG rows.  ``--device`` (default ``cuda``) says
 where the data, parameters and random numbers live; ``--device cpu`` runs
 the plain PyTorch versions and no kernel.
 """
@@ -153,13 +156,14 @@ def _not_ported(flag: str, item: str) -> NotImplementedError:
 
 def cmd_train(args) -> int:
     # before any file is opened: the log handlers truncate in "w" mode
+    if args.stream and (args.mesh or args.multihost):
+        raise SystemExit("--stream is single-device; drop --mesh/--multihost")
     if args.mesh or args.multihost:
         raise _not_ported("--mesh" if args.mesh else "--multihost",
                           "distributed")
-    if args.stream:
-        raise _not_ported("--stream", "streaming")
 
     from prosper_tpu_torch.engine.em import EM
+    from prosper_tpu_torch.engine.stream import StreamingEM
     from prosper_tpu_torch.io.datalog import DataLog, StoreToH5, StoreToJSONL
     from prosper_tpu_torch.models.base import resolve_backend
     from prosper_tpu_torch.utils import create_output_path, process_index
@@ -181,17 +185,23 @@ def cmd_train(args) -> int:
 
     log_params_every = int(cfg.get("log_params_every", 1))
     ckpt_path = os.path.join(out_dir, "checkpoint.h5")
-    em = EM(model, anneal, {k: v for k, v in data.items()
-                            if k in ("y", "valid")},
-            seed=int(cfg.get("seed", 42)), device=args.device,
-            log_params_every=log_params_every,
-            checkpoint_path=ckpt_path,
-            checkpoint_every=int(cfg.get("checkpoint_every", 25)),
-            revive_duplicates=(tuple(cfg["revive_duplicates"])
-                               if cfg.get("revive_duplicates") else None),
-            split_norm_frac=float(cfg.get("split_norm_frac", 0.0)),
-            split_coact=bool(cfg.get("split_coact", False)),
-            reseed_worst_frac=float(cfg.get("reseed_worst_frac", 0.0)))
+    common = dict(seed=int(cfg.get("seed", 42)), device=args.device,
+                  log_params_every=log_params_every,
+                  checkpoint_path=ckpt_path,
+                  checkpoint_every=int(cfg.get("checkpoint_every", 25)))
+    if args.stream:
+        # the data stay on the host and pass through the card in segments
+        em = StreamingEM(model, anneal, np.asarray(data["y"], np.float32),
+                         seg_size=args.stream, **common)
+    else:
+        em = EM(model, anneal, {k: v for k, v in data.items()
+                                if k in ("y", "valid")},
+                revive_duplicates=(tuple(cfg["revive_duplicates"])
+                                   if cfg.get("revive_duplicates") else None),
+                split_norm_frac=float(cfg.get("split_norm_frac", 0.0)),
+                split_coact=bool(cfg.get("split_coact", False)),
+                reseed_worst_frac=float(cfg.get("reseed_worst_frac", 0.0)),
+                **common)
     mode = "w"
     if args.resume and os.path.exists(ckpt_path):
         # parameters, F_prev, the generator's and the revival chain's state;
@@ -207,7 +217,7 @@ def cmd_train(args) -> int:
     dlog.set_handler(None, StoreToJSONL,
                      os.path.join(out_dir, "metrics.jsonl"), mode)
     try:
-        if args.scan:
+        if args.scan and not args.stream:
             # the parameters of each iteration go to result.h5 as run logs
             # them, so a --scan run's log resumes (resume_from_h5) alike
             em.run_scanned(collect_params=True)
@@ -217,7 +227,9 @@ def cmd_train(args) -> int:
     finally:
         dlog.close()
     if process_index() == 0:
-        print(f"[train] done -> {out_dir}")
+        streamed = (f" (streamed, {em.n_seg} segments)" if args.stream
+                    else "")
+        print(f"[train] done{streamed} -> {out_dir}")
     return 0
 
 
@@ -363,7 +375,9 @@ def main(argv=None) -> int:
     pt.add_argument("--multihost", action="store_true",
                     help="not ported yet (ROADMAP.md: distributed)")
     pt.add_argument("--stream", type=int, default=0, metavar="SEG",
-                    help="not ported yet (ROADMAP.md: streaming)")
+                    help="keep the data set on the host and stream it "
+                         "through the device in SEG-row segments "
+                         "(engine/stream.py; --scan does not apply)")
     pt.set_defaults(fn=cmd_train)
 
     pi = sub.add_parser("infer", help="posterior decode with trained params")

@@ -56,13 +56,15 @@ def run_protocol(seed: int = 0, N: int = 1_000_000, D: int = 256,
                  refine_gamma: int = 5, refine_iters: int = 40,
                  split_norm_frac: float = 1.5, split_coact: bool = True,
                  final_split_sweeps: int = 2, polish_iters: int = 15,
-                 chunk: int = 8192, log=print) -> Dict:
+                 chunk: int = 8192, keep_data: bool = False,
+                 log=print) -> Dict:
     """One seed of the protocol.  Returns {"seed", "recovered" (final),
     "stages" [(stage, recovered)], "revival_stats" (summed over the
     stages), "ms_per_iter" (first stage, the median from iteration 2 on),
     "wall_s"
     (training, data generation excluded), "gen_s", "scan_stats" (of each
-    stage), "missed_classes", "em" (the last stage's EM)}."""
+    stage), "missed_classes", "em" (the last stage's EM)}, and with
+    ``keep_data`` the host rows, "y" (N, D) float32."""
     import torch
 
     from prosper_tpu_torch.data.bars import cosine_match, planted_dictionary
@@ -85,6 +87,7 @@ def run_protocol(seed: int = 0, N: int = 1_000_000, D: int = 256,
     y = {"y": torch.as_tensor(data["y"], device=device)}
     stride = max(1, N // 65536)
     Ysample = np.asarray(data["y"][::stride][:65536], np.float64)
+    y_host = data["y"] if keep_data else None
     del data
     gen_s = time.perf_counter() - t0
     log(f"[patches] seed {seed}: generated {N} rows in {gen_s:.1f} s")
@@ -169,7 +172,7 @@ def run_protocol(seed: int = 0, N: int = 1_000_000, D: int = 256,
             "ms_per_iter": ms_per_iter, "wall_s": wall_s, "gen_s": gen_s,
             "scan_stats": stats["scan_stats"], "missed_classes": classes,
             "duplicates": len(rep["duplicates"]), "dead": len(rep["dead"]),
-            "em": em}
+            "em": em, **({"y": y_host} if keep_data else {})}
 
 
 def seed_list(spec: str) -> List[int]:

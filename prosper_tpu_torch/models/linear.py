@@ -40,6 +40,7 @@ from prosper_tpu_torch.models.base import (ETModel, device_sched,
                                            pattern_of, resolve_backend,
                                            sched_floats, to_numpy)
 from prosper_tpu_torch.ops.linear_cuda import linear_et_estep
+from prosper_tpu_torch.utils.staging import rows_to_device
 
 
 def not_ported(what: str, item: str):
@@ -243,8 +244,7 @@ class LinearETModel(ETModel):
         prior_beta = sched["prior_beta"] if sched else 1.0
         W = params["W"]
         y = data["y"]
-        y = (y.to(W.device, torch.float32) if isinstance(y, torch.Tensor)
-             else torch.as_tensor(np.asarray(y, np.float32), device=W.device))
+        y = rows_to_device(y, W.device)
         dense_states = self.resolve_dense_states(y.shape[0], top_L,
                                                  dense_states)
         self._check_phi_backend(W.device)

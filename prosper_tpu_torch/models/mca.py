@@ -33,6 +33,7 @@ from prosper_tpu_torch.models.base import (ETModel, device_sched, pattern_of,
                                            to_numpy)
 from prosper_tpu_torch.models.linear import _no_state_sharding, not_ported
 from prosper_tpu_torch.ops import max_cuda
+from prosper_tpu_torch.utils.staging import rows_to_device
 
 
 class MCA(ETModel):
@@ -169,8 +170,7 @@ class MCA(ETModel):
         prior_beta = sched["prior_beta"] if sched else 1.0
         W = params["W"]
         y = data["y"]
-        y = (y.to(W.device, torch.float32) if isinstance(y, torch.Tensor)
-             else torch.as_tensor(np.asarray(y, np.float32), device=W.device))
+        y = rows_to_device(y, W.device)
         dense_states = self.resolve_dense_states(y.shape[0], top_L,
                                                  dense_states)
         return maxstep.max_et_posterior(

@@ -19,6 +19,7 @@ import torch
 from prosper_tpu_torch.core.select import exact_count_mask
 from prosper_tpu_torch.models.base import device_sched, pattern_of, to_numpy
 from prosper_tpu_torch.models.linear import not_ported
+from prosper_tpu_torch.utils.staging import rows_to_device
 
 
 class MixtureModel:
@@ -131,9 +132,7 @@ class MixtureModel:
         """Responsibilities ``resp`` (N, K), hard assignments ``assign``
         (N,) and F (N,), on the device of the parameters."""
         dev = params["pi"].device
-        y = data["y"]
-        y = (y.to(dev, torch.float32) if isinstance(y, torch.Tensor)
-             else torch.as_tensor(np.asarray(y, np.float32), device=dev))
+        y = rows_to_device(data["y"], dev)
         ll = self.component_loglik(params, y)
         logp = ll + torch.log(torch.clamp(params["pi"], min=1e-12))[None, :]
         return {"resp": torch.softmax(logp, dim=1),

@@ -235,14 +235,81 @@ def test_every_port_config_loads():
 
 
 @pytest.mark.parametrize("flags,item", [(["--mesh", "data=2"], "distributed"),
-                                        (["--multihost"], "distributed"),
-                                        (["--stream", "100"], "streaming")])
+                                        (["--multihost"], "distributed")])
 def test_unported_switches_raise(tmp_path, flags, item):
     cfg = _config(tmp_path)
     out = tmp_path / "run"
     with pytest.raises(NotImplementedError, match=f"open item: {item}"):
         cli.main(["train", cfg, "-o", str(out), "--device", "cpu"] + flags)
     assert not out.exists()
+
+
+def test_train_stream_then_resume(tmp_path):
+    """``train --stream SEG`` trains through StreamingEM (the counterpart of
+    tests/test_cli.py::test_cli_train_stream): logs and a checkpoint, Q
+    improves; ``--resume`` of the finished run adds no log row; ``--stream``
+    with ``--mesh`` or ``--multihost`` is refused before any log file is
+    truncated."""
+    cfg = _config(tmp_path, anneal={"steps": 15,
+                                    "W_noise": [[0.0, 0.5], [0.6, 0.0]],
+                                    "Ncut_factor": [[0.5, 0.0], [0.9, 1.0]]})
+    out = str(tmp_path / "runs")
+    flags = ["-q", "--device", "cpu", "--stream", "100"]
+    assert cli.main(["train", cfg, "-o", out] + flags) == 0
+    with h5py.File(os.path.join(out, "checkpoint.h5")) as f:
+        assert f.attrs["step"] == 15 and "torch_rng" in f
+        assert f["extra"]["F_prev"].shape == (300,)
+    rows = [json.loads(line) for line in open(os.path.join(out,
+                                                           "metrics.jsonl"))]
+    assert len(rows) == 15
+    assert rows[-1]["Q_mean"] > rows[0]["Q_mean"]
+    assert min(r["n_used"] for r in rows) < 300       # the cut ran
+    for extra in (["--mesh", "data=4"], ["--multihost"]):
+        with pytest.raises(SystemExit, match="single-device"):
+            cli.main(["train", cfg, "-o", out] + flags + extra)
+        assert len(open(os.path.join(out, "metrics.jsonl")).readlines()) \
+            == 15
+    assert cli.main(["train", cfg, "-o", out, "--resume"] + flags) == 0
+    assert len(open(os.path.join(out, "metrics.jsonl")).readlines()) == 15
+
+
+def test_train_stream_resume_mid_run_equals_uninterrupted(tmp_path,
+                                                          monkeypatch):
+    """A streamed run killed after 5 iterations (checkpoint at 4) and
+    resumed with ``--resume`` ends with the uninterrupted run's logs and
+    checkpoint."""
+    from prosper_tpu_torch.engine.stream import StreamingEM
+    cfg = _config(tmp_path, anneal={"W_noise": [[0.0, 0.5], [0.6, 0.0]],
+                                    "Ncut_factor": [[0.5, 0.0], [0.9, 1.0]]},
+                  checkpoint_every=4)
+    flags = ["-q", "--device", "cpu", "--stream", "128"]
+    a, b = str(tmp_path / "a"), str(tmp_path / "b")
+    assert cli.main(["train", cfg, "-o", a] + flags) == 0
+    real, seen = StreamingEM.step_once, []
+
+    def crash(self, *args, **kw):
+        if len(seen) == 5:
+            raise KeyboardInterrupt("killed")
+        seen.append(1)
+        return real(self, *args, **kw)
+    with monkeypatch.context() as m:
+        m.setattr(StreamingEM, "step_once", crash)
+        with pytest.raises(KeyboardInterrupt):
+            cli.main(["train", cfg, "-o", b] + flags)
+    assert len(open(os.path.join(b, "metrics.jsonl")).readlines()) == 5
+    assert cli.main(["train", cfg, "-o", b, "--resume"] + flags) == 0
+    la, lb = ([{k: v for k, v in json.loads(line).items() if k != "dt"}
+               for line in open(os.path.join(d, "metrics.jsonl"))]
+              for d in (a, b))
+    assert len(la) == 6 and la == lb
+    with h5py.File(os.path.join(a, "checkpoint.h5")) as fa, \
+            h5py.File(os.path.join(b, "checkpoint.h5")) as fb:
+        for group in ("params", "extra"):
+            for k in fa[group]:
+                np.testing.assert_array_equal(np.asarray(fb[group][k]),
+                                              np.asarray(fa[group][k]))
+        np.testing.assert_array_equal(np.asarray(fb["torch_rng"]),
+                                      np.asarray(fa["torch_rng"]))
 
 
 def test_jax_configs_are_refused(tmp_path):

@@ -10,6 +10,8 @@ P = y W and the Gram matrix are exact in float32 whatever the order of
 summation, and the candidates and top-L identities must match exactly.
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -1156,3 +1158,138 @@ def test_cli_device_cpu_launches_no_kernel(device, tmp_path):
                      data, "-o", str(tmp_path / "i.h5"), "--device",
                      "cpu"]) == 0
     assert not any(cuda_lib.LAUNCHES.values())
+
+
+# -- streaming: segments on a copy stream ----------------------------------------
+
+def _stream_runs(name, y, device, **kw):
+    """A StreamingEM of ``name`` over ``y`` (segments of one 256-row chunk)
+    through the 8 iterations of ``_scan_anneal``, run to its end."""
+    from prosper_tpu_torch import StreamingEM
+    sem = StreamingEM(_scan_models()[name](), _scan_anneal(), y, seg_size=256,
+                      seed=7, device=device,
+                      params=_scan_models()[name]().standard_init(
+                          {"y": y}, seed=3, device=device), **kw)
+    sem.run()
+    return sem
+
+
+def _assert_same_stream(a, b):
+    for k in a.params:
+        assert torch.equal(a.params[k], b.params[k]), k
+    assert torch.equal(a.F_prev, b.F_prev)
+    assert [{k: v for k, v in h.items() if k != "dt"} for h in a.history] \
+        == [{k: v for k, v in h.items() if k != "dt"} for h in b.history]
+    assert torch.equal(a.generator.get_state(), b.generator.get_state())
+
+
+@pytest.mark.parametrize("how", ["ndarray", "memmap", "slow_host",
+                                 "slow_compute"])
+def test_streaming_rolling_equals_cached_on_the_card(how, device, tmp_path,
+                                                     monkeypatch):
+    """The rolling tier (two device buffers in turn, uploads on a copy
+    stream) against the cached tier, bit for bit: from a page-locked
+    ndarray, from a memmap through the pinned staging buffers, with the
+    host made slow (a sleeping segment reader: the staging buffers' guard)
+    and with the compute made slow (a sleep on the compute stream before
+    each E-step: without the write-after-read guard the copy stream would
+    overwrite a buffer that an E-step still reads)."""
+    from prosper_tpu_torch.utils.staging import SegmentUploader
+    y = _scan_data("bsc", 777)
+    cached = _stream_runs("bsc", y, device)
+    assert cached.n_seg == 4
+    assert cached._cache_all and cached.uploader.stats["segments"] == 4
+    if how in ("memmap", "slow_host"):
+        path = str(tmp_path / "y.f32")
+        mm = np.memmap(path, np.float32, "w+", shape=y.shape)
+        mm[:] = y
+        mm.flush()
+        y = np.memmap(path, np.float32, "r", shape=y.shape)
+    if how == "slow_host":
+        real_fill = SegmentUploader._fill
+
+        def slow_fill(self, out, lo, hi):
+            time.sleep(0.02)
+            real_fill(self, out, lo, hi)
+        monkeypatch.setattr(SegmentUploader, "_fill", slow_fill)
+    if how == "slow_compute":
+        from prosper_tpu_torch.models import BSC
+        real_estep = BSC.estep_sums
+
+        def slow_estep(self, *a, **kw):
+            torch.cuda._sleep(20_000_000)          # ~10 ms on the stream
+            return real_estep(self, *a, **kw)
+        monkeypatch.setattr(BSC, "estep_sums", slow_estep)
+    rolling = _stream_runs("bsc", y, device, cache_bytes=0)
+    assert not rolling._cache_all
+    assert rolling.uploader.stats["segments"] == 4 * 8
+    assert rolling.uploader.stats["registered"] == (
+        how in ("ndarray", "slow_compute"))
+    _assert_same_stream(rolling, cached)
+
+
+@pytest.mark.parametrize("name", ["bsc", "mca", "tsc_bigs"])
+def test_streaming_launches_the_kernels_once_a_segment(name, device):
+    """Each streamed E-step launches its kernel once a segment (the
+    linear and max ones with their two GEMMs), and the run follows the
+    in-memory EM: the same kept counts, the parameters within the
+    tolerance of tests/test_streaming.py."""
+    from prosper_tpu_torch import EM
+    y = _scan_data(name, 777)
+    for k in cuda_lib.LAUNCHES:
+        cuda_lib.LAUNCHES[k] = 0
+    sem = _stream_runs(name, y, device, cache_bytes=0)
+    torch.cuda.synchronize()
+    per_pass = sem.n_seg * 8
+    mine = ({"bigs"} if name == "tsc_bigs" else
+            {"estep" if name == "bsc" else "max_estep", "sgemm_nn",
+             "sgemm_tn"})
+    assert dict(cuda_lib.LAUNCHES) == {k: per_pass if k in mine else 0
+                                       for k in cuda_lib.LAUNCHES}
+    em = EM(_scan_models()[name](), _scan_anneal(), {"y": y}, seed=7,
+            device=device, params=_scan_models()[name]().standard_init(
+                {"y": y}, seed=3, device=device))
+    em.run()
+    assert [h["n_used"] for h in sem.history] == \
+        [h["n_used"] for h in em.history]
+    for k in em.params:
+        torch.testing.assert_close(sem.params[k], em.params[k], rtol=5e-4,
+                                   atol=1e-4, msg=k)
+
+
+def test_streaming_resume_on_the_card(device, tmp_path):
+    from prosper_tpu_torch import StreamingEM
+    y = _scan_data("bsc", 777)
+    full = _stream_runs("bsc", y, device, cache_bytes=0)
+    ck = str(tmp_path / "c.h5")
+    model = _scan_models()["bsc"]()
+    p0 = model.standard_init({"y": y}, seed=3, device=device)
+    a = StreamingEM(model, _scan_anneal(), y, seg_size=256, seed=7,
+                    device=device, params=p0, cache_bytes=0,
+                    checkpoint_path=ck, checkpoint_every=3)
+    for _ in range(4):
+        a.step_once()
+    a.close()
+    b = StreamingEM(model, _scan_anneal(), y, seg_size=256, seed=1,
+                    device=device, params=p0, cache_bytes=0)
+    assert b.resume(ck) == 3
+    b.run()
+    for k in full.params:
+        assert torch.equal(full.params[k], b.params[k]), k
+    assert torch.equal(full.generator.get_state(), b.generator.get_state())
+
+
+@pytest.mark.parametrize("name", ["bsc", "mca"])
+def test_inference_from_numpy_equals_from_the_card(name, device):
+    """``inference`` on a numpy y (staged through pinned memory) gives
+    what it gives on the same rows already on the card."""
+    model = _scan_models()[name]()
+    y = _scan_data(name, 513)
+    params = model.standard_init({"y": y}, seed=3, device=device)
+    a = model.inference(params, {"y": y}, top_L=4)
+    b = model.inference(params, {"y": torch.as_tensor(y, device=device)},
+                        top_L=4)
+    torch.cuda.synchronize()
+    assert set(a) == set(b)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
