@@ -53,6 +53,19 @@ the same kept counts, a resumed run, MCA and big-S TSC on 262144 rows in 2
 segments, and a profiled rolling iteration that shows how much of the
 uploads lies under the compute (the ``stream`` line).
 
+Then queue 3's open check: the first E-step of that run in both row cuts
+of the in-memory E-step against float64 sums of the same step, and the W
+drift of the two cuts after 6 M-steps.  Phase 22 drives the data-parallel
+runtime (``prosper_tpu_torch/parallel/mesh.py``): (a) a one-rank NCCL
+group, under which phase 6's run through ``run`` and ``run_scanned`` (the
+all-reduces captured in the graphs), its decode, a ``StreamingEM`` and MCA
+and big-S TSC runs are bit-identical to the runs without a runtime; (b) two
+gloo ranks on the one card (this script started twice, ``--rank22``), whose
+run equals phase 6's run with its rows cut as the ranks hold them, bit for
+bit, and whose decodes, concatenated, equal phase 6's.  ``python3
+chip_smoke.py --phase 22`` runs the build, phase 6's run, the open check and
+phase 22 alone.
+
 Each path's launch counts are set to 0 just before it and checked just
 after.  Every phase raises on failure.  Prints one JSON line of the
 iteration times through ``run`` and ``run_scanned``, one of per-kernel
@@ -1858,6 +1871,609 @@ def stream_path(torch, np, dev, smi, y_host, patches_anneal):
     return out, launches
 
 
+
+# ---- 22. the data-parallel runtime, and the open check of two row cuts ------
+
+#: "a few ulps x sqrt(N)": a sum of N float32 terms is held within this many
+#: ulps of its largest entry, times sqrt(N), of the float64 sum of the same
+#: step
+ULPS_SQRT_N = 4.0
+
+
+def bsc_sums_f64(torch, y, w, W, sigma2, pi, sa, Hp, beta, prior_beta=1.0,
+                 chunk=32768, P32=None):
+    """One BSC E-step's sums (xs, ss, s, abs, y2, n, F) from the same inputs
+    as the kernel's, every operation in float64: the plain version's
+    arithmetic (``core/etstep.py::_chunk_estats``), rows in chunks whose
+    sums are added in float64.  ``P32(rows)``, where given, is the float32
+    projection y W of the rows that the E-step's own GEMM computes: the
+    candidates and logits then start from the step's P, and what differs
+    from the kernel's sums is the rest of the arithmetic and the order of
+    the sums, not the projection's rounding."""
+    import math
+
+    from prosper_tpu_torch.core.select import top_hprime_candidates
+    f = torch.float64
+    W = W.to(f)
+    gram = W.T @ W
+    gd = torch.diagonal(gram)
+    wn = torch.sqrt(torch.clamp(gd, min=1e-30))
+    D, H = W.shape
+    st, ou, ab = sa.states.to(f), sa.outer.to(f), sa.abs_states.to(f)
+    pi = torch.as_tensor(pi, device=W.device).to(f)
+    lo = torch.log(pi) - torch.log1p(-pi)
+    i2 = 0.5 / torch.as_tensor(sigma2, device=W.device).to(f)
+    prior_multi = sa.value_counts.to(f)[:, 0] * lo
+    const = (-beta * 0.5 * D * torch.log(math.pi / i2)
+             - prior_beta * H * torch.log1p(torch.exp(lo)))
+    tot = {}
+    for i in range(0, y.shape[0], chunk):
+        yc, wc = y[i:i + chunk].to(f), w[i:i + chunk].to(f)
+        C = yc.shape[0]
+        P = yc @ W if P32 is None else P32(y[i:i + chunk]).to(f)
+        cand = top_hprime_candidates(P, wn, Hp, False)
+        proj = P.gather(1, cand)
+        Gf = gram[cand[:, :, None], cand[:, None, :]].reshape(C, Hp * Hp)
+        logits = torch.cat([
+            torch.zeros_like(P[:, :1]),
+            beta * (2.0 * P - gd) * i2 + prior_beta * lo,
+            beta * (2.0 * proj @ st.T - Gf @ ou.T) * i2
+            + prior_beta * prior_multi], dim=1)
+        m = logits.max(dim=1, keepdim=True).values
+        p = torch.exp(logits - m)
+        Z = p.sum(dim=1, keepdim=True)
+        q = p / Z
+        y2 = (yc * yc).sum(dim=1)
+        F = (m + torch.log(Z))[:, 0] - beta * y2 * i2 + const
+        qs, qm = q[:, 1:1 + H], q[:, 1 + H:]
+        sw = qs.scatter_add(1, cand, qm @ st) * wc[:, None]
+        idx = (cand[:, :, None] * H + cand[:, None, :]).reshape(-1)
+        ss = (torch.zeros(H * H, dtype=f, device=W.device)
+              .index_add_(0, idx, ((qm @ ou) * wc[:, None]).reshape(-1))
+              .reshape(H, H) + torch.diag((qs * wc[:, None]).sum(dim=0)))
+        part = {"xs": yc.T @ sw, "ss": ss, "s": sw.sum(dim=0),
+                "abs": ((qs.sum(dim=1) + qm @ ab) * wc).sum(),
+                "y2": (y2 * wc).sum(), "n": wc.sum(), "F": (F * wc).sum()}
+        tot = part if not tot else {k: tot[k] + v for k, v in part.items()}
+    return tot
+
+
+def against_f64(torch, np, sums, ref, N):
+    """Each key of a float32 E-step's ``sums`` against the float64 ``ref``:
+    the largest difference, relative to the largest entry, and in units of
+    ulp(largest entry) x sqrt(N) (the bound is ``ULPS_SQRT_N`` of them)."""
+    out = {}
+    for k, r in ref.items():
+        r = r.double()
+        d = (sums[k].double() - r).abs().max().item()
+        top = r.abs().max().item()
+        ulp = 2.0 ** (np.floor(np.log2(top)) - 23) if top > 0 else 2.0 ** -149
+        out[k] = {"rel": d / top if top > 0 else d,
+                  "ulps_sqrt_n": float(d / (ulp * np.sqrt(N)))}
+    return out
+
+
+def open_check(torch, np, dev, smi, y_host, patches_anneal):
+    """Queue 3's open check (``ROADMAP.md``): the first E-step of phase 6's
+    schedule (the initial W of phase 21 with the step's W noise, beta 0.5)
+    at the patches width on N = 10^6 rows (phase 20's), through the kernels
+    in both row cuts of the in-memory E-step, the default one
+    (``cuda_lib.row_chunks``: 893,952 rows, then the rest) and 131072-row
+    chunks (the streamed run's segments).  Each cut's sums against the
+    float64 sums of the same step (``bsc_sums_f64`` from the step's
+    projection, ``sgemm_nn``'s P), and the two cuts against each other,
+    within ``ULPS_SQRT_N`` ulps x sqrt(N) (the float64 sums from a float64
+    projection are reported beside them).  Then the W drift between the two
+    cuts after the 6 M-steps of the schedule (the default-cut ``EM.run``
+    against ``in_memory_cut_as_segments``, which equals the streamed run bit
+    for bit): the schedule's sensitivity to the order of float32 sums at
+    this N (phase 22b measures it at its own N the same way).  Returns the
+    numbers, with "failures" (empty
+    when the check holds)."""
+    from prosper_tpu_torch import EM
+    from prosper_tpu_torch.models import BSC
+    from prosper_tpu_torch.models.base import device_sched, sched_floats
+    from prosper_tpu_torch.ops import cuda_lib, gemm_cuda, linear_cuda
+
+    N, seg = y_host.shape[0], 131072
+    model = BSC(256, 300, 8, 4, chunk=8192)
+    init = model.standard_init({"y": y_host[:seg]}, seed=3, device=dev)
+    sched = device_sched(sched_floats(patches_anneal(6)), dev)
+    p1 = model.noisify(init, sched, torch.Generator(device=dev).manual_seed(4))
+    y = torch.as_tensor(y_host, device=dev)
+    w = torch.ones(N, device=dev)
+    sa = model.state_arrays(dev)
+    args = (y, w, p1["W"], p1["sigma"] ** 2, model.log_odds(p1), sa, 8,
+            False, 0.5, 1.0)
+    t0 = time.perf_counter()
+    ref = bsc_sums_f64(torch, y, w, p1["W"], p1["sigma"] ** 2, p1["pi"], sa,
+                       8, 0.5, P32=lambda rows: gemm_cuda.sgemm_nn_cuda(
+                           rows, p1["W"]))
+    torch.cuda.synchronize()
+    f64_s = time.perf_counter() - t0
+    ref_P64 = bsc_sums_f64(torch, y, w, p1["W"], p1["sigma"] ** 2, p1["pi"],
+                           sa, 8, 0.5)
+    out, sums = {"N": N, "beta": 0.5, "f64_s": f64_s}, {}
+    saved = cuda_lib.P_LIMIT_BYTES
+    for name, limit in (("default", saved), ("chunks_131072", seg * 4 * 300)):
+        cuda_lib.P_LIMIT_BYTES = limit
+        try:
+            chunks = cuda_lib.row_chunks(N, 300)
+            _, sums[name] = linear_cuda.linear_et_estep_cuda(
+                *args, collect_true=False)
+        finally:
+            cuda_lib.P_LIMIT_BYTES = saved
+        out[name] = {"chunks": [j - i for i, j in chunks],
+                     "against_f64": against_f64(torch, np, sums[name], ref,
+                                                N),
+                     "against_f64_projection": against_f64(
+                         torch, np, sums[name], ref_P64, N)}
+    out["between_cuts"] = against_f64(torch, np, sums["default"],
+                                      {k: sums["chunks_131072"][k]
+                                       for k in ref}, N)
+    del y, w
+    em = EM(model, patches_anneal(6), {"y": torch.as_tensor(y_host,
+                                                            device=dev)},
+            params=init, seed=4, device=dev)
+    em.run()
+    cut = in_memory_cut_as_segments(torch, np, model, patches_anneal(6),
+                                    y_host, seg, init, dev)
+    drift = {k: {"max_abs_diff": (em.params[k] - cut.params[k]).abs().max()
+                 .item(), "max_abs": em.params[k].abs().max().item()}
+             for k in em.params}
+    out["W_drift_6_iterations"] = drift["W"]
+    out["sensitivity"] = drift["W"]["max_abs_diff"] / drift["W"]["max_abs"]
+    out["n_used_equal"] = ([h["n_used"] for h in em.history]
+                           == [h["n_used"] for h in cut.history])
+    worst = {name: max(v["ulps_sqrt_n"] for v in out[name].values())
+             for name in ("between_cuts",)}
+    worst.update({name: max(v["ulps_sqrt_n"] for v in out[name]
+                            ["against_f64"].values())
+                  for name in ("default", "chunks_131072")})
+    out["worst_ulps_sqrt_n"] = worst
+    out["failures"] = [f"{name}: {v:.4g} ulps x sqrt(N)"
+                       for name, v in worst.items() if v > ULPS_SQRT_N]
+    log(f"[check] the first E-step of phase 6's schedule at N={N}: the "
+        f"default row cut {out['default']['chunks']} and 131072-row chunks "
+        f"against float64 sums of the same step (max |diff| / max |sum|, and "
+        f"in ulps x sqrt(N)): default {out['default']['against_f64']}, "
+        f"131072 {out['chunks_131072']['against_f64']}; the cuts against "
+        f"each other {out['between_cuts']}; against float64 sums from a "
+        f"float64 projection: default "
+        f"{out['default']['against_f64_projection']}, 131072 "
+        f"{out['chunks_131072']['against_f64_projection']}; the float64 sums "
+        f"in {f64_s:.1f} s; W after 6 M-steps: the cuts differ by "
+        f"{drift['W']['max_abs_diff']:.3g} (max |W| "
+        f"{drift['W']['max_abs']:.3g}; sensitivity "
+        f"{out['sensitivity']:.3g}), n_used equal {out['n_used_equal']}; "
+        f"beyond {ULPS_SQRT_N} ulps x sqrt(N): {out['failures'] or 'none'}  "
+        f"[{smi}]")
+    return out
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def expected_all_reduces(anneal):
+    """The all-reduces a step under a runtime issues, per iteration of
+    ``anneal``: the sums with N_total (1), and with the Ncut cut its n_sel,
+    the extent (lo and hi in one) and 3 histogram rounds (5 more)."""
+    from prosper_tpu_torch.engine.em import schedule_window
+    from prosper_tpu_torch.models.base import step_pattern
+    return [1 + 5 * step_pattern(s).ncut
+            for s in schedule_window(anneal, anneal.steps)]
+
+
+def nccl_kernels(torch, run):
+    """Device events of ``run()`` whose name is NCCL's, from a profiler
+    trace: (count, names)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and "nccl" in e.name.lower()]
+    return len(names), sorted(set(names))
+
+
+def distributed_path(torch, np, dev, smi, ref, patches_anneal,
+                     sensitivity_1e6):
+    """Phase 22: the data-parallel runtime (``parallel/mesh.py``) on the
+    card.  22a: a one-rank NCCL group on localhost drives phase 6's run
+    (BSC at the patches width, 131072 rows, 6 iterations) through ``run``
+    and ``run_scanned`` (the all-reduces captured in the graphs),
+    ``inference`` of phase 6's 8192 held-out rows and a ``StreamingEM`` of
+    131072 rows in 2 segments (3 iterations): each bit-identical to the run
+    without a runtime; the all-reduces issued and held by the replays
+    against the count the schedule gives, NCCL's kernels in a trace of the
+    replays, host ms per iteration with and without the runtime.  22b: two
+    ranks of a gloo group on this one card (two processes of this script,
+    the kernels built here first), 65536 ``stride_data`` rows each, phase
+    6's run through ``run`` with revival on (it fires nothing; its
+    broadcast runs): parameters replicated exactly, one E-step launch per
+    iteration on each rank, n_used and N_total of every iteration as phase
+    6's, the first step's sums within ``ULPS_SQRT_N`` ulps x sqrt(N) of the
+    float64 sums, and the two ranks' decodes, concatenated, phase 6's bit
+    for bit.  The two ranks' run equals phase 6's run with its E-step's rows
+    cut as the ranks hold them (``in_memory_cut_as_segments``, two chunks of
+    65536 rows) bit for bit: the same sums, added in the same order.  W is
+    held to phase 6's within the schedule's sensitivity at this N: the W
+    drift between those two row cuts of the one-process run (the open
+    check's measure; ``sensitivity_1e6`` is its value at N = 10^6)."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from prosper_tpu_torch import EM, StreamingEM
+    from prosper_tpu_torch.data.bars import planted_dictionary
+    from prosper_tpu_torch.engine.em import schedule_window, uniform_runs
+    from prosper_tpu_torch.models import MCA, TSC
+    from prosper_tpu_torch.models.base import device_sched, sched_floats
+    from prosper_tpu_torch.ops import cuda_lib, gemm_cuda
+    from prosper_tpu_torch.parallel.mesh import (COLLECTIVES, MeshRuntime,
+                                                 init_multihost)
+
+    model, em6, init = ref["model"], ref["em"], ref["init"]
+    y_dev, y_host = ref["y_dev"], ref["y_host"]
+    held_out, serve = ref["held_out"], ref["serve"]
+    iters = len(em6.history)
+    out = {"iterations": iters, "N": y_host.shape[0]}
+    bad = []
+
+    # ---- 22a: NCCL, one rank ----
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    init_multihost(f"127.0.0.1:{free_port()}", 1, 0, device=dev)
+    rt = MeshRuntime(device=dev)
+    if rt.backend != "nccl":
+        raise AssertionError(f"[22a] the group's backend is {rt.backend}")
+
+    def make(runtime=rt):
+        return EM(model, patches_anneal(iters), {"y": y_dev}, params=init,
+                  seed=4, device=None if runtime else dev, runtime=runtime)
+    want = expected_all_reduces(patches_anneal(iters))
+    reset_launches(cuda_lib)
+    c0 = COLLECTIVES["all_reduce"]
+    em = make()
+    em.run()
+    torch.cuda.synchronize()
+    issued = COLLECTIVES["all_reduce"] - c0
+    # the launches of the runs under the runtime, by kernel
+    launches = dict(expect_launches(cuda_lib, "[22a] run", estep=iters,
+                                    sgemm_nn=iters, sgemm_tn=iters))
+    same_run(torch, "[22a] run under NCCL", em6, em)
+    if issued != sum(want):
+        bad.append(f"[22a] run issued {issued} all-reduces, the schedule "
+                   f"gives {want}")
+    n_eager, eager_names = nccl_kernels(torch, make().run)
+    scanned, _ = scanned_path(torch, np, cuda_lib, "[22a] NCCL", em6, make,
+                              init, 4, smi, estep=iters, sgemm_nn=iters,
+                              sgemm_tn=iters)
+    em_s = make()
+    em_s.run_scanned()
+    replayed = em_s.scan_stats["replayed_all_reduces"]
+    # the replays: every iteration but the first of each pattern
+    want_replayed = sum((hi - lo - 1) * want[lo] for lo, hi, _ in
+                        uniform_runs(schedule_window(patches_anneal(iters),
+                                                     iters)))
+    if replayed != want_replayed:
+        bad.append(f"[22a] the replays hold {replayed} all-reduces, "
+                   f"expected {want_replayed}")
+
+    def replays_only():
+        em_s.anneal.reset(0)
+        em_s.params = {k: v.clone() for k, v in init.items()}
+        em_s.data = dict(em_s.data,
+                         F_prev=torch.zeros_like(em_s.data["F_prev"]))
+        em_s.generator.manual_seed(4)
+        em_s.history.clear()
+        em_s.run_scanned()
+    n_replay, replay_names = nccl_kernels(torch, replays_only)
+    same_run(torch, "[22a] replays under NCCL", em6, em_s)
+    out["launches_under_runtime"] = launches
+    out["nccl"] = {
+        "all_reduces_per_iteration": want,
+        "issued_by_run": issued, "held_by_replays": replayed,
+        "expected_held_by_replays": want_replayed,
+        "nccl_kernels_traced_run": n_eager,
+        "nccl_kernels_traced_replays": n_replay,
+        "nccl_kernels_per_iteration_replays": n_replay / iters,
+        "nccl_kernel_names": sorted(set(eager_names + replay_names)),
+        "run_scanned": scanned}
+    reset_launches(cuda_lib)
+    for dense in (False, True):
+        got = model.inference(em6.params, held_out, top_L=10,
+                              dense_states=dense, runtime=rt)
+        torch.cuda.synchronize()
+        for k, v in serve[dense].items():
+            if not torch.equal(got[k], v):
+                bad.append(f"[22a] inference(runtime=) {k} (dense {dense}) "
+                           "differs from phase 6's")
+    for k, v in expect_launches(cuda_lib, "[22a] inference", decode=2,
+                                sgemm_nn=2).items():
+        launches[k] += v
+    streams = []
+    for runtime in (None, rt):
+        reset_launches(cuda_lib)
+        sem = StreamingEM(model, patches_anneal(3), y_host, seg_size=65536,
+                          params=init, seed=4, runtime=runtime,
+                          device=None if runtime else dev)
+        sem.run()
+        torch.cuda.synchronize()
+        got = expect_launches(cuda_lib, "[22a] StreamingEM", estep=6,
+                              sgemm_nn=6, sgemm_tn=6)
+        streams.append(sem)
+    for k, v in got.items():
+        launches[k] += v
+    bad += same_stream(torch, "[22a] StreamingEM under NCCL", streams[0],
+                       streams[1])
+    # the max family's and the big-S kernels under the runtime
+    W_mca = planted_dictionary(256, 300, seed=0)
+    for tag, fam, gt, kern in (
+            ("mca", MCA(256, 300, 6, 3),
+             {"W": W_mca, "pi": np.float32(2.0 / 300),
+              "sigma": np.float32(1.0)},
+             {"max_estep": 3, "sgemm_nn": 3, "sgemm_tn": 3}),
+            ("tsc_bigs", TSC(64, 32, 10, 5, chunk=8192, s_block=1024),
+             {"W": planted_dictionary(64, 32, seed=0), "pi": np.float32(0.1),
+              "sigma": np.float32(1.0)}, {"bigs": 3})):
+        data = fam.generate_data(gt, 32768, seed=1)
+        p0 = fam.standard_init(data, seed=3, device=dev)
+        y_fam = torch.as_tensor(data["y"], device=dev)
+        pair = []
+        for runtime in (None, rt):
+            reset_launches(cuda_lib)
+            em_f = EM(fam, patches_anneal(3), {"y": y_fam}, params=p0,
+                      seed=4, runtime=runtime,
+                      device=None if runtime else dev)
+            em_f.run()
+            torch.cuda.synchronize()
+            got = expect_launches(cuda_lib, f"[22a] {tag}", **kern)
+            pair.append(em_f)
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        same_run(torch, f"[22a] {tag} under NCCL", pair[0], pair[1])
+        del data, y_fam, pair
+    # host ms an iteration, without and with the runtime, in turns
+    times = {"none": {"run": [], "run_scanned": []},
+             "nccl": {"run": [], "run_scanned": []}}
+    for name in ("none", "nccl", "nccl", "none"):
+        runtime = rt if name == "nccl" else None
+        a = make(runtime)
+        a.run()
+        times[name]["run"].append(
+            float(np.median([h["dt"] for h in a.history[1:]])) * 1e3)
+        b = make(runtime)
+        b.run_scanned()
+        b.anneal.reset(0)
+        b.params = {k: v.clone() for k, v in init.items()}
+        b.generator.manual_seed(4)
+        b.history.clear()
+        b.run_scanned()
+        times[name]["run_scanned"].append(b.history[-1]["dt"] * 1e3)
+    out["host_ms_per_iteration"] = {n: {k: float(np.mean(v))
+                                        for k, v in t.items()}
+                                    for n, t in times.items()}
+    out["host_ms_readings"] = times
+    dist.destroy_process_group()
+    log(f"[22a] NCCL, one rank: run, run_scanned (4 passes), inference of "
+        f"8192 rows and StreamingEM (2 segments, 3 iterations) bit-identical "
+        f"to the runs without a runtime; all-reduces per iteration {want}, "
+        f"issued by run {issued}, held by {em_s.scan_stats['replays']} "
+        f"replays {replayed}; NCCL kernels traced: run {n_eager}, replays "
+        f"{n_replay} ({sorted(set(eager_names + replay_names))}); MCA and "
+        f"big-S TSC (32768 rows, 3 iterations) bit-identical too; launches "
+        f"under the runtime {launches}; host ms per iteration "
+        f"{out['host_ms_per_iteration']}  [{smi}]")
+
+    # ---- 22b: two gloo ranks on this card ----
+    cut = in_memory_cut_as_segments(torch, np, model, patches_anneal(iters),
+                                    y_host, y_host.shape[0] // 2, init, dev)
+    W6 = em6.params["W"].cpu().numpy()
+    tolerance = (float(np.abs(cut.params["W"].cpu().numpy() - W6).max())
+                 / float(np.abs(W6).max()))
+    p1 = model.noisify(init, device_sched(sched_floats(patches_anneal(iters)),
+                                          dev),
+                       torch.Generator(device=dev).manual_seed(4))
+    f64 = bsc_sums_f64(torch, y_dev, torch.ones(y_dev.shape[0], device=dev),
+                       p1["W"], p1["sigma"] ** 2, p1["pi"],
+                       model.state_arrays(dev), 8, 0.5,
+                       P32=lambda rows: gemm_cuda.sgemm_nn_cuda(rows,
+                                                                p1["W"]))
+    with tempfile.TemporaryDirectory() as tmp:
+        np.save(os.path.join(tmp, "y.npy"), y_host)
+        np.save(os.path.join(tmp, "held_out.npy"), held_out["y"])
+        np.savez(os.path.join(tmp, "init.npz"),
+                 **{k: v.cpu().numpy() for k, v in init.items()})
+        np.savez(os.path.join(tmp, "params6.npz"),
+                 **{k: v.cpu().numpy() for k, v in em6.params.items()})
+        env = dict(os.environ)
+        env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+        port = free_port()
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, __file__, "--rank22", str(r), str(port), tmp],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True) for r in range(2)]
+        try:
+            logs = [p.communicate(timeout=600)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        for r, (p, text) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                raise AssertionError(f"[22b] rank {r} failed "
+                                     f"({p.returncode}):\n{text[-6000:]}")
+        res = [dict(np.load(os.path.join(tmp, f"rank{r}.npz")))
+               for r in range(2)]
+    for r in res:
+        for k in em6.params:
+            if not np.array_equal(r[f"p.{k}"], res[0][f"p.{k}"]):
+                bad.append(f"[22b] {k} differs between the ranks")
+        if float(r["reperr"]) != 0.0:
+            bad.append(f"[22b] replication error {float(r['reperr'])}")
+        want_l = {"estep": iters, "sgemm_nn": iters + 2,
+                  "sgemm_tn": iters, "decode": 2}
+        got_l = {k: int(r[f"launch.{k}"]) for k in cuda_lib.LAUNCHES}
+        if got_l != {k: want_l.get(k, 0) for k in got_l}:
+            bad.append(f"[22b] a rank's launches {got_l}, expected {want_l}")
+        for k in ("n_used", "N_total"):
+            if list(r[f"h.{k}"]) != [h[k] for h in em6.history]:
+                bad.append(f"[22b] {k} {list(r[f'h.{k}'])}, phase 6's "
+                           f"{[h[k] for h in em6.history]}")
+        for k in em6.params:
+            if not np.array_equal(r[f"p.{k}"], cut.params[k].cpu().numpy()):
+                bad.append(f"[22b] {k} differs from phase 6's run cut as "
+                           "the ranks' rows")
+        for k in cut.history[0]:
+            if k not in ("dt", "iteration", "T") and list(r[f"h.{k}"]) != [
+                    h[k] for h in cut.history]:
+                bad.append(f"[22b] {k} differs from phase 6's run cut as "
+                           "the ranks' rows")
+        if int(r["broadcasts"]) < 1:
+            bad.append("[22b] the revival's broadcast did not run")
+    first = against_f64(torch, np, {k: torch.as_tensor(res[0][f"s.{k}"])
+                                     for k in f64},
+                        {k: v.cpu() for k, v in f64.items()},
+                        y_dev.shape[0])
+    worst = max(v["ulps_sqrt_n"] for v in first.values())
+    if worst > ULPS_SQRT_N:
+        bad.append(f"[22b] the first step's sums are {worst:.3g} ulps x "
+                   f"sqrt(N) off the float64 sums: {first}")
+    drift = {k: {"max_abs_diff": float(np.abs(
+        res[0][f"p.{k}"] - em6.params[k].cpu().numpy()).max()),
+        "max_abs": float(np.abs(em6.params[k].cpu().numpy()).max())}
+        for k in em6.params}
+    rel = drift["W"]["max_abs_diff"] / drift["W"]["max_abs"]
+    if rel > tolerance:
+        bad.append(f"[22b] W is {rel:.3g} (relative to max |W|) off phase "
+                   f"6's, above the sensitivity {tolerance:.3g}")
+    for dense in (False, True):
+        for k, v in serve[dense].items():
+            got = np.concatenate([r[f"d{int(dense)}.{k}"] for r in res])
+            if not np.array_equal(got, v.cpu().numpy()):
+                bad.append(f"[22b] the two ranks' decode {k} (dense "
+                           f"{dense}) differs from phase 6's")
+    out["gloo_two_ranks"] = {
+        "rows_per_rank": [int(r["rows"]) for r in res],
+        "replication_error": [float(r["reperr"]) for r in res],
+        "launches_per_rank": {k: int(res[0][f"launch.{k}"])
+                              for k in cuda_lib.LAUNCHES},
+        "revival_broadcasts": int(res[0]["broadcasts"]),
+        "first_step_sums_against_f64": first,
+        "params_against_phase6": drift, "W_rel": rel,
+        "tolerance_sensitivity_131072": tolerance,
+        "sensitivity_1e6": sensitivity_1e6,
+        "equals_phase6_cut_as_ranks": not any("cut as" in b for b in bad),
+        "host_ms_per_iteration": [float(r["ms"]) for r in res],
+        "wall_s": wall}
+    log(f"[22b] gloo, two ranks on one card, {out['gloo_two_ranks']['rows_per_rank']} "
+        f"rows: replication error {out['gloo_two_ranks']['replication_error']}"
+        f", launches per rank {out['gloo_two_ranks']['launches_per_rank']}, "
+        f"n_used and N_total as phase 6's; first step's sums against float64 "
+        f"{first}; equal to phase 6's run cut as the ranks' rows bit for "
+        f"bit: {out['gloo_two_ranks']['equals_phase6_cut_as_ranks']}; W off "
+        f"phase 6's by {rel:.3g} of max |W| (the sensitivity at N=131072 "
+        f"{tolerance:.3g}, at 10^6 {sensitivity_1e6:.3g}); decode "
+        f"concatenated = phase 6's; host ms per "
+        f"iteration {out['gloo_two_ranks']['host_ms_per_iteration']}, "
+        f"{wall:.1f} s wall with the start of both processes  [{smi}]")
+    if bad:
+        raise AssertionError("[22] " + "; ".join(bad))
+    return out
+
+
+def rank22(rank: int, port: int, tmp: str) -> int:
+    """One rank of phase 22b (``python3 chip_smoke.py --rank22 R PORT DIR``,
+    started by ``distributed_path``): its ``stride_data`` rows of DIR's
+    y.npy through phase 6's run under a two-rank gloo group on cuda:0."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from prosper_tpu_torch import EM
+    from prosper_tpu_torch.models import BSC
+    from prosper_tpu_torch.models import linear as linear_mod
+    from prosper_tpu_torch.ops import cuda_lib
+    from prosper_tpu_torch.parallel.mesh import (MeshRuntime, init_multihost,
+                                                 replication_error,
+                                                 stride_data)
+
+    dev = torch.device("cuda", 0)
+    init_multihost(f"127.0.0.1:{port}", 2, rank, backend="gloo", device=dev)
+    rt = MeshRuntime(device=dev)
+    y = np.load(os.path.join(tmp, "y.npy"), mmap_mode="r")
+    first, last = stride_data(y.shape[0])
+    y_mine = torch.as_tensor(np.ascontiguousarray(y[first:last]), device=dev)
+    init = dict(np.load(os.path.join(tmp, "init.npz")))
+    model = BSC(256, 300, 8, 4, chunk=8192)
+    sums = {}
+    real = linear_mod.reduce_sums
+
+    def first_sums(s, n, group):
+        out = real(s, n, group)
+        if not sums:
+            sums.update({k: v.double().cpu().numpy()
+                         for k, v in out[0].items()})
+        return out
+    linear_mod.reduce_sums = first_sums
+    broadcasts = []
+    real_b = EM._bcast_revived_W
+
+    def counted(self, W, revived):
+        broadcasts.append(revived)
+        return real_b(self, W, revived)
+    EM._bcast_revived_W = counted
+    for k in cuda_lib.LAUNCHES:
+        cuda_lib.LAUNCHES[k] = 0
+    em = EM(model, patches_anneal(), {"y": y_mine}, params=init, seed=4,
+            runtime=rt, revive_duplicates=(2, 1.01))
+    em.run()
+    torch.cuda.synchronize()
+    p6 = {k: torch.as_tensor(v, device=dev)
+          for k, v in np.load(os.path.join(tmp, "params6.npz")).items()}
+    held = np.load(os.path.join(tmp, "held_out.npy"))
+    a, b = stride_data(held.shape[0])
+    out = {f"p.{k}": v.cpu().numpy() for k, v in em.params.items()}
+    for dense in (False, True):
+        d = model.inference(p6, {"y": held[a:b]}, top_L=10,
+                            dense_states=dense, runtime=rt)
+        out.update({f"d{int(dense)}.{k}": v.cpu().numpy()
+                    for k, v in d.items()})
+    torch.cuda.synchronize()
+    out.update({f"s.{k}": v for k, v in sums.items()})
+    out.update({f"launch.{k}": v for k, v in cuda_lib.LAUNCHES.items()})
+    out["reperr"] = float(replication_error(em.params, rt.group))
+    out.update({f"h.{k}": np.asarray([h[k] for h in em.history])
+                for k in em.history[0] if k not in ("dt", "iteration", "T")})
+    out["broadcasts"] = len(broadcasts)
+    out["rows"] = last - first
+    out["ms"] = float(np.median([h["dt"] for h in em.history[1:]])) * 1e3
+    np.savez(os.path.join(tmp, f"rank{rank}.npz"), **out)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def patches_anneal(iters=6):
+    """Phase 6's schedule: T 2 -> 1 and W noise 0.5 -> 0 over the first 60 %,
+    the Ncut cut 0 -> 1 from 40 %."""
+    from prosper_tpu_torch import LinearAnnealing
+    a = LinearAnnealing(iters)
+    a["T"] = [(0.0, 2.0), (0.6, 1.0)]
+    a["W_noise"] = [(0.0, 0.5), (0.6, 0.0)]
+    a["Ncut_factor"] = [(0.4, 0.0), (1.0, 1.0)]
+    return a
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2019,13 +2635,6 @@ def main() -> int:
     log(f"[patches] generated {N} + 8192 rows in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    def patches_anneal(iters=iters):
-        a = LinearAnnealing(iters)
-        a["T"] = [(0.0, 2.0), (0.6, 1.0)]
-        a["W_noise"] = [(0.0, 0.5), (0.6, 0.0)]
-        a["Ncut_factor"] = [(0.4, 0.0), (1.0, 1.0)]
-        return a
-
     y_dev = torch.tensor(data["y"], device=dev)
     torch.cuda.synchronize()
     reset_launches(cuda_lib)
@@ -2125,9 +2734,27 @@ def main() -> int:
     t0 = time.perf_counter()
     stream, stream_launches = stream_path(torch, np, dev, smi, y_1e6,
                                           patches_anneal)
-    del y_1e6
     seconds["21"] = time.perf_counter() - t0
     stamp("phase 21")
+    # ---- the open check: two row cuts of the E-step at N = 10^6 -----------
+    t0 = time.perf_counter()
+    check = open_check(torch, np, dev, smi, y_1e6, patches_anneal)
+    del y_1e6
+    seconds["check"] = time.perf_counter() - t0
+    stamp("the open check")
+    if check["failures"]:
+        raise AssertionError(f"[check] a row cut's sums are off: "
+                             f"{check['failures']}")
+    # ---- 22. the data-parallel runtime: NCCL at one rank, two gloo ranks --
+    t0 = time.perf_counter()
+    distributed = distributed_path(
+        torch, np, dev, smi, {"model": model, "em": em, "init": init,
+                              "y_dev": y_dev, "y_host": data["y"],
+                              "held_out": held_out, "serve": serve},
+        patches_anneal, check["sensitivity"])
+    distributed["open_check"] = check
+    seconds["22"] = time.perf_counter() - t0
+    stamp("phase 22")
 
     # the bounds, from this run's shapes: the two D x H products, the
     # logits over [proj | Gram] and the moments over the state tables per
@@ -2150,6 +2777,7 @@ def main() -> int:
     def scanned_gemm_launches(name):
         return scanned_launches[name] + mxs[name]
 
+    dl = distributed["launches_under_runtime"]
     kernels = [
         {"name": "linear_et_estep", "route": "cuda",
          "source": "prosper_tpu_torch/csrc/linear_et_estep.cu",
@@ -2157,12 +2785,14 @@ def main() -> int:
          "launches": launches["estep"],
          "scanned_launches": scanned_launches["estep"],
          "stream_launches": stream_launches.get("estep", 0),
+         "distributed_launches": dl["estep"],
          "max_abs_err": err["estep"], "ms": est[0], "plain_ms": est[1], **est_bound, "library_ms": None},
         {"name": "linear_et_decode", "route": "cuda",
          "source": "prosper_tpu_torch/csrc/linear_et_decode.cu",
          "replaces": "prosper_tpu/ops/linear_pallas.py:435",
          "launches": launches["decode"], "scanned_launches": 0,
          "stream_launches": stream_launches.get("decode", 0),
+         "distributed_launches": dl["decode"],
          "max_abs_err": err["decode"],
          "ms": dec[0], "plain_ms": dec[1], **dec_bound, "library_ms": None},
         {"name": "max_et_estep", "route": "cuda",
@@ -2171,6 +2801,7 @@ def main() -> int:
                      "prosper_tpu/ops/max_pallas.py:433",
          "launches": mxl["max_estep"], "scanned_launches": mxs["max_estep"],
          "stream_launches": stream_launches.get("max_estep", 0),
+         "distributed_launches": dl["max_estep"],
          "max_abs_err": err["max_estep"],
          **mx, "library_ms": None},
         {"name": "bigs_multi", "route": "cuda",
@@ -2178,6 +2809,7 @@ def main() -> int:
          "replaces": "prosper_tpu/ops/bigs_pallas.py:155",
          "launches": bgl["bigs"], "scanned_launches": bgs["bigs"],
          "stream_launches": stream_launches.get("bigs", 0),
+         "distributed_launches": dl["bigs"],
          "max_abs_err": err["bigs"], **bg,
          "library_ms": None},
         # the two products inside the bodies of the TPU kernels; one launch
@@ -2190,6 +2822,7 @@ def main() -> int:
          "launches": gemm_launches("sgemm_nn"),
          "scanned_launches": scanned_gemm_launches("sgemm_nn"),
          "stream_launches": stream_launches.get("sgemm_nn", 0),
+         "distributed_launches": dl["sgemm_nn"],
          "max_abs_err": err["sgemm_nn"], **gm["sgemm_nn"]},
         {"name": "sgemm_tn_splitn", "route": "cuda",
          "source": "prosper_tpu_torch/csrc/sgemm.cu",
@@ -2198,6 +2831,7 @@ def main() -> int:
          "launches": gemm_launches("sgemm_tn"),
          "scanned_launches": scanned_gemm_launches("sgemm_tn"),
          "stream_launches": stream_launches.get("sgemm_tn", 0),
+         "distributed_launches": dl["sgemm_tn"],
          "max_abs_err": err["sgemm_tn"], **gm["sgemm_tn"]},
     ]
     for k in kernels:
@@ -2206,17 +2840,22 @@ def main() -> int:
             f"({100 * k['bound_ms'] / k['ms']:.1f} % of it), "
             f"{k['launches']} launches through run, "
             f"{k['scanned_launches']} through run_scanned's eager steps and "
-            f"captures, {k['stream_launches']} through StreamingEM  [{smi}]")
+            f"captures, {k['stream_launches']} through StreamingEM, "
+            f"{k['distributed_launches']} under the runtime  [{smi}]")
         if k["name"] != "linear_et_decode" and k["scanned_launches"] < 1:
             raise AssertionError(f"{k['name']} was launched no time through "
                                  "run_scanned")
         if k["name"] != "linear_et_decode" and k["stream_launches"] < 1:
             raise AssertionError(f"{k['name']} was launched no time through "
                                  "StreamingEM")
+        if k["distributed_launches"] < 1:
+            raise AssertionError(f"{k['name']} was launched no time under "
+                                 "the runtime (phase 22)")
     log(json.dumps({"scanned": dict(scanned, card=smi),
                     "gsc_decode": dict(gsc_decode, card=smi)}))
     log(json.dumps({"recovery": dict(recovery, phase_s=seconds, card=smi)}))
     log(json.dumps({"stream": dict(stream, card=smi)}))
+    log(json.dumps({"distributed": dict(distributed, card=smi)}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2224,5 +2863,66 @@ def main() -> int:
     return 0
 
 
+def phase22_alone() -> int:
+    """``python3 chip_smoke.py --phase 22``: the build, phase 6's run and
+    decode again, the open check on phase 20's rows, and phase 22, without
+    the other phases."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from prosper_tpu_torch import EM
+    from prosper_tpu_torch.data.bars import planted_dictionary
+    from prosper_tpu_torch.models import BSC
+    from prosper_tpu_torch.ops import cuda_lib
+
+    dev = torch.device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    log(smi)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cuda_lib.load_library()
+    stamp("build")
+    model = BSC(256, 300, 8, 4, chunk=8192)
+    gt = {"W": planted_dictionary(256, 300, seed=0),
+          "pi": np.float32(2.0 / 300), "sigma": np.float32(1.0)}
+    data = model.generate_data(gt, 131072, seed=1)
+    held_out = model.generate_data(gt, 8192, seed=2)
+    init = model.standard_init(data, seed=3, device=dev)
+    y_dev = torch.tensor(data["y"], device=dev)
+    em = EM(model, patches_anneal(), {"y": y_dev}, params=init, seed=4,
+            device=dev)
+    params = em.run()
+    serve = {dense: model.inference(params, held_out, top_L=10,
+                                    dense_states=dense)
+             for dense in (False, True)}
+    y_1e6 = model.generate_data(gt, 1_000_000, seed=1)["y"]
+    stamp("phase 6's run and phase 20's rows")
+    check = open_check(torch, np, dev, smi, y_1e6, patches_anneal)
+    del y_1e6
+    stamp("the open check")
+    # phase 22 runs all the same; a failed check fails the run after it
+    out = distributed_path(
+        torch, np, dev, smi, {"model": model, "em": em, "init": init,
+                              "y_dev": y_dev, "y_host": data["y"],
+                              "held_out": held_out, "serve": serve},
+        patches_anneal, check["sensitivity"])
+    stamp("phase 22")
+    out["open_check"] = check
+    log(json.dumps({"distributed": dict(out, card=smi)}))
+    if check["failures"]:
+        raise AssertionError(f"[check] a row cut's sums are off: "
+                             f"{check['failures']}")
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank22"]:
+        sys.exit(rank22(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
+    if sys.argv[1:3] == ["--phase", "22"]:
+        sys.exit(phase22_alone())
     sys.exit(main())

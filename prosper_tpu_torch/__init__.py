@@ -13,6 +13,11 @@ checkpoints (``io/``), resume (``EM.resume``), the recovery protocol
 (``python -m prosper_tpu_torch.cli train / infer / generate / diagnose``),
 and ``StreamingEM``, which trains on a data set that stays on the host and
 passes through the card in segments (``train --stream``).
+``MeshRuntime`` (``parallel/mesh.py``) trains data-parallel over the ranks
+of a ``torch.distributed`` group, one process per device
+(``EM(..., runtime=rt)``, ``StreamingEM(..., runtime=rt)``,
+``model.inference(..., runtime=rt)``, ``train --mesh data=N`` under
+``torchrun``).
 With ``backend="cuda"`` (the default) the
 E-steps (and the linear family's decode) run in hand-written CUDA kernels
 on a CUDA device (``ops/linear_cuda.py``, ``ops/max_cuda.py``, built with
@@ -29,6 +34,7 @@ __version__ = "0.1.0"
 from prosper_tpu_torch.engine.anneal import LinearAnnealing
 from prosper_tpu_torch.engine.em import EM, run_restarts
 from prosper_tpu_torch.engine.stream import StreamingEM
+from prosper_tpu_torch.parallel.mesh import MeshRuntime
 
-__all__ = ["EM", "LinearAnnealing", "StreamingEM", "run_restarts",
-           "__version__"]
+__all__ = ["EM", "LinearAnnealing", "MeshRuntime", "StreamingEM",
+           "run_restarts", "__version__"]

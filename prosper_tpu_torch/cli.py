@@ -7,6 +7,7 @@ declarative ``.toml`` / ``.json`` file, which both packages read alike:
   python -m prosper_tpu_torch.cli generate cfg.json -N 100000 -o d.h5
   python -m prosper_tpu_torch.cli train cfg.json --data d.h5 -o out [--scan] [--resume]
   python -m prosper_tpu_torch.cli train cfg.json --data d.h5 -o out --stream 131072
+  torchrun --nproc-per-node 4 -m prosper_tpu_torch.cli train cfg.json --data d.h5 -o out --mesh data=4
   python -m prosper_tpu_torch.cli infer cfg.json -c out/checkpoint.h5 --data d.h5
   python -m prosper_tpu_torch.cli diagnose -c out/checkpoint.h5 --gt cfg.json --json
 
@@ -18,6 +19,14 @@ checkpoint on the same trajectory.  ``--stream SEG`` trains through
 segments of SEG rows.  ``--device`` (default ``cuda``) says
 where the data, parameters and random numbers live; ``--device cpu`` runs
 the plain PyTorch versions and no kernel.
+
+``--multihost`` trains data-parallel over the ranks ``torchrun`` started
+(one process per device, rank r on ``cuda:{LOCAL_RANK}``; NCCL on the card,
+gloo with ``--device cpu``), and in one process without ``torchrun``.
+``--mesh data=N`` does the same and insists on N ranks.  Each rank reads its
+``stride_data`` rows (a config's generated or inline data is cut the same
+way), ``EM`` pads every rank to the longest shard, and rank 0 alone writes
+the logs and checkpoints.
 """
 
 from __future__ import annotations
@@ -106,19 +115,23 @@ def _build_from_decl(cfg: Dict) -> Dict[str, Any]:
 
 
 def _load_data(cfg: Dict, model, args) -> Dict[str, np.ndarray]:
+    """This process's rows: its ``stride_data`` slice of the data set (all
+    of it in one process)."""
     from prosper_tpu_torch.data.patches import load_h5_shard
+    from prosper_tpu_torch.parallel.mesh import stride_data
     if getattr(args, "data", None):
         return {"y": load_h5_shard(args.data,
                                    cfg.get("data_dataset", "patches"))}
-    if "data" in cfg:
-        return cfg["data"]
     if "data_h5" in cfg:
         return {"y": load_h5_shard(cfg["data_h5"],
                                    cfg.get("data_dataset", "patches"))}
-    if "gt_params" in cfg:
-        N = int(cfg.get("N", 1000))
-        return model.generate_data(cfg["gt_params"], N,
-                                   seed=int(cfg.get("seed", 0)))
+    if "data" in cfg or "gt_params" in cfg:
+        data = cfg.get("data") or model.generate_data(
+            cfg["gt_params"], int(cfg.get("N", 1000)),
+            seed=int(cfg.get("seed", 0)))
+        first, last = stride_data(len(data["y"]))
+        return {k: v[first:last] for k, v in data.items()
+                if k in ("y", "valid")}
     raise SystemExit("config provides no data (need data / data_h5 / "
                      "gt_params) and --data not given")
 
@@ -148,24 +161,47 @@ def _truncate_logs(out_dir: str, step: int, log_params_every: int) -> None:
                 f.writelines(lines[:step])
 
 
-def _not_ported(flag: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"train {flag} is not ported to prosper_tpu_torch yet (ROADMAP.md, "
-        f"open item: {item})")
+def _runtime(args):
+    """The ``MeshRuntime`` that ``--mesh data=N`` / ``--multihost`` ask for
+    (None for neither, and for ``--multihost`` outside ``torchrun``);
+    raises before any file is opened where the ranks do not fit."""
+    if not (args.mesh or args.multihost):
+        return None
+    import torch.distributed as dist
+
+    from prosper_tpu_torch.parallel.mesh import MeshRuntime, init_multihost
+    n = None
+    if args.mesh:
+        m = re.fullmatch(r"data=(\d+)", args.mesh)
+        if m is None:
+            raise SystemExit(f"--mesh takes data=N, got {args.mesh!r} (state "
+                             "sharding is not ported: ROADMAP.md)")
+        n = int(m.group(1))
+    init_multihost(device=args.device)
+    if not dist.is_initialized():
+        if n is not None:
+            raise SystemExit(
+                f"--mesh data={n} trains on {n} ranks, one process each: "
+                f"start it with torchrun --nproc-per-node {n} -m "
+                "prosper_tpu_torch.cli train ...")
+        return None          # --multihost with no ranks: one process
+    if n is not None and dist.get_world_size() != n:
+        raise SystemExit(f"--mesh data={n} needs {n} ranks; torchrun "
+                         f"started {dist.get_world_size()}")
+    return MeshRuntime(device=args.device)
 
 
 def cmd_train(args) -> int:
     # before any file is opened: the log handlers truncate in "w" mode
     if args.stream and (args.mesh or args.multihost):
         raise SystemExit("--stream is single-device; drop --mesh/--multihost")
-    if args.mesh or args.multihost:
-        raise _not_ported("--mesh" if args.mesh else "--multihost",
-                          "distributed")
+    runtime = _runtime(args)
 
     from prosper_tpu_torch.engine.em import EM
     from prosper_tpu_torch.engine.stream import StreamingEM
     from prosper_tpu_torch.io.datalog import DataLog, StoreToH5, StoreToJSONL
     from prosper_tpu_torch.models.base import resolve_backend
+    from prosper_tpu_torch.parallel.mesh import pprint
     from prosper_tpu_torch.utils import create_output_path, process_index
 
     cfg = load_config(args.config)
@@ -185,7 +221,8 @@ def cmd_train(args) -> int:
 
     log_params_every = int(cfg.get("log_params_every", 1))
     ckpt_path = os.path.join(out_dir, "checkpoint.h5")
-    common = dict(seed=int(cfg.get("seed", 42)), device=args.device,
+    common = dict(seed=int(cfg.get("seed", 42)),
+                  device=None if runtime is not None else args.device,
                   log_params_every=log_params_every,
                   checkpoint_path=ckpt_path,
                   checkpoint_every=int(cfg.get("checkpoint_every", 25)))
@@ -201,7 +238,7 @@ def cmd_train(args) -> int:
                 split_norm_frac=float(cfg.get("split_norm_frac", 0.0)),
                 split_coact=bool(cfg.get("split_coact", False)),
                 reseed_worst_frac=float(cfg.get("reseed_worst_frac", 0.0)),
-                **common)
+                runtime=runtime, **common)
     mode = "w"
     if args.resume and os.path.exists(ckpt_path):
         # parameters, F_prev, the generator's and the revival chain's state;
@@ -210,7 +247,7 @@ def cmd_train(args) -> int:
         step = em.resume(ckpt_path)
         if process_index() == 0:
             _truncate_logs(out_dir, step, log_params_every)
-        print(f"[train] resuming from {ckpt_path} at step {step}")
+        pprint(f"[train] resuming from {ckpt_path} at step {step}")
         mode = "a"
     em.dlog = dlog = DataLog()
     dlog.set_handler(None, StoreToH5, os.path.join(out_dir, "result.h5"), mode)
@@ -222,14 +259,14 @@ def cmd_train(args) -> int:
             # them, so a --scan run's log resumes (resume_from_h5) alike
             em.run_scanned(collect_params=True)
         else:
-            em.run(verbose=not args.quiet)
+            em.run(verbose=not args.quiet and process_index() == 0)
         em.save_checkpoint(ckpt_path)
     finally:
         dlog.close()
-    if process_index() == 0:
-        streamed = (f" (streamed, {em.n_seg} segments)" if args.stream
-                    else "")
-        print(f"[train] done{streamed} -> {out_dir}")
+    streamed = f" (streamed, {em.n_seg} segments)" if args.stream else ""
+    ranks = (f" on {runtime.n_data_shards} ranks" if runtime is not None
+             else "")
+    pprint(f"[train] done{streamed}{ranks} -> {out_dir}")
     return 0
 
 
@@ -370,10 +407,12 @@ def main(argv=None) -> int:
                     help="E-step backend (linear + max families): cuda / "
                          "pallas = the kernels, plain / xla = the plain "
                          "PyTorch version")
-    pt.add_argument("--mesh", default=None,
-                    help="not ported yet (ROADMAP.md: distributed)")
+    pt.add_argument("--mesh", default=None, metavar="data=N",
+                    help="data-parallel over N ranks (torchrun "
+                         "--nproc-per-node N); fails on another count")
     pt.add_argument("--multihost", action="store_true",
-                    help="not ported yet (ROADMAP.md: distributed)")
+                    help="data-parallel over the ranks torchrun started "
+                         "(one process without torchrun)")
     pt.add_argument("--stream", type=int, default=0, metavar="SEG",
                     help="keep the data set on the host and stream it "
                          "through the device in SEG-row segments "

@@ -617,16 +617,36 @@ def densify_top_states(out: Dict[str, torch.Tensor], H: int) -> torch.Tensor:
     return dense
 
 
+#: rows of each product of ``recon_rows`` on a CUDA tensor
+RECON_BLOCK = 4096
+
+
+def recon_rows(s_mean: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
+    """``s_mean @ W.T``.  On a CUDA tensor in blocks of ``RECON_BLOCK`` rows,
+    the last one padded with zero rows: the GEMM library picks its kernel by
+    the product's shape, and a fixed shape gives each row the same bits in
+    any batch, so decodes of the rows of several ranks, concatenated, equal
+    one decode of them all."""
+    N = s_mean.shape[0]
+    if s_mean.device.type != "cuda" or N == 0:
+        return s_mean @ W.T
+    pad = -N % RECON_BLOCK
+    s = torch.nn.functional.pad(s_mean, (0, 0, 0, pad)) if pad else s_mean
+    return torch.cat([s[i:i + RECON_BLOCK] @ W.T
+                      for i in range(0, N + pad, RECON_BLOCK)])[:N]
+
+
 def posterior_outputs(W, F, s_mean, top_q, top_u, cand,
                       sa: LinearStateArrays, dense_states: bool):
     """The inference dict from a top-L decode: top states (dense or
-    compact, plus ``cand``), ``s_mean``, ``recon = s_mean @ W.T`` and F."""
+    compact, plus ``cand``), ``s_mean``, ``recon = s_mean @ W.T``
+    (``recon_rows``) and F."""
     out = top_states_from_topk(top_q, top_u, W.shape[1],
                                sa.values.shape[0], sa.values, sa.states,
                                cand, dense_states)
     if not dense_states:
         out["cand"] = cand
-    out.update({"s_mean": s_mean, "recon": s_mean @ W.T, "F": F})
+    out.update({"s_mean": s_mean, "recon": recon_rows(s_mean, W), "F": F})
     return out
 
 

@@ -293,7 +293,7 @@ def max_et_estep_rows(y, weight, P, W, sigma2, log_odds,
 def _not_ported(what: str):
     return NotImplementedError(
         f"{what} is not ported to prosper_tpu_torch yet "
-        "(ROADMAP.md, open item: distributed)")
+        "(ROADMAP.md, open item: state sharding)")
 
 
 def max_et_estep(y: torch.Tensor, weight: torch.Tensor, W: torch.Tensor,

@@ -10,7 +10,10 @@ Counterpart of ``prosper_tpu/core/select.py``:
 Fractions and factors may be host numbers or 0-d tensors on the data's
 device.  Given tensors, no function here makes a scalar on the host or
 copies one to the device, so a step that calls them can be captured into a
-CUDA graph.
+CUDA graph.  With a process group (``parallel/mesh.py``) the threshold
+reduces its extent and histograms over the ranks, and the exact-count mask
+draws every rank's uniforms so that the generator moves alike on all of
+them.
 """
 
 from __future__ import annotations
@@ -18,6 +21,9 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.distributed as dist
+
+from prosper_tpu_torch.parallel.mesh import maybe_pmax, maybe_psum
 
 
 def top_hprime_candidates(P: torch.Tensor, w_norm: torch.Tensor, Hp: int,
@@ -59,11 +65,21 @@ def top_l_argmax(q: torch.Tensor, L: int):
 
 def exact_count_mask(generator: torch.Generator, N: int, frac,
                      valid: Optional[torch.Tensor] = None,
-                     device=None) -> torch.Tensor:
+                     device=None, group=None) -> torch.Tensor:
     """Random {0,1} float mask with exactly ceil(frac * n_valid) ones;
-    padding rows (valid == 0) never count and are never selected."""
+    padding rows (valid == 0) never count and are never selected.
+
+    With a process group of P ranks, each holding N rows, every rank draws
+    P * N uniforms and takes the N of its rank: the masks differ per rank
+    (the JAX package folds the rank into its key), the count is per rank,
+    and the generator advances by the same amount on every rank whatever
+    its number of valid rows, so the parameter noise drawn after it stays
+    replicated."""
     device = valid.device if valid is not None else device
-    u = torch.rand(N, generator=generator, device=device)
+    P, r = ((1, 0) if group is None
+            else (dist.get_world_size(group), dist.get_rank(group)))
+    u = torch.rand(P * N, generator=generator, device=device)[r * N:
+                                                              (r + 1) * N]
     if valid is not None:
         u = torch.where(valid > 0, u, torch.full_like(u, -1.0))
         n_valid = valid.sum()
@@ -93,23 +109,33 @@ def _fma(a, b, c) -> torch.Tensor:
 
 def global_quantile_threshold(values: torch.Tensor, valid: torch.Tensor,
                               keep_count: torch.Tensor, rounds: int = 3,
-                              bins: int = 128) -> torch.Tensor:
+                              bins: int = 128, group=None) -> torch.Tensor:
     """Threshold t such that ~``keep_count`` of the valid ``values`` are
     >= t, by histogram bisection in float32 (accuracy range / bins**rounds).
     The arithmetic follows the JAX package step by step, including where
-    XLA fuses a multiply-add, so both pick the same threshold."""
+    XLA fuses a multiply-add, so both pick the same threshold.
+
+    With a process group the values are this rank's and ``keep_count`` is
+    global: the extent is reduced once (MIN of lo as the MAX of -lo, beside
+    the MAX of hi) and each round's histogram is summed, so every rank
+    derives the same threshold from device tensors alone (1 + ``rounds``
+    all-reduces)."""
     big = torch.full((), 3e38, dtype=torch.float32, device=values.device)
     v = torch.where(valid > 0, values, -big)
     lo = torch.where(valid > 0, values, big).min()
     hi = v.max()
+    if group is not None:
+        ext = maybe_pmax(torch.stack([-lo, hi]), group)
+        lo, hi = -ext[0], ext[1]
     hi = hi + torch.clamp(1e-6 * hi.abs(), min=1e-6)
     bidx = torch.arange(bins, device=values.device)
     w = valid.float()
     for _ in range(rounds):
         width = torch.clamp((hi - lo) / bins, min=1e-30)
         idx = torch.clamp(torch.floor((v - lo) / width), 0, bins - 1).long()
-        hist = torch.zeros(bins, dtype=torch.float32,
-                           device=values.device).index_add_(0, idx, w)
+        hist = maybe_psum(torch.zeros(bins, dtype=torch.float32,
+                                      device=values.device)
+                          .index_add_(0, idx, w), group)
         tail = torch.flip(torch.cumsum(torch.flip(hist, [0]), 0), [0])
         b_star = torch.where(tail >= keep_count, bidx,
                              torch.zeros_like(bidx)).max()

@@ -1,9 +1,8 @@
 """Image-patch data pipeline (the reference's scaling benchmark dataset).
 
 Counterpart of ``prosper_tpu/data/patches.py`` (numpy; HDF5 through
-``io/hdf5.py``), with its
-own copy of ``parallel/mesh.py::stride_data``: the process count and index
-come from ``torch.distributed`` when it is initialised.
+``io/hdf5.py``).  ``stride_data`` is ``parallel/mesh.py``'s: the process
+count and index come from ``torch.distributed`` when it is initialised.
 
 Reference behavior: SURVEY.md §2 "Example scripts" / §5.8 — the reference
 reads HDF5 image-patch datasets with each MPI rank loading its
@@ -27,19 +26,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 
 from prosper_tpu_torch.io import hdf5
-from prosper_tpu_torch.utils import process_count, process_index
-
-
-def stride_data(N: int, parts: Optional[int] = None,
-                index: Optional[int] = None) -> Tuple[int, int]:
-    """(first, last) bounds of this process's contiguous shard of N
-    datapoints (reference: utils/parallel.py::stride_data)."""
-    parts = process_count() if parts is None else parts
-    index = process_index() if index is None else index
-    base, rem = divmod(N, parts)
-    first = index * base + min(index, rem)
-    last = first + base + (1 if index < rem else 0)
-    return first, last
+from prosper_tpu_torch.parallel.mesh import stride_data
 
 
 def load_h5_shard(path: str, dataset: str = "patches",

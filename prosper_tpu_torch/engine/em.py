@@ -1,7 +1,11 @@
 """The EM training driver.
 
 Counterpart of ``prosper_tpu/engine/em.py::EM``.  Each iteration is the
-model's ``step_fn`` (noisify -> masks -> E-step -> M-step) on one device.
+model's ``step_fn`` (noisify -> masks -> E-step -> M-step) on one device,
+or, with a ``MeshRuntime`` (``parallel/mesh.py``), on each rank's device
+over that rank's rows: the parameters are replicated, the step reduces its
+sufficient statistics over the ranks, and every rank computes the same
+M-step (the reference under ``mpirun -n P``).
 
 ``run`` keeps the outer loop in Python: one step per iteration, its schedule
 copied to the device and its scalars copied back, so ``history`` holds each
@@ -26,6 +30,9 @@ boundary crossings, revival before the checkpoint, and ``run_scanned`` cuts
 its iterations into windows that end where the next of them is due.  A checkpoint
 holds the parameters, ``F_prev``, the generator's state and the revival
 chain's, so a resumed run (``EM.resume``) follows the uninterrupted one.
+Under a runtime the host work is the JAX package's multi-process one: rank 0
+revives on its own rows and broadcasts W, a checkpoint holds the global
+``F_prev`` (every rank's rows in stride order) and only rank 0 writes files.
 """
 
 from __future__ import annotations
@@ -45,10 +52,8 @@ from prosper_tpu_torch.models.base import (SCHED_KEYS, StepPattern,
                                            sched_floats, sched_from_row,
                                            sched_row, step_pattern, to_numpy)
 from prosper_tpu_torch.ops.cuda_lib import LAUNCHES
-from prosper_tpu_torch.utils import process_count
-
-#: EM options of the JAX package that are not ported yet -> ROADMAP item
-_NOT_PORTED = {"runtime": "distributed"}
+from prosper_tpu_torch.parallel.mesh import (COLLECTIVES, check_runtime,
+                                             local_device)
 
 
 def coactivation_split(w_b: np.ndarray, Y: np.ndarray,
@@ -182,7 +187,7 @@ class _Scan:
         self.scalars: Optional[torch.Tensor] = None
         self.phist: Optional[Dict[str, torch.Tensor]] = None
         #: (pattern, collect_params) -> (graph, the kernels one replay holds
-        #: by launch name)
+        #: by launch name, the all-reduces one replay holds)
         self.graphs: Dict[Tuple[StepPattern, bool], tuple] = {}
         self.pool = None
 
@@ -203,11 +208,16 @@ class EM:
     anneal : LinearAnnealing
     data : dict with 'y' (N, D) (and optional 'valid', 'F_prev'), numpy or
         tensors; moved to ``device`` and padded with weight-0 rows to a
-        multiple of the model's chunk when N exceeds it.
+        multiple of the model's chunk when N exceeds it.  Under a runtime
+        these are this rank's rows (its ``stride_data`` slice), and every
+        rank pads to the same length, that of the longest shard.
     params : initial parameters (numpy or tensors); defaults to
         ``model.standard_init`` on the rows with ``valid > 0`` (the padding
-        takes no part in it).
-    device : where the data, parameters and random numbers live.
+        takes no part in it; under a runtime every rank's rows).
+    device : where the data, parameters and random numbers live (default
+        CUDA; under a runtime the runtime's device).
+    runtime : a ``parallel.mesh.MeshRuntime``: data-parallel training over
+        its ranks.
     seed : seeds the ``torch.Generator`` for parameter noise and ``partial``;
         ``seed + 1`` seeds the revival's numpy chain.
     dlog : optional ``io.datalog.DataLog``; each iteration appends its
@@ -236,22 +246,23 @@ class EM:
     """
 
     def __init__(self, model, anneal, data: Dict,
-                 params: Optional[Dict] = None, device="cuda",
+                 params: Optional[Dict] = None, device=None,
                  seed: int = 42, dlog=None, log_params_every: int = 1,
                  checkpoint_path: Optional[str] = None,
                  checkpoint_every: int = 0,
                  revive_duplicates: Optional[tuple] = None,
                  split_norm_frac: float = 0.0, split_coact: bool = False,
-                 reseed_worst_frac: float = 0.0, **unported):
-        for name in unported:
-            if name not in _NOT_PORTED:
-                raise TypeError(f"EM got an unexpected argument {name!r}")
-            raise NotImplementedError(
-                f"EM({name}=...) is not ported to prosper_tpu_torch yet "
-                f"(ROADMAP.md, open item: {_NOT_PORTED[name]})")
+                 reseed_worst_frac: float = 0.0, runtime=None):
+        self.runtime = runtime
+        if runtime is not None:
+            check_runtime(runtime)
+            if device is not None and local_device(device) != runtime.device:
+                raise ValueError(f"EM(device={device!r}) differs from the "
+                                 f"runtime's device {runtime.device}")
+            device = runtime.device
         self.model = model
         self.anneal = anneal
-        self.device = torch.device(device)
+        self.device = torch.device("cuda" if device is None else device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self.dlog = dlog
@@ -291,11 +302,21 @@ class EM:
         self._last_revive = anneal.position
 
         # weight-0 padding so that the chunked E-step's sizes divide the
-        # chunk (the JAX package's rule); a no-op when N already fits
+        # chunk (the JAX package's rule); a no-op when N already fits.  Under
+        # a runtime every rank pads to the longest shard's length, so that
+        # the ranks' steps take the same shapes and draws
         N = data["y"].shape[0]
+        self._n_local = N
+        if runtime is not None:
+            self._n_locals = runtime.n_locals(N)
+            self._row_offset = int(self._n_locals[:runtime.rank].sum())
+        else:
+            self._n_locals, self._row_offset = np.asarray([N]), 0
+        self.N_global = int(self._n_locals.sum())
+        n_max = int(self._n_locals.max())
         c = (model.chunk if (getattr(model, "requires_chunk_multiple", False)
-                             and N > model.chunk) else 1)
-        N_pad = -(-N // c) * c
+                             and n_max > model.chunk) else 1)
+        N_pad = -(-n_max // c) * c
         blank = make_blank_data(data["y"], data.get("valid"),
                                 device=self.device)
         if "F_prev" in data:
@@ -307,19 +328,25 @@ class EM:
             v, (0, 0, 0, pad) if v.dim() == 2 else (0, pad))
             for k, v in blank.items()}
         if params is None:
-            y = self.data["y"]
-            params = model.standard_init(
-                {"y": y[self.data["valid"] > 0]}, device=self.device)
+            params = model.standard_init({"y": self._init_rows()},
+                                         device=self.device)
         self.params = params_from_numpy(
             {k: to_numpy(v) for k, v in params.items()}, self.device)
+        if runtime is not None:
+            self.params = runtime.replicate(self.params)
+        #: the model's step, with the runtime's group bound where there is one
+        self._step = (runtime.shard_step(model.step_fn) if runtime is not None
+                      else model.step_fn)
         self.history: list = []
         #: what ``run_scanned`` did so far on a CUDA device: graphs captured
         #: and the host seconds their captures took, replays, steps run
-        #: eagerly, and the kernels the replays held by launch name (replays
+        #: eagerly, the kernels the replays held by launch name (replays
         #: times what each capture recorded: ``LAUNCHES`` counts launch
-        #: sites, and a replay passes none)
+        #: sites, and a replay passes none), and the all-reduces they held
+        #: (``parallel.mesh.COLLECTIVES``, under a runtime)
         self.scan_stats = {"graphs": 0, "capture_s": 0.0, "replays": 0,
-                           "eager_steps": 0, "replayed_launches": {}}
+                           "eager_steps": 0, "replayed_launches": {},
+                           "replayed_all_reduces": 0}
         self._scan: Optional[_Scan] = None
 
     def run(self, verbose: bool = False) -> Dict[str, torch.Tensor]:
@@ -331,8 +358,8 @@ class EM:
     def step_once(self, verbose: bool = False) -> Dict[str, float]:
         t0 = time.perf_counter()
         sched = device_sched(sched_floats(self.anneal), self.device)
-        params, F, scalars = self.model.step_fn(
-            self.params, self.data, sched, self.generator)
+        params, F, scalars = self._step(self.params, self.data, sched,
+                                        self.generator)
         self.params = params
         self.data = dict(self.data, F_prev=F)
 
@@ -387,7 +414,18 @@ class EM:
         run's too).  ``collect_params=True`` also keeps each iteration's
         parameters in a device buffer (the step writes row ``i``) and hands
         them to the dlog with ``log_params_every``'s thinning, as ``run``
-        logs them."""
+        logs them.
+
+        Under a runtime the step's all-reduces are captured with it: an
+        NCCL group's collectives replay inside the graph (never without
+        them).  A gloo group cannot be captured, so ``run_scanned`` on a
+        CUDA device under gloo raises; on the CPU it is the plain loop."""
+        if (self.runtime is not None and self.device.type == "cuda"
+                and self.runtime.backend != "nccl"):
+            raise ValueError(
+                f"run_scanned captures the step into a CUDA graph, and a "
+                f"{self.runtime.backend} process group cannot be captured: "
+                "use an nccl group, or EM.run")
         remaining = self.anneal.steps - self.anneal.position
         k = remaining if n_steps is None else min(n_steps, remaining)
         while k > 0:
@@ -478,8 +516,8 @@ class EM:
         device value on the host."""
         sched = sched_from_row(scan.sched.index_select(0, scan.i)[0], pattern)
         data = {"y": scan.y, "valid": scan.valid, "F_prev": scan.F_prev}
-        params, F, scalars = self.model.step_fn(scan.params, data, sched,
-                                                self.generator)
+        params, F, scalars = self._step(scan.params, data, sched,
+                                        self.generator)
         for name, v in params.items():
             scan.params[name].copy_(v)
         scan.F_prev.copy_(F)
@@ -516,11 +554,12 @@ class EM:
             t0 = time.perf_counter()
             scan.graphs[key] = self._capture(scan, pattern, collect_params)
             self.scan_stats["capture_s"] += time.perf_counter() - t0
-        graph, launches = scan.graphs[key]
+        graph, launches, reduces = scan.graphs[key]
         replayed = self.scan_stats["replayed_launches"]
         for _ in range(n - done):
             graph.replay()
             self.scan_stats["replays"] += 1
+            self.scan_stats["replayed_all_reduces"] += reduces
             for name, count in launches.items():
                 replayed[name] = replayed.get(name, 0) + count
 
@@ -528,15 +567,17 @@ class EM:
                  collect_params: bool) -> tuple:
         """The step of ``pattern`` as a CUDA graph over the carry's buffers:
         (graph, the kernels one replay holds, by the name of their launch
-        count).  The wrappers pass their launch sites once while the step
-        is captured, which ``LAUNCHES`` counts as it counts an eager step; a
-        replay passes none, so ``LAUNCHES`` does not see it.  A step that
-        cannot be captured raises: ``run`` steps it eagerly."""
+        count, the all-reduces it holds).  The wrappers pass their launch
+        sites once while the step is captured, which ``LAUNCHES`` counts as
+        it counts an eager step; a replay passes none, so ``LAUNCHES`` does
+        not see it.  A step that cannot be captured raises: ``run`` steps it
+        eagerly."""
         if scan.pool is None:
             scan.pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self.generator)
         before = dict(LAUNCHES)
+        reduces = COLLECTIVES["all_reduce"]
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         try:
@@ -553,7 +594,8 @@ class EM:
         torch.cuda.current_stream(self.device).wait_stream(side)
         self.scan_stats["graphs"] += 1
         return graph, {k: LAUNCHES[k] - before[k] for k in LAUNCHES
-                       if LAUNCHES[k] != before[k]}
+                       if LAUNCHES[k] != before[k]}, (COLLECTIVES["all_reduce"]
+                                                      - reduces)
 
     # -- checkpoints -------------------------------------------------------------
 
@@ -569,8 +611,11 @@ class EM:
         ``checkpoint_path``): the parameters, the annealer's position,
         the generator's state (after ``run_scanned``'s replays: the state
         the next step draws from), ``F_prev`` (the Ncut ranking reads it)
-        and, with revival, the revival chain's state and its last firing."""
-        extra = {"F_prev": self.data["F_prev"]}
+        and, with revival, the revival chain's state and its last firing.
+        Under a runtime every rank calls it (the global ``F_prev``, every
+        rank's rows in stride order without the padding, is gathered) and
+        rank 0 writes."""
+        extra = {"F_prev": self._global_F_prev()}
         if self.revive_duplicates is not None:
             extra["revive_rng"] = self.revival_rng_state()
             extra["revive_last"] = np.int64(self._last_revive)
@@ -584,7 +629,8 @@ class EM:
         ``F_prev``, the generator's and the revival chain's state.  Without
         a generator state for this device (a JAX checkpoint, or one written
         on another device type) the noise chain goes on from the seed, with
-        a warning.  Returns the step."""
+        a warning.  Under a runtime each rank takes its rows of the global
+        ``F_prev``.  Returns the step."""
         params, step, state, extra = checkpoint.restore_full(path,
                                                              self.device)
         self.anneal.reset(min(step, self.anneal.steps))
@@ -592,7 +638,16 @@ class EM:
         self.params = {k: v.contiguous() for k, v in params.items()}
         if "F_prev" in extra:
             F_prev = extra["F_prev"]
-            if F_prev.shape != tuple(self.data["F_prev"].shape):
+            if self.runtime is not None:
+                if F_prev.shape != (self.N_global,):
+                    raise ValueError(
+                        f"{path}: F_prev has shape {F_prev.shape}, the "
+                        f"data of every rank {(self.N_global,)}")
+                mine = np.zeros(self.data["F_prev"].shape, np.float32)
+                mine[:self._n_local] = F_prev[
+                    self._row_offset:self._row_offset + self._n_local]
+                F_prev = mine
+            elif F_prev.shape != tuple(self.data["F_prev"].shape):
                 raise ValueError(
                     f"{path}: F_prev has shape {F_prev.shape}, the padded "
                     f"data {tuple(self.data['F_prev'].shape)}")
@@ -611,6 +666,28 @@ class EM:
             self._last_revive = int(extra["revive_last"])
         return self.anneal.position
 
+    def _init_rows(self):
+        """The rows the default init reads: those with ``valid > 0``; under
+        a runtime every rank's, in stride order, gathered on rank 0 (the
+        other ranks' inits are replaced by rank 0's), so that the init is
+        the one-process init of the whole data set."""
+        y, valid = self.data["y"], self.data["valid"]
+        if self.runtime is None:
+            return y[valid > 0]
+        ys = self.runtime.gather_host(y.cpu().numpy())
+        vs = self.runtime.gather_host(valid.cpu().numpy())
+        if ys is None:
+            return y[valid > 0]
+        return np.concatenate([a[v > 0] for a, v in zip(ys, vs)])
+
+    def _global_F_prev(self):
+        """``F_prev`` as a checkpoint holds it: this device's (padded)
+        tensor without a runtime; under one, every rank's rows in stride
+        order, gathered on the host (a collective: every rank calls it)."""
+        if self.runtime is None:
+            return self.data["F_prev"]
+        return self.runtime.stride_order(self.data["F_prev"], self._n_locals)
+
     # -- the recovery protocol ---------------------------------------------------
 
     def _valid_rows(self) -> np.ndarray:
@@ -623,7 +700,11 @@ class EM:
     def _maybe_revive_duplicates(self) -> None:
         """Re-initialise duplicate and dead columns of W (host numpy, the
         JAX package's arithmetic and random chain): given the same W, data,
-        F_prev and chain state it writes the same W bit for bit."""
+        F_prev and chain state it writes the same W bit for bit.  Under a
+        runtime every rank reaches this point at the same iteration (the
+        gates read the host schedule): rank 0 revives on its own rows, the
+        others skip the work, and ``_bcast_revived_W`` installs rank 0's W
+        on every rank."""
         cfg = self.revive_duplicates
         if cfg is None or "W" not in self.params:
             return
@@ -633,12 +714,10 @@ class EM:
                 or pos >= stop_frac * self.anneal.steps):
             return
         self._last_revive = pos
-        if process_count() > 1:
-            raise NotImplementedError(
-                "revive_duplicates across processes (rank 0 revives, the "
-                "others take its W) is not ported to prosper_tpu_torch yet "
-                "(ROADMAP.md, open item: distributed)")
         W = self.params["W"].cpu().numpy().copy()
+        if self.runtime is not None and self.runtime.rank != 0:
+            self._bcast_revived_W(W, 0)
+            return
         norms = np.linalg.norm(W, axis=0) + 1e-9
         C = (W / norms).T @ (W / norms)
         np.fill_diagonal(C, 0.0)
@@ -718,8 +797,20 @@ class EM:
                     reinit(h)
                     used.add(h)
                     revived += 1
-        if revived:
-            self.revival_stats["revived"] += revived
+        self.revival_stats["revived"] += revived
+        if self.runtime is not None:
+            self._bcast_revived_W(W, revived)
+        elif revived:
+            self.params = dict(self.params, W=torch.as_tensor(
+                W, device=self.device))
+
+    def _bcast_revived_W(self, W: np.ndarray, revived: int) -> None:
+        """Rank 0's W and whether it revived anything, broadcast on the
+        host; every rank installs the same W (a collective: every rank
+        calls it)."""
+        W = self.runtime.broadcast_host(np.ascontiguousarray(W, np.float32))
+        flag = self.runtime.broadcast_host(np.asarray([revived], np.int64))
+        if int(flag[0]):
             self.params = dict(self.params, W=torch.as_tensor(
                 W, device=self.device))
 
@@ -742,8 +833,8 @@ class EM:
 
     def _coact_rows(self) -> np.ndarray:
         """Host subsample of up to 65536 valid datapoints (float64) for
-        blend splitting, strided over the whole data set; read from the
-        device once per run."""
+        blend splitting, strided over the whole data set (under a runtime
+        rank 0's rows); read from the device once per run."""
         if self._coact_sample is None:
             rows = self._valid_rows()
             take = rows[:: max(1, -(-rows.size // 65536))][:65536]

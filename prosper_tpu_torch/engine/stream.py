@@ -1,6 +1,6 @@
 """Host-to-device streaming EM: training on more rows than the card holds.
 
-Counterpart of ``prosper_tpu/engine/stream.py`` on one process.  The data
+Counterpart of ``prosper_tpu/engine/stream.py``.  The data
 set stays on the host (any sliceable (N, D) array: an ``np.ndarray``, an
 ``np.memmap``, an h5py dataset) and the card holds two segments of
 ``seg_size`` rows at a time: segment k + 1 uploads on a copy stream while
@@ -25,6 +25,15 @@ deviations hold: an exact-count mask per segment (kept counts
 sum_seg ceil(frac * n_seg)), and the Ncut threshold ranks all valid rows
 before the partial mask intersects it.
 
+With a ``MeshRuntime`` each rank streams its own host shard (its
+``stride_data`` rows): the segment geometry comes from the longest shard, so
+every rank runs the same number of segments in lockstep (a short rank's
+last ones may hold padding only), the threshold reduces over the ranks, and
+the pass's sums are reduced once, in ``finalize_mstep``, as the in-memory
+step reduces them (the JAX package reduces per segment), so a streamed run
+equals the in-memory run under the same runtime with the same row cut.  A
+checkpoint holds the global ``F_prev`` in stride order; rank 0 writes it.
+
 ``host_quantile_threshold`` is the host twin of the device threshold, kept
 as the JAX package keeps it.
 """
@@ -44,7 +53,8 @@ from prosper_tpu_torch.core.select import (exact_count_mask,
 from prosper_tpu_torch.io import checkpoint
 from prosper_tpu_torch.io.weights import params_from_numpy
 from prosper_tpu_torch.models.base import device_sched, sched_floats, to_numpy
-from prosper_tpu_torch.models.linear import not_ported
+from prosper_tpu_torch.parallel.mesh import (check_runtime, local_device,
+                                             maybe_psum)
 from prosper_tpu_torch.utils.staging import SegmentUploader
 
 
@@ -54,18 +64,20 @@ def host_quantile_threshold(values: np.ndarray, valid: np.ndarray,
     """Host twin of ``core/select.py::global_quantile_threshold``: the same
     float32 histogram bisection, step for step, with the bin edge
     ``lo = b_star * width + lo`` rounded once (as a fused multiply-add), so
-    both pick the same threshold and induce the same mask.  ``allreduce``
-    (the reduction across processes) is not ported."""
-    if allreduce is not None:
-        raise not_ported("host_quantile_threshold(allreduce=...)",
-                         "distributed")
+    both pick the same threshold and induce the same mask.
+
+    ``allreduce``: optional ``(x, op) -> x`` with op in {"sum", "min",
+    "max"}, the reduction over the ranks (``MeshRuntime.allreduce_host``):
+    ``values`` are this rank's rows, and the extent and the bin counts are
+    combined over all of them."""
+    red = allreduce if allreduce is not None else (lambda x, _op: x)
     f32 = np.float32
     values = np.asarray(values, f32)
     ok = np.asarray(valid) > 0
     big = f32(3e38)
     v = np.where(ok, values, -big)
-    lo = np.where(ok, values, big).min()
-    hi = v.max()
+    lo = f32(red(np.where(ok, values, big).min(), "min"))
+    hi = f32(red(v.max(), "max"))
     hi = f32(hi + max(f32(1e-6) * abs(hi), f32(1e-6)))
     keep = f32(keep_count)
     bidx = np.arange(bins)
@@ -74,7 +86,7 @@ def host_quantile_threshold(values: np.ndarray, valid: np.ndarray,
         with np.errstate(over="ignore"):      # the invalid rows' -3e38
             idx = np.clip(np.floor((v - lo) / width), 0,
                           bins - 1).astype(np.int64)
-        hist = np.bincount(idx[ok], minlength=bins).astype(f32)
+        hist = red(np.bincount(idx[ok], minlength=bins).astype(f32), "sum")
         tail = np.cumsum(hist[::-1], dtype=f32)[::-1]
         b_star = int(np.where(tail >= keep, bidx, 0).max())
         lo = f32(np.float64(b_star) * np.float64(width) + np.float64(lo))
@@ -103,9 +115,10 @@ class StreamingEM:
         segment stays on the card after the first pass (None or 0: off).
     checkpoint_path, checkpoint_every : as ``EM``'s; a checkpoint holds the
         parameters, the step, the generator's state and ``F_prev``.
-    runtime : the JAX package's mesh or multi-process runtime, not ported.
+    runtime : a ``parallel.mesh.MeshRuntime``: ``y`` is this rank's shard,
+        and the ranks train one model in lockstep (module docstring).
     device : where the segments, parameters and random numbers live
-        (``"cuda"``; the CPU only when asked).
+        (``"cuda"``; the CPU only when asked; under a runtime its device).
     """
 
     def __init__(self, model, anneal, y, seg_size: int = 1 << 20,
@@ -113,7 +126,7 @@ class StreamingEM:
                  dlog=None, log_params_every: int = 1,
                  cache_bytes: Optional[int] = 8 << 30,
                  checkpoint_path: Optional[str] = None,
-                 checkpoint_every: int = 0, runtime=None, device="cuda"):
+                 checkpoint_every: int = 0, runtime=None, device=None):
         if not (hasattr(model, "estep_sums")
                 and hasattr(model, "finalize_mstep")):
             raise TypeError(
@@ -127,22 +140,31 @@ class StreamingEM:
                 "second E-step pass per iteration and is not supported by "
                 "StreamingEM; use the default lagged ranking or "
                 "the in-memory EM")
+        self.runtime = runtime
+        self.group = None
         if runtime is not None:
-            raise not_ported("StreamingEM(runtime=...)", "distributed")
+            check_runtime(runtime)
+            if device is not None and local_device(device) != runtime.device:
+                raise ValueError(f"StreamingEM(device={device!r}) differs "
+                                 f"from the runtime's device "
+                                 f"{runtime.device}")
+            device, self.group = runtime.device, runtime.group
         self.model = model
         self.anneal = anneal
         self.dlog = dlog
         self.log_params_every = log_params_every
-        self.device = torch.device(device)
+        self.device = torch.device("cuda" if device is None else device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self.y = y
-        #: rows of this process; one process holds them all (a
-        #: multi-process run would gather the other processes' counts)
+        #: rows of this rank; every rank's counts in rank order, the global
+        #: count and this rank's offset in the global (stride) row order
         self.N = int(y.shape[0])
-        self._n_locals = np.asarray([self.N], np.int64)
+        self._n_locals = (runtime.n_locals(self.N) if runtime is not None
+                          else np.asarray([self.N], np.int64))
         self.N_global = int(self._n_locals.sum())
-        self._row_offset = 0
+        self._row_offset = (int(self._n_locals[:runtime.rank].sum())
+                            if runtime is not None else 0)
         c = max(int(model.chunk), 1)
         N_for_seg = int(self._n_locals.max())
         seg = min(int(seg_size), max(N_for_seg, 1))
@@ -152,10 +174,14 @@ class StreamingEM:
         total = rows * int(y.shape[1]) * 4
         self._cache_all = bool(cache_bytes) and total <= int(cache_bytes)
         self.uploader = SegmentUploader(y, self.seg_size, self.device,
-                                        cache_all=self._cache_all)
+                                        cache_all=self._cache_all,
+                                        n_seg=self.n_seg)
         self.valid = (torch.arange(rows, device=self.device)
                       < self.N).float()
+        #: this rank's valid rows (``finalize_mstep`` sums them over the
+        #: ranks) and all ranks' (the Ncut keep count)
         self.N_total = self.valid.sum()
+        self._N_all = maybe_psum(self.valid.sum(), self.group)
         #: the lagged per-row free energies that rank the Ncut cut, on the
         #: device (rows past N are padding)
         self.F_prev = torch.zeros(rows, dtype=torch.float32,
@@ -169,6 +195,9 @@ class StreamingEM:
                                          device=self.device)
         self.params = params_from_numpy(
             {k: to_numpy(v) for k, v in params.items()}, self.device)
+        if runtime is not None:
+            # every rank probed its own rows: rank 0's parameters for all
+            self.params = runtime.replicate(self.params)
         self.history: list = []
 
     def _next_needs_F(self) -> bool:
@@ -190,8 +219,9 @@ class StreamingEM:
             # the threshold over all rows from the lagged F, before the pass
             logA, _ = truncated_prior_logmass(model.log_pi_active(params),
                                               model.H, model.gamma)
-            keep = ncut_keep_count(self.N_total, sched["Ncut_factor"], logA)
-            thresh = global_quantile_threshold(self.F_prev, self.valid, keep)
+            keep = ncut_keep_count(self._N_all, sched["Ncut_factor"], logA)
+            thresh = global_quantile_threshold(self.F_prev, self.valid, keep,
+                                               group=self.group)
         keep_F = self._next_needs_F()
 
         acc = None
@@ -201,7 +231,7 @@ class StreamingEM:
             y_seg = up.get(k)
             valid = self.valid[rows]
             w = (exact_count_mask(self.generator, seg, sched["partial"],
-                                  valid=valid)
+                                  valid=valid, group=self.group)
                  if pattern.partial else valid)
             if pattern.ncut:
                 w = w * (self.F_prev[rows] >= thresh).float()
@@ -214,7 +244,7 @@ class StreamingEM:
             if k + 1 < self.n_seg:
                 up.put(k + 1)
         self.params, scalars = model.finalize_mstep(params, acc,
-                                                    self.N_total)
+                                                    self.N_total, self.group)
 
         vals = torch.stack([torch.as_tensor(v, dtype=torch.float32,
                                             device=self.device)
@@ -266,11 +296,20 @@ class StreamingEM:
 
     def save_checkpoint(self, path: Optional[str] = None) -> None:
         """Write the parameters, the step, the generator's state and
-        ``F_prev`` (N floats) to ``path`` (default ``checkpoint_path``), in
-        the layout of ``EM.save_checkpoint``."""
+        ``F_prev`` (N floats; under a runtime every rank's, in stride order)
+        to ``path`` (default ``checkpoint_path``), in the layout of
+        ``EM.save_checkpoint``.  Under a runtime every rank calls it and
+        rank 0 writes."""
         checkpoint.save(path or self.checkpoint_path, self.params,
                         step=self.anneal.position, generator=self.generator,
-                        extra={"F_prev": self.F_prev[:self.N]})
+                        extra={"F_prev": self._global_F_prev()})
+
+    def _global_F_prev(self):
+        """Every rank's ``F_prev`` rows in stride order (a collective under
+        a runtime), or this rank's."""
+        if self.runtime is None:
+            return self.F_prev[:self.N]
+        return self.runtime.stride_order(self.F_prev, self._n_locals)
 
     def resume(self, path: str) -> int:
         """Continue from the checkpoint at ``path`` on the trajectory it
@@ -278,7 +317,8 @@ class StreamingEM:
         Raises ValueError, changing nothing, where the checkpoint holds no
         generator state for this device type (the noise and the partial
         masks could not follow the same chain) or an ``F_prev`` of another
-        length than N.  Returns the step."""
+        length than N (under a runtime: than every rank's N together; each
+        rank takes its own rows).  Returns the step."""
         params, step, state, extra = checkpoint.restore_full(path,
                                                              self.device)
         if state is None:
@@ -287,9 +327,11 @@ class StreamingEM:
                 "streamed run resumes from a checkpoint of this package "
                 f"written on a {self.device.type} device")
         F_prev = extra.get("F_prev")
-        if F_prev is not None and F_prev.shape != (self.N,):
+        if F_prev is not None and F_prev.shape != (self.N_global,):
             raise ValueError(f"{path}: F_prev has shape {F_prev.shape}, the "
-                             f"data set {(self.N,)}")
+                             f"data set {(self.N_global,)}")
+        if F_prev is not None:
+            F_prev = F_prev[self._row_offset:self._row_offset + self.N]
         self.params = {k: v.contiguous() for k, v in params.items()}
         self.generator.set_state(state)
         if F_prev is not None:

@@ -33,6 +33,7 @@ from prosper_tpu_torch.core.etstep import (LinearStateArrays,
 from prosper_tpu_torch.core.select import (exact_count_mask,
                                            global_quantile_threshold,
                                            ncut_keep_count)
+from prosper_tpu_torch.parallel.mesh import maybe_psum
 
 
 def to_numpy(x) -> np.ndarray:
@@ -242,56 +243,80 @@ class ETModel:
         return bool(dense_states)
 
     # -- shared ET data-selection masks ---------------------------------------
+    #
+    # With a process group (``parallel/mesh.py``) the rows are this rank's:
+    # the partial mask draws per rank, the Ncut cut ranks the rows of every
+    # rank (``n_sel`` and the threshold's histograms are summed), and
+    # ``N_total`` is this rank's count, summed with the sufficient
+    # statistics in ``finalize_mstep`` (one all-reduce for both).
 
-    def partial_mask(self, data, sched, generator) -> torch.Tensor:
+    def partial_mask(self, data, sched, generator, group=None) -> torch.Tensor:
         """Exact-count random subsampling mask (``partial`` channel)."""
         valid = data["valid"]
         if not pattern_of(sched).partial:
             return valid
         return exact_count_mask(generator, valid.shape[0], sched["partial"],
-                                valid=valid)
+                                valid=valid, group=group)
 
-    def ncut_weight(self, pmask, F_rank, sched, logA) -> torch.Tensor:
+    def ncut_weight(self, pmask, F_rank, sched, logA,
+                    group=None) -> torch.Tensor:
         """The ET data cut on top of ``pmask``, ranking by ``F_rank``.  The
         keep count applies the ET fraction to the rows under consideration
-        (sum of ``pmask``), not to all valid rows: with ``partial`` < 1 the
-        two differ, and a keep count above the subset would make the cut a
-        no-op."""
-        keep = ncut_keep_count(pmask.sum(), sched["Ncut_factor"], logA)
-        thresh = global_quantile_threshold(F_rank, pmask, keep)
+        (sum of ``pmask``, over every rank), not to all valid rows: with
+        ``partial`` < 1 the two differ, and a keep count above the subset
+        would make the cut a no-op."""
+        n_sel = maybe_psum(pmask.sum(), group)
+        keep = ncut_keep_count(n_sel, sched["Ncut_factor"], logA)
+        thresh = global_quantile_threshold(F_rank, pmask, keep, group=group)
         return pmask * (F_rank >= thresh).float()
 
     def run_estep_with_ncut(self, estep, log_pi_active, data, sched,
-                            generator):
+                            generator, group=None):
         """E-step orchestration for both Ncut semantics.  ``estep(weight)
-        -> (F, sums)``.  Returns (F, sums, logA, logB, N_total)."""
+        -> (F, sums)``.  Returns (F, sums, logA, logB, N_total), with this
+        rank's ``N_total`` under a group."""
         if not getattr(self, "ncut_current", False):
             weight, logA, logB, N_total = self.et_weight_mask(
-                log_pi_active, data, sched, generator)
+                log_pi_active, data, sched, generator, group)
             F, sums = estep(weight)
             return F, sums, logA, logB, N_total
 
-        pmask = self.partial_mask(data, sched, generator)
+        pmask = self.partial_mask(data, sched, generator, group)
         logA, logB = truncated_prior_logmass(log_pi_active, self.H,
                                              self.gamma)
         N_total = data["valid"].sum()
         F, sums = estep(pmask)
         if pattern_of(sched).ncut:
-            sums = estep(self.ncut_weight(pmask, F, sched, logA))[1]
+            sums = estep(self.ncut_weight(pmask, F, sched, logA, group))[1]
         return F, sums, logA, logB, N_total
 
-    def et_weight_mask(self, log_pi_active, data, sched, generator):
+    def et_weight_mask(self, log_pi_active, data, sched, generator,
+                       group=None):
         """Combined partial-subsampling + Ncut mask.
-        Returns (weight (N,), logA, logB, N_total)."""
-        pmask = self.partial_mask(data, sched, generator)
+        Returns (weight (N,), logA, logB, N_total), with this rank's
+        ``N_total`` under a group."""
+        pmask = self.partial_mask(data, sched, generator, group)
         logA, logB = truncated_prior_logmass(log_pi_active, self.H,
                                              self.gamma)
         N_total = data["valid"].sum()
         if pattern_of(sched).ncut:
-            weight = self.ncut_weight(pmask, data["F_prev"], sched, logA)
+            weight = self.ncut_weight(pmask, data["F_prev"], sched, logA,
+                                      group)
         else:
             weight = pmask
         return weight, logA, logB, N_total
+
+    # -- one iteration ----------------------------------------------------------
+
+    def step(self, params, data, anneal, generator: torch.Generator):
+        """One EM iteration on the device of ``data``: ``data`` holds y,
+        valid and F_prev (``make_blank_data``); returns (params, data with
+        F_prev = this iteration's F, scalars), the JAX package's
+        ``step(params, data, anneal, rng)`` contract.  The annealer is read,
+        not advanced."""
+        sched = device_sched(sched_floats(anneal), data["y"].device)
+        params, F, scalars = self.step_fn(params, data, sched, generator)
+        return params, dict(data, F_prev=F), scalars
 
 
 def sched_floats(anneal) -> Dict[str, float]:

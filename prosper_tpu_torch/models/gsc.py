@@ -24,8 +24,9 @@ from prosper_tpu_torch.core.gscstep import gsc_et_estep, gsc_posterior
 from prosper_tpu_torch.core.states import binary_state_space
 from prosper_tpu_torch.models.base import (ETModel, device_sched, pattern_of,
                                            sched_floats, to_numpy)
-from prosper_tpu_torch.models.linear import (_no_state_sharding, not_ported,
-                                             solve)
+from prosper_tpu_torch.models.linear import (_no_state_sharding,
+                                             reduce_sums, solve)
+from prosper_tpu_torch.parallel.mesh import check_runtime
 from prosper_tpu_torch.utils.staging import rows_to_device
 
 
@@ -63,9 +64,10 @@ class GSC(ETModel):
             collect_true=not pattern_of(sched).saturated)
 
     def step_fn(self, params, data, sched, generator, state_axis=None,
-                n_state_shards: int = 1):
+                n_state_shards: int = 1, group=None):
         """One EM iteration: noisify -> masks -> E-step -> M-step.
-        Returns (new_params, F (N,), scalars)."""
+        Returns (new_params, F (N,), scalars); with a process group on this
+        rank's rows (``LinearETModel.step_fn``)."""
         _no_state_sharding(state_axis, n_state_shards)
         y = data["y"]
         sched = device_sched(sched, y.device)
@@ -75,13 +77,16 @@ class GSC(ETModel):
             return self.estep_sums(params, y, weight, sched)
 
         F, sums, _, _, N_total = self.run_estep_with_ncut(
-            estep, self.log_pi_active(params), data, sched, generator)
-        new, scalars = self.finalize_mstep(params, sums, N_total)
+            estep, self.log_pi_active(params), data, sched, generator, group)
+        new, scalars = self.finalize_mstep(params, sums, N_total, group)
         return new, F, scalars
 
-    def finalize_mstep(self, params, sums, N_total):
+    def finalize_mstep(self, params, sums, N_total, group=None):
         """The slab M-step (W, pi, sigma, mu, psi) and the per-iteration
-        scalars.  ``params`` is the noisified dict the E-step ran with."""
+        scalars.  ``params`` is the noisified dict the E-step ran with; with
+        a process group the sums and ``N_total`` are this rank's and are
+        summed over the ranks first, in one all-reduce."""
+        sums, N_total = reduce_sums(sums, N_total, group)
         logA, logB = truncated_prior_logmass(self.log_pi_active(params),
                                              self.H, self.gamma)
         new = dict(params)
@@ -130,9 +135,13 @@ class GSC(ETModel):
         and F.  ``dense_states``: True returns ``top_states (N, L, H)``,
         False the compact fields and ``cand``
         (``core.etstep.densify_top_states`` rebuilds the dense tensor),
-        None picks by output size."""
+        None picks by output size.  ``runtime``: this rank's rows on this
+        rank's device (``MeshRuntime.shard_decode``)."""
         if runtime is not None:
-            raise not_ported("runtime (sharded serving)", "distributed")
+            return check_runtime(runtime).shard_decode(
+                lambda y, p: self.inference(p, {"y": y}, top_L, anneal,
+                                            dense_states=dense_states))(
+                data["y"], params)
         sched = sched_floats(anneal) if anneal is not None else None
         beta = sched["beta"] if sched else 1.0
         prior_beta = sched["prior_beta"] if sched else 1.0

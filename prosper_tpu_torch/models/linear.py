@@ -40,6 +40,7 @@ from prosper_tpu_torch.models.base import (ETModel, device_sched,
                                            pattern_of, resolve_backend,
                                            sched_floats, to_numpy)
 from prosper_tpu_torch.ops.linear_cuda import linear_et_estep
+from prosper_tpu_torch.parallel.mesh import check_runtime, psum_dict
 from prosper_tpu_torch.utils.staging import rows_to_device
 
 
@@ -57,10 +58,19 @@ def solve(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     return torch.linalg.solve_ex(A, B, check_errors=False).result
 
 
+def reduce_sums(sums: Dict, N_total, group):
+    """(sums, N_total) summed over the ranks of ``group`` in one all-reduce
+    (``parallel/mesh.py::psum_dict``); as they are without a group."""
+    if group is None:
+        return sums, N_total
+    out = psum_dict(dict(sums, N_total=N_total), group)
+    return {k: out[k] for k in sums}, out["N_total"]
+
+
 def _no_state_sharding(state_axis, n_state_shards):
     if state_axis is not None or n_state_shards != 1:
         raise not_ported("state sharding (state_axis, n_state_shards)",
-                         "distributed")
+                         "state sharding")
 
 
 class LinearETModel(ETModel):
@@ -166,9 +176,12 @@ class LinearETModel(ETModel):
         return estep(*args, chunk=self.chunk, collect_true=not saturated,
                      s_block=self.s_block)
 
-    def finalize_mstep(self, params, sums, N_total):
+    def finalize_mstep(self, params, sums, N_total, group=None):
         """Closed-form M-step and the per-iteration scalars (0-d tensors).
-        ``params`` is the noisified dict the E-step ran with."""
+        ``params`` is the noisified dict the E-step ran with.  With a
+        process group the sums and ``N_total`` are this rank's and are
+        summed over the ranks first, in one all-reduce."""
+        sums, N_total = reduce_sums(sums, N_total, group)
         logA, logB = truncated_prior_logmass(self.log_pi_active(params),
                                              self.H, self.gamma)
         new_params = self.m_step(params, sums, logA, logB)
@@ -184,9 +197,11 @@ class LinearETModel(ETModel):
         return new_params, scalars
 
     def step_fn(self, params, data, sched, generator, state_axis=None,
-                n_state_shards: int = 1):
+                n_state_shards: int = 1, group=None):
         """One EM iteration: noisify -> masks -> E-step -> M-step.
-        Returns (new_params, F (N,), scalars)."""
+        Returns (new_params, F (N,), scalars).  With a process group
+        (``MeshRuntime.shard_step``) ``data`` holds this rank's rows and
+        the parameters, scalars and generator stay replicated."""
         _no_state_sharding(state_axis, n_state_shards)
         y = data["y"]
         sched = device_sched(sched, y.device)
@@ -196,8 +211,9 @@ class LinearETModel(ETModel):
             return self.estep_sums(params, y, weight, sched)
 
         F, sums, logA, logB, N_total = self.run_estep_with_ncut(
-            estep, self.log_pi_active(params), data, sched, generator)
-        new_params, scalars = self.finalize_mstep(params, sums, N_total)
+            estep, self.log_pi_active(params), data, sched, generator, group)
+        new_params, scalars = self.finalize_mstep(params, sums, N_total,
+                                                  group)
         return new_params, F, scalars
 
     def m_step(self, params, sums, logA, logB):
@@ -236,9 +252,14 @@ class LinearETModel(ETModel):
         with ``backend="plain"``).
         ``dense_states``: True returns ``top_states (N, L, H)``, False the
         compact fields (``core.etstep.densify_top_states`` rebuilds the
-        dense tensor), None picks by output size."""
+        dense tensor), None picks by output size.
+        ``runtime`` (a ``MeshRuntime``): ``data`` holds this rank's rows,
+        decoded on this rank's device (``MeshRuntime.shard_decode``); the
+        outputs are this rank's rows."""
         if runtime is not None:
-            raise not_ported("runtime (sharded serving)", "distributed")
+            return check_runtime(runtime).shard_decode(
+                lambda y, p: self.inference(p, {"y": y}, top_L, anneal,
+                                            dense_states))(data["y"], params)
         sched = sched_floats(anneal) if anneal is not None else None
         beta = sched["beta"] if sched else 1.0
         prior_beta = sched["prior_beta"] if sched else 1.0

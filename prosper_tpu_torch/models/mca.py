@@ -31,8 +31,9 @@ from prosper_tpu_torch.core.states import binary_state_space
 from prosper_tpu_torch.models.base import (ETModel, device_sched, pattern_of,
                                            resolve_backend, sched_floats,
                                            to_numpy)
-from prosper_tpu_torch.models.linear import _no_state_sharding, not_ported
+from prosper_tpu_torch.models.linear import _no_state_sharding, reduce_sums
 from prosper_tpu_torch.ops import max_cuda
+from prosper_tpu_torch.parallel.mesh import check_runtime
 from prosper_tpu_torch.utils.staging import rows_to_device
 
 
@@ -85,9 +86,12 @@ class MCA(ETModel):
         return max_cuda.max_et_estep(*args, chunk=self.chunk,
                                      collect_true=not pattern.saturated)
 
-    def finalize_mstep(self, params, sums, N_total):
+    def finalize_mstep(self, params, sums, N_total, group=None):
         """Winner-responsibility M-step and the per-iteration scalars.
-        ``params`` is the noisified dict the E-step ran with."""
+        ``params`` is the noisified dict the E-step ran with; with a
+        process group the sums and ``N_total`` are this rank's and are
+        summed over the ranks first, in one all-reduce."""
+        sums, N_total = reduce_sums(sums, N_total, group)
         logA, logB = truncated_prior_logmass(self.log_pi_active(params),
                                              self.H, self.gamma)
         new = dict(params)
@@ -112,9 +116,10 @@ class MCA(ETModel):
         return new, scalars
 
     def step_fn(self, params, data, sched, generator, state_axis=None,
-                n_state_shards: int = 1):
+                n_state_shards: int = 1, group=None):
         """One EM iteration: noisify -> masks -> E-step -> M-step.
-        Returns (new_params, F (N,), scalars)."""
+        Returns (new_params, F (N,), scalars); with a process group on this
+        rank's rows (``LinearETModel.step_fn``)."""
         _no_state_sharding(state_axis, n_state_shards)
         y = data["y"]
         sched = device_sched(sched, y.device)
@@ -124,8 +129,8 @@ class MCA(ETModel):
             return self.estep_sums(params, y, weight, sched)
 
         F, sums, _, _, N_total = self.run_estep_with_ncut(
-            estep, self.log_pi_active(params), data, sched, generator)
-        new, scalars = self.finalize_mstep(params, sums, N_total)
+            estep, self.log_pi_active(params), data, sched, generator, group)
+        new, scalars = self.finalize_mstep(params, sums, N_total, group)
         return new, F, scalars
 
     # -- generation -----------------------------------------------------------
@@ -162,9 +167,12 @@ class MCA(ETModel):
         package has no decode kernel for this family), on the device of
         ``params['W']``.  Same output contract as the linear family's
         ``inference``, with the canonical union index 0 = zero state,
-        1 + h = singleton, 1 + H + s = multi state."""
+        1 + h = singleton, 1 + H + s = multi state.  ``runtime``: this
+        rank's rows on this rank's device (``MeshRuntime.shard_decode``)."""
         if runtime is not None:
-            raise not_ported("runtime (sharded serving)", "distributed")
+            return check_runtime(runtime).shard_decode(
+                lambda y, p: self.inference(p, {"y": y}, top_L, anneal,
+                                            dense_states))(data["y"], params)
         sched = sched_floats(anneal) if anneal is not None else None
         beta = sched["beta"] if sched else 1.0
         prior_beta = sched["prior_beta"] if sched else 1.0

@@ -6,19 +6,22 @@ the framework's EM loop and annealing: the step has the ET models'
 ``EM.run`` and ``EM.run_scanned`` drive them unchanged.  The E-step is one
 (N, K) softmax after an (N, D) x (D, K) product; the sufficient statistics
 are two GEMMs.  Plain PyTorch on whatever device the tensors lie on.
+With a process group (``MeshRuntime.shard_step``) each rank holds its own
+rows, draws its own ``partial`` mask, and the sums and the valid count are
+summed over the ranks in one all-reduce before the M-step.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict
 
 import numpy as np
 import torch
 
 from prosper_tpu_torch.core.select import exact_count_mask
 from prosper_tpu_torch.models.base import device_sched, pattern_of, to_numpy
-from prosper_tpu_torch.models.linear import not_ported
+from prosper_tpu_torch.models.linear import reduce_sums
 from prosper_tpu_torch.utils.staging import rows_to_device
 
 
@@ -51,20 +54,17 @@ class MixtureModel:
 
     # -- shared step ----------------------------------------------------------
 
-    def step_fn(self, params, data, sched, generator,
-                axis_name: Optional[str] = None):
+    def step_fn(self, params, data, sched, generator, group=None):
         """One EM iteration: the ``partial`` mask, responsibilities, the
         M-step.  Returns (new_params, F (N,), scalars).  A saturated step
-        (beta == prior_beta == 1) skips the second logsumexp: F_true == F."""
-        if axis_name is not None:
-            raise not_ported("axis_name (data-parallel mixtures)",
-                             "distributed")
+        (beta == prior_beta == 1) skips the second logsumexp: F_true == F.
+        ``group``: the process group the JAX package names ``axis_name``."""
         y = data["y"]
         valid = data["valid"]
         sched = device_sched(sched, y.device)
         pattern = pattern_of(sched)
         weight = (exact_count_mask(generator, y.shape[0], sched["partial"],
-                                   valid=valid)
+                                   valid=valid, group=group)
                   if pattern.partial else valid)
 
         log_pi = torch.log(torch.clamp(params["pi"], min=1e-12))
@@ -86,6 +86,7 @@ class MixtureModel:
             "F": (F * weight).sum(),
             "F_true": (F_true * weight).sum(),
         }
+        sums, N_total = reduce_sums(sums, valid.sum(), group)
         new = dict(params)
         n_used = torch.clamp(sums["n"], min=1.0)
         if "pi" in self.to_learn:
@@ -95,7 +96,7 @@ class MixtureModel:
         scalars = {
             "F_total": sums["F"], "F_mean": sums["F"] / n_used,
             "Q": sums["F_true"], "Q_mean": sums["F_true"] / n_used,
-            "n_used": sums["n"], "N_total": valid.sum(),
+            "n_used": sums["n"], "N_total": N_total,
         }
         return new, F, scalars
 

@@ -90,19 +90,23 @@ class SegmentUploader:
     returns the (seg_size, D) device tensor, ``release(k)`` marks the end of
     the work that reads it.  Two device buffers take turns (segment k in
     buffer k % 2), or, with ``cache_all``, one buffer holds every segment
-    and after the first pass no segment is uploaded again.  On the CPU the
-    same calls copy synchronously.  ``stats``: seconds the host spent
+    and after the first pass no segment is uploaded again.  ``n_seg``
+    (default: enough for N rows) may ask for more segments than the rows
+    fill: those hold padding only (a short rank's, in lockstep with the
+    others).  On the CPU the same calls copy synchronously.  ``stats``: seconds the host spent
     filling staging buffers and waiting for them, bytes and segments
     uploaded, the registration's seconds and whether the source was
     page-locked in place.  ``close()`` gives the buffers and the
     registration back.
     """
 
-    def __init__(self, y, seg_size: int, device, cache_all: bool = False):
+    def __init__(self, y, seg_size: int, device, cache_all: bool = False,
+                 n_seg: Optional[int] = None):
         self.y = y
         self.N, self.D = int(y.shape[0]), int(y.shape[1])
         self.seg_size = int(seg_size)
-        self.n_seg = -(-self.N // self.seg_size)
+        self.n_seg = (-(-self.N // self.seg_size) if n_seg is None
+                      else int(n_seg))
         self.device = torch.device(device)
         self.cuda = self.device.type == "cuda"
         self.cache_all = bool(cache_all)
@@ -118,9 +122,9 @@ class SegmentUploader:
         self._read: List = []
 
     def bounds(self, k: int) -> Tuple[int, int]:
-        """Rows [lo, hi) of the data in segment k."""
-        lo = k * self.seg_size
-        return lo, min(lo + self.seg_size, self.N)
+        """Rows [lo, hi) of the data in segment k (empty past the data)."""
+        lo = min(k * self.seg_size, self.N)
+        return lo, min(k * self.seg_size + self.seg_size, self.N)
 
     def _setup(self) -> None:
         seg, D, dev = self.seg_size, self.D, self.device

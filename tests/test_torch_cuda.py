@@ -1293,3 +1293,113 @@ def test_inference_from_numpy_equals_from_the_card(name, device):
     assert set(a) == set(b)
     for k in a:
         assert torch.equal(a[k], b[k]), k
+
+
+# -- the data-parallel runtime at one rank: NCCL, and gloo on the card --------
+
+@pytest.fixture(scope="module")
+def nccl_rt(tmp_path_factory):
+    """A MeshRuntime over a one-rank NCCL group on the card (a file store):
+    the collectives are issued, and a one-rank all-reduce keeps every
+    bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch.distributed as dist
+
+    from prosper_tpu_torch.parallel.mesh import MeshRuntime
+    store = tmp_path_factory.mktemp("nccl") / "store"
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1)
+    yield MeshRuntime(device="cuda:0")
+    dist.destroy_process_group()
+
+
+def _runtime_pair(name, rt, N=777, anneal=_scan_anneal, **kw):
+    """(EM without a runtime, EM under ``rt``) from one seed and init."""
+    from prosper_tpu_torch import EM
+    y = _scan_data(name, N)
+    make = _scan_models()[name]
+    model = make()
+    p0 = model.standard_init({"y": y}, seed=3, device="cuda")
+    return (EM(model, anneal(), {"y": y}, params=p0, seed=7, device="cuda",
+               **kw),
+            EM(model, anneal(), {"y": y}, params=p0, seed=7, runtime=rt,
+               **kw))
+
+
+@pytest.mark.parametrize("name", ["bsc", "mca", "tsc_bigs"])
+def test_one_nccl_rank_run_is_bit_identical_to_run(name, device, nccl_rt):
+    from prosper_tpu_torch.parallel.mesh import COLLECTIVES
+    ref, em = _runtime_pair(name, nccl_rt)
+    ref.run()
+    before = COLLECTIVES["all_reduce"]
+    em.run()
+    torch.cuda.synchronize()
+    _assert_same_run(em, ref)
+    # the sums and N_total every step (1), the Ncut cut's n_sel, extent and
+    # three histograms on the 5 iterations with it (5 more)
+    assert COLLECTIVES["all_reduce"] - before == 8 + 5 * 5
+
+
+@pytest.mark.parametrize("name", ["bsc", "mca", "tsc_bigs"])
+def test_one_nccl_rank_run_scanned_captures_the_collectives(name, device,
+                                                            nccl_rt):
+    """``run_scanned`` under NCCL: the all-reduces are captured with the
+    step, and the replays equal ``run`` without a runtime bit for bit."""
+    ref, em = _runtime_pair(name, nccl_rt)
+    ref.run()
+    em.run_scanned()
+    torch.cuda.synchronize()
+    _assert_same_run(em, ref)
+    stats = em.scan_stats
+    assert (stats["graphs"], stats["eager_steps"], stats["replays"]) == (
+        2, 3, 5)
+    # replays 1-2 of the annealed pattern (1 each), 3 of the cut (6 each)
+    assert stats["replayed_all_reduces"] == 2 * 1 + 3 * 6
+
+
+def test_one_nccl_rank_partial_revival_streaming_and_decode(device, nccl_rt):
+    from prosper_tpu_torch import StreamingEM
+    ref, em = _runtime_pair("bsc", nccl_rt,
+                            anneal=lambda: _scan_anneal(partial=True),
+                            revive_duplicates=(2, 0.3))
+    ref.run()
+    em.run()
+    _assert_same_run(em, ref)
+    assert em.revival_stats == ref.revival_stats
+    assert ref.revival_stats["revived"] > 0
+    model = _scan_models()["bsc"]()
+    y = _scan_data("bsc", 768)
+    p0 = model.standard_init({"y": y}, seed=3, device="cuda")
+    a = StreamingEM(model, _scan_anneal(), y, seg_size=256, params=p0,
+                    seed=7, device="cuda")
+    b = StreamingEM(model, _scan_anneal(), y, seg_size=256, params=p0,
+                    seed=7, runtime=nccl_rt)
+    a.run()
+    b.run()
+    _assert_same_stream(a, b)
+    for dense in (False, True):
+        d0 = model.inference(p0, {"y": y}, top_L=4, dense_states=dense)
+        d1 = model.inference(p0, {"y": y}, top_L=4, dense_states=dense,
+                             runtime=nccl_rt)
+        for k in d0:
+            assert torch.equal(d0[k], d1[k]), k
+
+
+def test_gloo_on_the_card_runs_and_refuses_run_scanned(device, nccl_rt):
+    """Gloo reduces CUDA tensors (through the host), as two ranks sharing
+    one card do; a gloo group cannot be captured, so ``run_scanned`` on the
+    card refuses it by name."""
+    import torch.distributed as dist
+
+    from prosper_tpu_torch.parallel.mesh import MeshRuntime
+    rt = MeshRuntime(group=dist.new_group(backend="gloo"), device="cuda:0")
+    assert rt.backend == "gloo" and rt.host_group is rt.group
+    ref, em = _runtime_pair("bsc", rt)
+    ref.run()
+    em.run()
+    _assert_same_run(em, ref)
+    _, em = _runtime_pair("bsc", rt)
+    with pytest.raises(ValueError, match="gloo"):
+        em.run_scanned()

@@ -217,7 +217,8 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TSC(25, 10, 6, 3, compute_dtype=torch.bfloat16)
     assert DSC(25, 10, 6, 3, to_learn=("W", "pi", "sigma", "phi")).learn_phi
-    with pytest.raises(NotImplementedError, match="ROADMAP.*distributed"):
+    # runtime= is ported (tests/test_torch_mesh.py); it takes a MeshRuntime
+    with pytest.raises(TypeError, match="MeshRuntime"):
         EM(BSC(25, 10, 6, 3), LinearAnnealing(2), {"y": y}, device="cpu",
            runtime=1)
     # the options of the data log, the checkpoints and the recovery protocol
@@ -232,14 +233,16 @@ def test_unported_options_raise():
            no_such_option=1)
     model = BSC(25, 10, 6, 3)
     params = model.standard_init({"y": y}, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="MeshRuntime"):
         model.inference(params, {"y": y}, runtime=object())
     sched = sched_floats(LinearAnnealing(2))
     data = make_blank_data(y, device="cpu")
     for shard in ({"state_axis": "s"}, {"n_state_shards": 2}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.*state sharding"):
             model.step_fn(params, data, sched, torch.Generator(), **shard)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.*state sharding"):
             model.estep_sums(params, data["y"], data["valid"], sched,
                              **shard)
 

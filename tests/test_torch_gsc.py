@@ -318,12 +318,13 @@ def test_unported_options_raise():
     sched = sched_floats(LinearAnnealing(2))
     data = make_blank_data(y, device="cpu")
     for shard in ({"state_axis": "s"}, {"n_state_shards": 2}):
-        with pytest.raises(NotImplementedError, match="distributed"):
+        with pytest.raises(NotImplementedError, match="state sharding"):
             model.step_fn(params, data, sched, torch.Generator(), **shard)
-        with pytest.raises(NotImplementedError, match="distributed"):
+        with pytest.raises(NotImplementedError, match="state sharding"):
             model.estep_sums(params, data["y"], data["valid"], sched,
                              **shard)
-    with pytest.raises(NotImplementedError, match="distributed"):
+    # sharded serving is ported (tests/test_torch_mesh.py): a MeshRuntime
+    with pytest.raises(TypeError, match="MeshRuntime"):
         model.inference(params, {"y": y}, runtime=object())
     with pytest.raises(TypeError):
         GSC(16, 8, 5, 3, backend="plain")         # the JAX class has none

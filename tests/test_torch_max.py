@@ -351,15 +351,17 @@ def test_unported_options_raise():
     args = _torch_args(a, 1.0, 1.0, 1.0)
     for kw in ({"state_axis": "s"}, {"n_state_shards": 2},
                {"dp_winner": False}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.*state sharding"):
             maxstep.max_et_estep(*args, **kw)
     model = MCA(16, 12, 5, 3)
     params = model.standard_init({"y": a["y"]}, device="cpu")
     data = make_blank_data(a["y"], device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.*state sharding"):
         model.step_fn(params, data, sched_floats(LinearAnnealing(2)),
                       torch.Generator(), state_axis="s")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # sharded serving is ported (tests/test_torch_mesh.py): a MeshRuntime
+    with pytest.raises(TypeError, match="MeshRuntime"):
         model.inference(params, {"y": a["y"]}, runtime=object())
     with pytest.raises(ValueError):
         MCA(16, 12, 13, 3)

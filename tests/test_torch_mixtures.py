@@ -137,7 +137,9 @@ def test_unported_options_raise():
     y = _data("mog")
     tm = MoG(8, 4)
     p = params_from_numpy(_init("mog", y), "cpu")
-    with pytest.raises(NotImplementedError, match="distributed"):
+    # data parallelism is ported: the step takes a process group
+    # (``group=``, tests/test_torch_multiprocess.py), not a mesh axis name
+    with pytest.raises(TypeError, match="axis_name"):
         tm.step_fn(p, make_blank_data(y, device="cpu"),
                    sched_floats(LinearAnnealing(2)), torch.Generator(),
                    axis_name="data")

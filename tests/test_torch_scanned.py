@@ -522,7 +522,8 @@ def test_one_step_with_partial_matches_jax_given_its_mask(family, ncut):
     assert mask.sum() == np.ceil(np.float32(0.6) * 240) and mask[-16:].sum() == 0
     p_j, F_j, s_j = jm.jit_step(False)(
         {k: jnp.asarray(v) for k, v in p_np.items()}, jdata, jsched, key)
-    tm.partial_mask = lambda data, sched, generator: torch.tensor(mask)
+    tm.partial_mask = (lambda data, sched, generator, group=None:
+                       torch.tensor(mask))
     tdata = {"y": torch.tensor(y), "valid": torch.tensor(valid),
              "F_prev": torch.tensor(F_prev)}
     p_t, F_t, s_t = tm.step_fn(params_from_numpy(p_np, "cpu"), tdata,

@@ -120,10 +120,19 @@ def test_host_quantile_threshold_matches_the_device_function(kind, seed):
 
 
 def test_host_quantile_threshold_allreduce_is_not_ported():
-    with pytest.raises(NotImplementedError, match="distributed"):
-        host_quantile_threshold(np.zeros(4, np.float32),
-                                np.ones(4, np.float32), 2.0,
-                                allreduce=lambda x, op: x)
+    """``allreduce`` is ported since this test was named: with the
+    reduction of one rank (the identity) the threshold is unchanged; the
+    reduction over ranks is in tests/test_torch_multiprocess.py."""
+    seen = []
+
+    def one_rank(x, op):
+        seen.append(op)
+        return x
+    for kind, seed in (("ties", 0), ("gauss", 1), ("edges", 2)):
+        v, valid, keep = _distribution(kind, seed)
+        assert (host_quantile_threshold(v, valid, keep, allreduce=one_rank)
+                == host_quantile_threshold(v, valid, keep))
+    assert seen[:5] == ["min", "max", "sum", "sum", "sum"]
 
 
 # -- streamed against in-memory ---------------------------------------------------
@@ -265,8 +274,9 @@ def test_streaming_rejects_what_it_cannot_stream(what):
             StreamingEM(BSC(16, 8, 5, 3, chunk=32, ncut_current=True), a, y,
                         seg_size=32, device="cpu")
     else:
-        with pytest.raises(NotImplementedError,
-                           match="open item: distributed"):
+        # a runtime streams (tests/test_torch_multiprocess.py); it must be
+        # a MeshRuntime
+        with pytest.raises(TypeError, match="MeshRuntime"):
             StreamingEM(BSC(16, 8, 5, 3, chunk=32), a, y, seg_size=32,
                         device="cpu", runtime=object())
 
