@@ -64,11 +64,20 @@ gloo ranks on the one card (this script started twice, ``--rank22``), whose
 run equals phase 6's run with its rows cut as the ranks hold them, bit for
 bit, and whose decodes, concatenated, equal phase 6's.  ``python3
 chip_smoke.py --phase 22`` runs the build, phase 6's run, the open check and
-phase 22 alone.
+phase 22 alone.  Phase 23 drives state sharding: (c) the big-S kernel on
+each state rank's slice of phase 12's states and on a slice of padding
+alone, against the plain version; then the script started twice again
+(``--rank23``), two gloo ranks on the card as the (1, 2) ``("data",
+"state")`` mesh: (a) phase 12's big-S TSC run and (b) phase 6's BSC run,
+each rank on half of the states through the big-S kernel alone, against
+the one-process run of the same kernel path; (d) MCA with
+``backend="cuda"`` under the state axis raises.  ``python3 chip_smoke.py
+--phase 23`` runs the build, phases 6 and 12 and phase 23 alone.
 
 Each path's launch counts are set to 0 just before it and checked just
 after.  Every phase raises on failure.  Prints one JSON line of the
-iteration times through ``run`` and ``run_scanned``, one of per-kernel
+iteration times through ``run`` and ``run_scanned``, one of state sharding
+(``state``), one of per-kernel
 results (time, plain version's time, the card's bound for the same work from
 the shapes, and a library call's time where one computes the same function)
 and ends with {"ok": true, "device": {"platform": "gpu", ...}}.
@@ -198,6 +207,11 @@ def traced_kernels(torch, run):
     device, so a graph replay, which passes no launch site, shows too."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # the tracer may miss the first kernels launched after it starts
+        # (one run lost the first step's two: sgemm_nn and max_estep), so a
+        # kernel of no interest goes first and is waited for
+        torch.ones(1, device="cuda").add_(1.0)
+        torch.cuda.synchronize()
         run()
         torch.cuda.synchronize()
     names = [e.name for e in prof.events()
@@ -647,7 +661,6 @@ def bigs_path(torch, np, dev, smi, err, patches_anneal):
     from prosper_tpu_torch import EM
     from prosper_tpu_torch.core import etstep
     from prosper_tpu_torch.core.states import discrete_state_space
-    from prosper_tpu_torch.data.bars import planted_dictionary
     from prosper_tpu_torch.models import TSC
     from prosper_tpu_torch.ops import bigs_cuda, cuda_lib, linear_cuda
 
@@ -743,20 +756,12 @@ def bigs_path(torch, np, dev, smi, err, patches_anneal):
             "bit-identical)")
 
     # ---- 12. big-S TSC at the width of bench.py's tsc_bigs -----------------
+    run12 = tsc_bigs_run(torch, np, dev, patches_anneal)
+    model, em, init, y_dev = (run12[k] for k in ("model", "em", "init",
+                                                 "y_dev"))
     D, H, Hp, gamma, N, iters, s_block = 64, 32, 10, 5, 131072, 6, 1024
-    model = TSC(D, H, Hp, gamma, chunk=8192, s_block=s_block)
-    gt = {"W": planted_dictionary(D, H, seed=0), "pi": np.float32(0.1),
-          "sigma": np.float32(1.0)}
-    data = model.generate_data(gt, N, seed=1)
-    held_out = model.generate_data(gt, 8192, seed=2)
-    init = model.standard_init(data, seed=3, device=dev)
-    y_dev = torch.tensor(data["y"], device=dev)
-    torch.cuda.synchronize()
-    reset_launches(cuda_lib)
-    em = EM(model, patches_anneal(iters), {"y": y_dev}, params=init, seed=4,
-            device=dev)
-    params = em.run()
-    serve = {dense: model.inference(params, held_out, top_L=10,
+    params = em.params
+    serve = {dense: model.inference(params, run12["held_out"], top_L=10,
                                     dense_states=dense)
              for dense in (False, True)}
     torch.cuda.synchronize()
@@ -865,10 +870,46 @@ def bigs_path(torch, np, dev, smi, err, patches_anneal):
     log(f"{tag} the E-step in two chunks of rows {chunks} agrees with one "
         "chunk (F bit-identical, sums within rtol 1e-5)")
     return {"launches": launches, "scanned": scanned,
-            "scanned_launches": scanned_launches, "ms": est[0],
-            "plain_ms": est[1],
-            **bound(2.0 * (nL + nM) * N * S,
-                    4.0 * (N * nX + S * (nX + K + 3) + N * (nX + K + 5)))}
+            "scanned_launches": scanned_launches, "run12": run12,
+            "ms": est[0], "plain_ms": est[1],
+            **bigs_bound(N, S, Hp, K)}
+
+
+def bigs_bound(N, S, Hp, K):
+    """The big-S function's bound over N rows and S states: nL + nM
+    multiply-adds per (row, state); its inputs (proj, Gf, the state
+    tables) read once, its eight outputs written once."""
+    nX = Hp + Hp * Hp
+    nL = Hp + Hp * (Hp + 1) // 2
+    nM = nL + K + 2
+    return bound(2.0 * (nL + nM) * N * S,
+                 4.0 * (N * nX + S * (nX + K + 3) + N * (nX + K + 5)))
+
+
+def tsc_bigs_run(torch, np, dev, patches_anneal):
+    """Phase 12's run: TSC at the width of bench.py's tsc_bigs (D=64, H=32,
+    H'=10, gamma=5, S=12564, s_block=1024) through 6 iterations of
+    ``EM.run`` on 131072 planted-dictionary rows; the launch counts are set
+    to 0 just before it."""
+    from prosper_tpu_torch import EM
+    from prosper_tpu_torch.data.bars import planted_dictionary
+    from prosper_tpu_torch.models import TSC
+    from prosper_tpu_torch.ops import cuda_lib
+    D, H, N = 64, 32, 131072
+    model = TSC(D, H, 10, 5, chunk=8192, s_block=1024)
+    gt = {"W": planted_dictionary(D, H, seed=0), "pi": np.float32(0.1),
+          "sigma": np.float32(1.0)}
+    data = model.generate_data(gt, N, seed=1)
+    held_out = model.generate_data(gt, 8192, seed=2)
+    init = model.standard_init(data, seed=3, device=dev)
+    y_dev = torch.tensor(data["y"], device=dev)
+    torch.cuda.synchronize()
+    reset_launches(cuda_lib)
+    em = EM(model, patches_anneal(6), {"y": y_dev}, params=init, seed=4,
+            device=dev)
+    em.run()
+    return {"model": model, "em": em, "init": init, "y_dev": y_dev,
+            "y_host": data["y"], "held_out": held_out}
 
 
 def learned_phi_step(torch, np, dev, cuda_lib):
@@ -1880,10 +1921,10 @@ def stream_path(torch, np, dev, smi, y_host, patches_anneal):
 ULPS_SQRT_N = 4.0
 
 
-def bsc_sums_f64(torch, y, w, W, sigma2, pi, sa, Hp, beta, prior_beta=1.0,
-                 chunk=32768, P32=None):
-    """One BSC E-step's sums (xs, ss, s, abs, y2, n, F) from the same inputs
-    as the kernel's, every operation in float64: the plain version's
+def linear_sums_f64(torch, y, w, W, sigma2, log_odds, sa, Hp, signed, beta,
+                    prior_beta=1.0, chunk=32768, P32=None):
+    """One linear E-step's sums (xs, ss, s, abs, vc, y2, n, F) from the same
+    inputs as the kernel's, every operation in float64: the plain version's
     arithmetic (``core/etstep.py::_chunk_estats``), rows in chunks whose
     sums are added in float64.  ``P32(rows)``, where given, is the float32
     projection y W of the rows that the E-step's own GEMM computes: the
@@ -1900,23 +1941,25 @@ def bsc_sums_f64(torch, y, w, W, sigma2, pi, sa, Hp, beta, prior_beta=1.0,
     wn = torch.sqrt(torch.clamp(gd, min=1e-30))
     D, H = W.shape
     st, ou, ab = sa.states.to(f), sa.outer.to(f), sa.abs_states.to(f)
-    pi = torch.as_tensor(pi, device=W.device).to(f)
-    lo = torch.log(pi) - torch.log1p(-pi)
+    vcs, v = sa.value_counts.to(f), sa.values.to(f)
+    K = v.shape[0]
+    lo = log_odds.to(f)
     i2 = 0.5 / torch.as_tensor(sigma2, device=W.device).to(f)
-    prior_multi = sa.value_counts.to(f)[:, 0] * lo
+    prior_multi = vcs @ lo
     const = (-beta * 0.5 * D * torch.log(math.pi / i2)
-             - prior_beta * H * torch.log1p(torch.exp(lo)))
+             - prior_beta * H * torch.log1p(torch.exp(lo).sum()))
     tot = {}
     for i in range(0, y.shape[0], chunk):
         yc, wc = y[i:i + chunk].to(f), w[i:i + chunk].to(f)
         C = yc.shape[0]
         P = yc @ W if P32 is None else P32(y[i:i + chunk]).to(f)
-        cand = top_hprime_candidates(P, wn, Hp, False)
+        cand = top_hprime_candidates(P, wn, Hp, signed)
         proj = P.gather(1, cand)
         Gf = gram[cand[:, :, None], cand[:, None, :]].reshape(C, Hp * Hp)
+        lik_single = (2.0 * P[:, :, None] * v - gd[None, :, None] * v * v) * i2
         logits = torch.cat([
             torch.zeros_like(P[:, :1]),
-            beta * (2.0 * P - gd) * i2 + prior_beta * lo,
+            (beta * lik_single + prior_beta * lo).reshape(C, H * K),
             beta * (2.0 * proj @ st.T - Gf @ ou.T) * i2
             + prior_beta * prior_multi], dim=1)
         m = logits.max(dim=1, keepdim=True).values
@@ -1925,17 +1968,28 @@ def bsc_sums_f64(torch, y, w, W, sigma2, pi, sa, Hp, beta, prior_beta=1.0,
         q = p / Z
         y2 = (yc * yc).sum(dim=1)
         F = (m + torch.log(Z))[:, 0] - beta * y2 * i2 + const
-        qs, qm = q[:, 1:1 + H], q[:, 1 + H:]
-        sw = qs.scatter_add(1, cand, qm @ st) * wc[:, None]
+        qs, qm = q[:, 1:1 + H * K].reshape(C, H, K), q[:, 1 + H * K:]
+        sw = (qs @ v).scatter_add(1, cand, qm @ st) * wc[:, None]
         idx = (cand[:, :, None] * H + cand[:, None, :]).reshape(-1)
         ss = (torch.zeros(H * H, dtype=f, device=W.device)
               .index_add_(0, idx, ((qm @ ou) * wc[:, None]).reshape(-1))
-              .reshape(H, H) + torch.diag((qs * wc[:, None]).sum(dim=0)))
+              .reshape(H, H)
+              + torch.diag(((qs @ (v * v)) * wc[:, None]).sum(dim=0)))
         part = {"xs": yc.T @ sw, "ss": ss, "s": sw.sum(dim=0),
-                "abs": ((qs.sum(dim=1) + qm @ ab) * wc).sum(),
+                "abs": ((qs.sum(dim=(1, 2)) + qm @ ab) * wc).sum(),
+                "vc": ((qs.sum(dim=1) + qm @ vcs) * wc[:, None]).sum(dim=0),
                 "y2": (y2 * wc).sum(), "n": wc.sum(), "F": (F * wc).sum()}
-        tot = part if not tot else {k: tot[k] + v for k, v in part.items()}
+        tot = part if not tot else {k: tot[k] + t for k, t in part.items()}
     return tot
+
+
+def bsc_sums_f64(torch, y, w, W, sigma2, pi, sa, Hp, beta, prior_beta=1.0,
+                 chunk=32768, P32=None):
+    """``linear_sums_f64`` for BSC with its prior ``pi``."""
+    pi = torch.as_tensor(pi, device=W.device).double()
+    return linear_sums_f64(torch, y, w, W, sigma2,
+                           (torch.log(pi) - torch.log1p(-pi)).reshape(1), sa,
+                           Hp, False, beta, prior_beta, chunk, P32)
 
 
 def against_f64(torch, np, sums, ref, N):
@@ -2073,6 +2127,11 @@ def nccl_kernels(torch, run):
     trace: (count, names)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # the tracer may miss the first kernels launched after it starts
+        # (one run lost the first step's two: sgemm_nn and max_estep), so a
+        # kernel of no interest goes first and is waited for
+        torch.ones(1, device="cuda").add_(1.0)
+        torch.cuda.synchronize()
         run()
         torch.cuda.synchronize()
     names = [e.name for e in prof.events()
@@ -2292,28 +2351,7 @@ def distributed_path(torch, np, dev, smi, ref, patches_anneal,
                  **{k: v.cpu().numpy() for k, v in init.items()})
         np.savez(os.path.join(tmp, "params6.npz"),
                  **{k: v.cpu().numpy() for k, v in em6.params.items()})
-        env = dict(os.environ)
-        env.setdefault("GLOO_SOCKET_IFNAME", "lo")
-        port = free_port()
-        t0 = time.perf_counter()
-        procs = [subprocess.Popen(
-            [sys.executable, __file__, "--rank22", str(r), str(port), tmp],
-            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True) for r in range(2)]
-        try:
-            logs = [p.communicate(timeout=600)[0] for p in procs]
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        wall = time.perf_counter() - t0
-        for r, (p, text) in enumerate(zip(procs, logs)):
-            if p.returncode != 0:
-                raise AssertionError(f"[22b] rank {r} failed "
-                                     f"({p.returncode}):\n{text[-6000:]}")
-        res = [dict(np.load(os.path.join(tmp, f"rank{r}.npz")))
-               for r in range(2)]
+        res, wall = start_ranks("--rank22", tmp, "[22b]")
     for r in res:
         for k in em6.params:
             if not np.array_equal(r[f"p.{k}"], res[0][f"p.{k}"]):
@@ -2419,8 +2457,8 @@ def rank22(rank: int, port: int, tmp: str) -> int:
     sums = {}
     real = linear_mod.reduce_sums
 
-    def first_sums(s, n, group):
-        out = real(s, n, group)
+    def first_sums(*args):
+        out = real(*args)
         if not sums:
             sums.update({k: v.double().cpu().numpy()
                          for k, v in out[0].items()})
@@ -2458,6 +2496,392 @@ def rank22(rank: int, port: int, tmp: str) -> int:
     out["broadcasts"] = len(broadcasts)
     out["rows"] = last - first
     out["ms"] = float(np.median([h["dt"] for h in em.history[1:]])) * 1e3
+    np.savez(os.path.join(tmp, f"rank{rank}.npz"), **out)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+# ---- 23. state sharding: a ("data", "state") mesh of two gloo ranks ---------
+
+
+def pad_states(tables, s_block):
+    """``bigs_multi``'s operands (proj, Gf, then six state tables) with the
+    state tables padded by zero rows, of ``valid`` 0, to a multiple of
+    ``s_block``."""
+    import torch
+    S = tables[2].shape[0]
+    pad = -S % s_block
+    return tables[:2] + tuple(
+        torch.nn.functional.pad(t, (0, 0, 0, pad) if t.dim() == 2
+                                else (0, pad)) for t in tables[2:])
+
+
+def first_step_params(torch, dev, model, init, patches_anneal):
+    """The noisified parameters and the schedule of the first iteration of
+    ``EM(..., seed=4)`` from ``init`` under phase 6's schedule."""
+    from prosper_tpu_torch.models.base import device_sched, sched_floats
+    host = sched_floats(patches_anneal(6))
+    sched = device_sched(host, dev)
+    p1 = model.noisify(init, sched,
+                       torch.Generator(device=dev).manual_seed(4))
+    return p1, host["beta"], host["prior_beta"]
+
+
+def state_slices(torch, np, dev, smi, err, run12, patches_anneal):
+    """23c, in this process: phase 12's first E-step's operands cut as the
+    two state ranks' slices of the kernel's layout (``ceil(S / 2)`` = 6282
+    states each): ``bigs_multi_cuda`` on each unpadded slice against
+    ``core.etstep.bigs_multi`` on the slice padded to s_block = 1024
+    (phase 11's tolerances); a slice of padding alone (state rank 15 of 16
+    in the plain layout at s_block = 1024) gives ``empty_moments`` through
+    both, bit for bit, the kernel without a launch; the kernel timed on
+    state rank 0's 6282 states against the plain version."""
+    from prosper_tpu_torch.core import etstep
+    from prosper_tpu_torch.ops import bigs_cuda, cuda_lib
+    model, y = run12["model"], run12["y_dev"]
+    p1, beta, prior_beta = first_step_params(torch, dev, model,
+                                             run12["init"], patches_anneal)
+    W, sa, Hp = p1["W"], model.state_arrays(dev), model.Hprime
+    gram = W.T @ W
+    front = (y, W, gram, torch.diagonal(gram), model.log_odds(p1), sa, Hp,
+             True)
+    scal = (0.5 / p1["sigma"] ** 2, beta, prior_beta)
+    S, K = sa.value_counts.shape
+    args = {}
+    for srank in (0, 1):
+        lo, hi, _ = etstep.state_slice(S, 2, srank)
+        kt = etstep.bigs_front(*front, 1, shard=(srank, 2))[2]
+        args[srank] = (kt, hi - lo, pad_states(kt, 1024))
+        on = bigs_cuda.bigs_multi_cuda(*kt, *scal, 1, n_states=hi - lo)
+        ref = etstep.bigs_multi(*args[srank][2], *scal, 1024)
+        torch.cuda.synchronize()
+        for i, field in enumerate(("m", "l", "m_t", "l_t", "a_abs", "a_s",
+                                   "a_ss", "a_vc")):
+            tol = 1e-4 if field in ("m", "m_t") else 1e-3
+            torch.testing.assert_close(on[i], ref[i], rtol=tol, atol=tol,
+                                       msg=f"[23c] state rank {srank} "
+                                           f"{field}")
+            err["bigs"] = max(err["bigs"], (on[i] - ref[i]).abs().max().item())
+    pt = etstep.bigs_front(*front, 1024, shard=(15, 16))[2]
+    reset_launches(cuda_lib)
+    empty = bigs_cuda.bigs_multi_cuda(*pt, *scal, 1024, n_states=0)
+    expect_launches(cuda_lib, "[23c] a slice of padding alone")
+    for a, b, c in zip(empty, etstep.bigs_multi(*pt, *scal, 1024),
+                       bigs_cuda.empty_moments(y.shape[0], Hp, K, dev)):
+        if not (torch.equal(a, b) and torch.equal(a, c)):
+            raise AssertionError("[23c] a slice of padding alone differs "
+                                 "from empty_moments")
+    kt, n0, pt0 = args[0]
+    ms = interleaved_ms(
+        torch, lambda: etstep.bigs_multi(*pt0, *scal, 1024),
+        lambda: bigs_cuda.bigs_multi_cuda(*kt, *scal, 1, n_states=n0),
+        reps=3)
+    out = {"states_per_rank": n0, "ms": ms[0], "plain_ms": ms[1],
+           **bigs_bound(y.shape[0], n0, Hp, K)}
+    log(f"[23c] the big-S kernel on each state rank's slice ({n0} states, "
+        f"N={y.shape[0]}) agrees with the plain version on it; a slice of "
+        f"padding alone gives empty_moments through both, no launch; "
+        f"kernel {ms[0]:.3f} ms vs plain {ms[1]:.3f} ms, bound "
+        f"{out['bound_ms']:.3f} ms  [{smi}]")
+    return out
+
+
+def state_path(torch, np, dev, smi, err, p6, run12, patches_anneal):
+    """Phase 23: state sharding on the card.  23c in this process
+    (``state_slices``); then this script started twice (``--rank23 R PORT
+    DIR``), two gloo ranks on cuda:0 as the (1, 2) ``("data", "state")``
+    mesh (NCCL refuses two ranks on one device): 23a phase 12's big-S TSC
+    run and 23b phase 6's BSC patches run (S = 154, s_block = 0) through
+    ``EM.run`` on all their rows, each rank on its half of the states
+    through the big-S kernel alone; 23d MCA with ``backend="cuda"`` under
+    the state axis raises.  Each run against the one-process run of the
+    kernel path it takes (phase 12's run; for 23b phase 6's model with
+    s_block > 0, the big-S kernel over all 154 states, run here): the
+    parameters replicated exactly, the first E-step's F the same bits on
+    both ranks and within rtol 1e-4 of the one-process E-step's (phase 11's
+    tolerance), its sums within ``ULPS_SQRT_N`` ulps x sqrt(N) of float64
+    sums of the same step (22b's measure; the one-process E-step's own
+    reading beside it), Q_mean after the run within
+    tests/test_state_sharding.py's tolerance of the one-process run's
+    (2e-3; 1e-3 for big S), and W within the larger of that file's 2e-3
+    (of max |W|) and twice the schedule's sensitivity to float32
+    arithmetic, measured here on the one-process run: against itself cut
+    into two row chunks (22b's measure) and against the plain version's
+    run (each row's arithmetic in another order, as a state slice's
+    combine changes it; at the patches width the schedule carries that to
+    1.6e-3 of max |W| in 6 iterations, PERF.md).  23b is reported
+    against phase 6's run (the rows kernel, its projection by the split-TF32
+    GEMM) too.  Returns the numbers for the ``state`` line."""
+    import os
+    import tempfile
+
+    from prosper_tpu_torch import EM
+    from prosper_tpu_torch.models import BSC
+    from prosper_tpu_torch.ops import cuda_lib, linear_cuda
+    out, bad = {"slices": state_slices(torch, np, dev, smi, err, run12,
+                                       patches_anneal)}, []
+    bsc_bigs = BSC(256, 300, 8, 4, chunk=8192, s_block=1024)
+    em_b = EM(bsc_bigs, patches_anneal(6),
+              {"y": torch.as_tensor(p6["y_host"], device=dev)},
+              params=p6["init"], seed=4, device=dev)
+    em_b.run()
+    # tag: (the ranks' model, the one-process model of the same kernel
+    # path and its run, init, rows, class, Q_mean's rtol)
+    runs = {"a": (run12["model"], run12["model"], run12["em"],
+                  run12["init"], run12["y_host"], "TSC", 1e-3),
+            "b": (p6["model"], bsc_bigs, em_b, p6["init"], p6["y_host"],
+                  "BSC", 2e-3)}
+    refs = {}
+    for tag, (_, model, em1, init, y_host, _, _) in runs.items():
+        y = torch.as_tensor(y_host, device=dev)
+        w = torch.ones(y.shape[0], device=dev)
+        p1, beta, prior_beta = first_step_params(torch, dev, model, init,
+                                                 patches_anneal)
+        sa = model.state_arrays(dev)
+        eargs = (y, w, p1["W"], p1["sigma"] ** 2, model.log_odds(p1), sa,
+                 model.Hprime, model.signed_select, beta, prior_beta)
+        F1, s1 = linear_cuda.linear_et_estep(*eargs, s_block=model.s_block)
+        f64 = linear_sums_f64(torch, *eargs, chunk=8192,
+                              P32=lambda rows: rows @ p1["W"])
+        cut = in_memory_cut_as_segments(torch, np, model, patches_anneal(6),
+                                        y_host, y_host.shape[0] // 2, init,
+                                        dev)
+        plain = EM(type(model)(model.D, model.H, model.Hprime, model.gamma,
+                               chunk=model.chunk, s_block=model.s_block,
+                               backend="plain"), patches_anneal(6),
+                   {"y": y}, params=init, seed=4, device=dev)
+        plain.run()
+        W1 = em1.params["W"]
+
+        def drift(run):
+            return ((run.params["W"] - W1).abs().max()
+                    / W1.abs().max()).item()
+        refs[tag] = {
+            "F1": F1.cpu().numpy(),
+            "f64": {k: v.cpu() for k, v in f64.items()},
+            "one_process_sums_against_f64": against_f64(
+                torch, np, s1, f64, y.shape[0]),
+            "sensitivity": drift(cut), "plain_drift": drift(plain)}
+        del y, w, cut, plain
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = {"device": "cuda:0", "iters": 6, "mca": [16, 12, 5, 3]}
+        for tag, (model, _, _, init, y_host, cls, _) in runs.items():
+            np.save(os.path.join(tmp, f"y_{tag}.npy"), y_host)
+            np.savez(os.path.join(tmp, f"init_{tag}.npz"),
+                     **{k: v.cpu().numpy() for k, v in init.items()})
+            cfg[tag] = {"cls": cls, "args": [model.D, model.H, model.Hprime,
+                                             model.gamma],
+                        "kw": {"chunk": model.chunk,
+                               "s_block": model.s_block}}
+        with open(os.path.join(tmp, "cfg.json"), "w") as f:
+            json.dump(cfg, f)
+        res, wall = start_ranks("--rank23", tmp, "[23]")
+    chunks_b = len(cuda_lib.row_chunks(p6["y_host"].shape[0],
+                                       8 * p6["model"].H))
+    want_l = {"a": {"bigs": 6}, "b": {"bigs": 6 * chunks_b}}
+    for tag, (_, _, em1, _, _, cls, q_rtol) in runs.items():
+        ref = refs[tag]
+        for rank, r in enumerate(res):
+            if tuple(r["coords"]) != (0, rank):
+                bad.append(f"[23{tag}] rank {rank}'s coordinates "
+                           f"{r['coords']}")
+            for k in em1.params:
+                if not np.array_equal(r[f"{tag}.p.{k}"], res[0][f"{tag}.p.{k}"]):
+                    bad.append(f"[23{tag}] {k} differs between the ranks")
+            if float(r[f"{tag}.reperr"]) != 0.0:
+                bad.append(f"[23{tag}] replication error "
+                           f"{float(r[f'{tag}.reperr'])}")
+            got_l = {k: int(r[f"{tag}.launch.{k}"]) for k in cuda_lib.LAUNCHES}
+            if got_l != {k: want_l[tag].get(k, 0) for k in got_l}:
+                bad.append(f"[23{tag}] a rank's launches {got_l}, expected "
+                           f"{want_l[tag]} and nothing else")
+            if not np.array_equal(r[f"{tag}.F1"], res[0][f"{tag}.F1"]):
+                bad.append(f"[23{tag}] the first step's F differs between "
+                           "the ranks")
+        F1 = res[0][f"{tag}.F1"]
+        F_err = float(np.abs(F1 - ref["F1"]).max())
+        if not np.allclose(F1, ref["F1"], rtol=1e-4, atol=1e-4):
+            bad.append(f"[23{tag}] the first step's F is {F_err:.3g} off the "
+                       "one-process E-step's")
+        first = against_f64(torch, np, {k: torch.as_tensor(
+            res[0][f"{tag}.s.{k}"]) for k in ref["f64"]}, ref["f64"],
+            F1.shape[0])
+        worst = max(v["ulps_sqrt_n"] for v in first.values())
+        if worst > ULPS_SQRT_N:
+            bad.append(f"[23{tag}] the first step's sums are {worst:.3g} "
+                       f"ulps x sqrt(N) off the float64 sums: {first}")
+        W1 = em1.params["W"].cpu().numpy()
+        W2 = res[0][f"{tag}.p.W"]
+        W_rel = float(np.abs(W2 - W1).max() / np.abs(W1).max())
+        W_tol = max(2e-3, 2 * ref["sensitivity"], 2 * ref["plain_drift"])
+        if W_rel > W_tol:
+            bad.append(f"[23{tag}] W is {W_rel:.3g} of max |W| off the "
+                       f"one-process run's, above {W_tol:.3g}")
+        q1 = np.asarray([h["Q_mean"] for h in em1.history])
+        q2 = res[0][f"{tag}.h.Q_mean"]
+        if not np.allclose(q2, q1, rtol=q_rtol, atol=0.0):
+            bad.append(f"[23{tag}] Q_mean {list(q2)}, the one-process run's "
+                       f"{list(q1)}")
+        out[tag] = {
+            "model": f"{cls}{tuple(cfg[tag]['args'])}",
+            "launches_per_rank": {k: int(res[0][f"{tag}.launch.{k}"])
+                                  for k in cuda_lib.LAUNCHES},
+            "replication_error": [float(r[f"{tag}.reperr"]) for r in res],
+            "first_step_F_max_abs_diff": F_err,
+            "first_step_sums_against_f64": first,
+            "one_process_sums_against_f64":
+                ref["one_process_sums_against_f64"],
+            "W_max_abs_diff": float(np.abs(W2 - W1).max()),
+            "W_rel": W_rel, "W_tolerance": W_tol,
+            "sensitivity_two_row_chunks": ref["sensitivity"],
+            "plain_version_drift": ref["plain_drift"],
+            "Q_mean_max_rel_diff": float(np.max(np.abs(q2 - q1)
+                                                / np.abs(q1))),
+            "n_used_equal": list(res[0][f"{tag}.h.n_used"])
+            == [h["n_used"] for h in em1.history],
+            "host_ms_per_iteration": [float(r[f"{tag}.ms"]) for r in res],
+            "one_process_host_ms_per_iteration": float(np.median(
+                [h["dt"] for h in em1.history[1:]])) * 1e3}
+        if tag == "b":
+            W6 = p6["em"].params["W"].cpu().numpy()
+            out[tag]["phase6_rows_kernel"] = {
+                "W_rel": float(np.abs(W2 - W6).max() / np.abs(W6).max()),
+                "host_ms_per_iteration": float(np.median(
+                    [h["dt"] for h in p6["em"].history[1:]])) * 1e3}
+        log(f"[23{tag}] {out[tag]['model']} on the (1, 2) mesh: launches "
+            f"per rank {out[tag]['launches_per_rank']}, replication error "
+            f"{out[tag]['replication_error']}, the first step's F "
+            f"{F_err:.3g} off the one-process E-step's, its sums against "
+            f"float64 {first} (the one-process E-step's "
+            f"{ref['one_process_sums_against_f64']}); after the run W "
+            f"{out[tag]['W_rel']:.3g} of max |W| off the one-process run's "
+            f"(the schedule's sensitivity {ref['sensitivity']:.3g}; the "
+            f"plain version's run {ref['plain_drift']:.3g} off), Q_mean "
+            f"{out[tag]['Q_mean_max_rel_diff']:.3g}, n_used equal "
+            f"{out[tag]['n_used_equal']}; host ms per iteration "
+            f"{out[tag]['host_ms_per_iteration']} against "
+            f"{out[tag]['one_process_host_ms_per_iteration']:.3f} in one "
+            f"process; against phase 6's run (the rows kernel): "
+            f"{out[tag].get('phase6_rows_kernel', 'n/a')}  [{smi}]")
+    if not all(bool(r["d"]) for r in res):
+        bad.append('[23d] MCA with backend="cuda" under the state axis did '
+                   'not raise the ValueError naming backend="plain"')
+    out["d_raised"] = all(bool(r["d"]) for r in res)
+    out["wall_s"] = wall
+    log(f"[23d] MCA with backend=\"cuda\" under the state axis raised the "
+        f"ValueError on both ranks: {out['d_raised']}; phase 23's two "
+        f"processes took {wall:.1f} s with their start")
+    if bad:
+        raise AssertionError("[23] " + "; ".join(bad))
+    return out
+
+
+def start_ranks(flag, tmp, tag, n=2):
+    """This script started ``n`` times (``flag R PORT DIR``), the ranks of
+    one gloo group on the card; their results (``rank{R}.npz`` in DIR)
+    and the wall seconds.  A rank that fails fails the phase."""
+    import os
+
+    import numpy as np
+    env = dict(os.environ)
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, __file__, flag, str(r), str(port), tmp], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(n)]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"{tag} rank {r} failed ({p.returncode}):"
+                                 f"\n{text[-6000:]}")
+    return [dict(np.load(os.path.join(tmp, f"rank{r}.npz")))
+            for r in range(n)], wall
+
+
+def rank23(rank: int, port: int, tmp: str) -> int:
+    """One rank of phase 23 (``python3 chip_smoke.py --rank23 R PORT DIR``,
+    started by ``state_path``): the (1, 2) ``("data", "state")`` mesh of
+    two gloo ranks on DIR's device (cfg.json); 23a and 23b through
+    ``EM.run`` on all of DIR's rows, each rank on its half of the states,
+    with their first E-step's F and sums kept; 23d MCA with
+    ``backend="cuda"`` under the state axis."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from prosper_tpu_torch import EM, models
+    from prosper_tpu_torch.models import linear as linear_mod
+    from prosper_tpu_torch.models.base import device_sched, sched_floats
+    from prosper_tpu_torch.ops import cuda_lib
+    from prosper_tpu_torch.parallel.mesh import (MeshRuntime, init_multihost,
+                                                 replication_error)
+
+    with open(os.path.join(tmp, "cfg.json")) as f:
+        cfg = json.load(f)
+    dev = torch.device(cfg["device"])
+    init_multihost(f"127.0.0.1:{port}", 2, rank, backend="gloo", device=dev)
+    rt = MeshRuntime(device=dev, mesh_shape=(1, 2),
+                     axis_names=("data", "state"))
+    out = {"coords": np.asarray([rt.data_index, rt.state_index])}
+    first = {}
+    real = linear_mod.reduce_sums
+
+    def first_sums(*args):
+        res = real(*args)
+        if not first:
+            first.update({k: v.double().cpu().numpy()
+                          for k, v in res[0].items()})
+        return res
+    linear_mod.reduce_sums = first_sums
+    for tag in ("a", "b"):
+        spec = cfg[tag]
+        model = getattr(models, spec["cls"])(*spec["args"], **spec["kw"])
+        y = torch.as_tensor(np.load(os.path.join(tmp, f"y_{tag}.npy")),
+                            device=dev)
+        init = dict(np.load(os.path.join(tmp, f"init_{tag}.npz")))
+        first.clear()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        for k in cuda_lib.LAUNCHES:
+            cuda_lib.LAUNCHES[k] = 0
+        em = EM(model, patches_anneal(cfg["iters"]), {"y": y}, params=init,
+                seed=4, runtime=rt)
+        em.step_once()
+        out[f"{tag}.F1"] = em.data["F_prev"].cpu().numpy()
+        em.run()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        out.update({f"{tag}.launch.{k}": v
+                    for k, v in cuda_lib.LAUNCHES.items()})
+        out.update({f"{tag}.p.{k}": v.cpu().numpy()
+                    for k, v in em.params.items()})
+        out.update({f"{tag}.s.{k}": v for k, v in first.items()})
+        out[f"{tag}.reperr"] = float(replication_error(em.params, rt.group))
+        out.update({f"{tag}.h.{k}": np.asarray([h[k] for h in em.history])
+                    for k in ("Q_mean", "n_used")})
+        out[f"{tag}.ms"] = float(np.median([h["dt"]
+                                            for h in em.history[1:]])) * 1e3
+        del em, y
+    mca = models.MCA(*cfg["mca"], backend="cuda")
+    y = torch.randn((64, mca.D), generator=torch.Generator().manual_seed(0))
+    p = mca.standard_init({"y": y}, device=dev)
+    try:
+        mca.estep_sums(p, y.to(dev), torch.ones(64, device=dev),
+                       device_sched(sched_floats(patches_anneal(6)), dev),
+                       state_axis=rt.state_group, n_state_shards=2)
+        out["d"] = False
+    except ValueError as e:
+        out["d"] = 'backend="plain"' in str(e)
     np.savez(os.path.join(tmp, f"rank{rank}.npz"), **out)
     torch.distributed.destroy_process_group()
     return 0
@@ -2755,6 +3179,14 @@ def main() -> int:
     distributed["open_check"] = check
     seconds["22"] = time.perf_counter() - t0
     stamp("phase 22")
+    # ---- 23. state sharding: the (1, 2) ("data", "state") mesh ------------
+    t0 = time.perf_counter()
+    state = state_path(torch, np, dev, smi, err,
+                       {"model": model, "em": em, "init": init,
+                        "y_host": data["y"]}, bg.pop("run12"),
+                       patches_anneal)
+    seconds["23"] = time.perf_counter() - t0
+    stamp("phase 23")
 
     # the bounds, from this run's shapes: the two D x H products, the
     # logits over [proj | Gram] and the moments over the state tables per
@@ -2810,6 +3242,12 @@ def main() -> int:
          "launches": bgl["bigs"], "scanned_launches": bgs["bigs"],
          "stream_launches": stream_launches.get("bigs", 0),
          "distributed_launches": dl["bigs"],
+         # phase 23: launches on each state rank (23a + 23b), and the
+         # kernel on one rank's slice of phase 12's states
+         "state_launches": (state["a"]["launches_per_rank"]["bigs"]
+                            + state["b"]["launches_per_rank"]["bigs"]),
+         "state_slice": {k: state["slices"][k] for k in (
+             "states_per_rank", "ms", "plain_ms", "bound_ms", "bound_by")},
          "max_abs_err": err["bigs"], **bg,
          "library_ms": None},
         # the two products inside the bodies of the TPU kernels; one launch
@@ -2851,11 +3289,15 @@ def main() -> int:
         if k["distributed_launches"] < 1:
             raise AssertionError(f"{k['name']} was launched no time under "
                                  "the runtime (phase 22)")
+        if k["name"] == "bigs_multi" and k["state_launches"] < 1:
+            raise AssertionError("bigs_multi was launched no time under the "
+                                 "state axis (phase 23)")
     log(json.dumps({"scanned": dict(scanned, card=smi),
                     "gsc_decode": dict(gsc_decode, card=smi)}))
     log(json.dumps({"recovery": dict(recovery, phase_s=seconds, card=smi)}))
     log(json.dumps({"stream": dict(stream, card=smi)}))
     log(json.dumps({"distributed": dict(distributed, card=smi)}))
+    log(json.dumps({"state": dict(state, card=smi)}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2873,31 +3315,10 @@ def phase22_alone() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from prosper_tpu_torch import EM
-    from prosper_tpu_torch.data.bars import planted_dictionary
-    from prosper_tpu_torch.models import BSC
-    from prosper_tpu_torch.ops import cuda_lib
-
-    dev = torch.device("cuda")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True,
-        timeout=60).stdout.strip().splitlines()[0]
-    log(smi)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    cuda_lib.load_library()
-    stamp("build")
-    model = BSC(256, 300, 8, 4, chunk=8192)
-    gt = {"W": planted_dictionary(256, 300, seed=0),
-          "pi": np.float32(2.0 / 300), "sigma": np.float32(1.0)}
-    data = model.generate_data(gt, 131072, seed=1)
-    held_out = model.generate_data(gt, 8192, seed=2)
-    init = model.standard_init(data, seed=3, device=dev)
-    y_dev = torch.tensor(data["y"], device=dev)
-    em = EM(model, patches_anneal(), {"y": y_dev}, params=init, seed=4,
-            device=dev)
-    params = em.run()
-    serve = {dense: model.inference(params, held_out, top_L=10,
+    dev, smi = alone_setup(torch)
+    model, em, init, data, held_out, gt = patches_run(torch, np, dev)
+    y_dev = em.data["y"]
+    serve = {dense: model.inference(em.params, held_out, top_L=10,
                                     dense_states=dense)
              for dense in (False, True)}
     y_1e6 = model.generate_data(gt, 1_000_000, seed=1)["y"]
@@ -2920,9 +3341,70 @@ def phase22_alone() -> int:
     return 0
 
 
+def alone_setup(torch):
+    """The card's name and power limit, float32 matmuls in full float32,
+    the kernels built: what a phase run alone starts with."""
+    from prosper_tpu_torch.ops import cuda_lib
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    log(smi)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cuda_lib.load_library()
+    stamp("build")
+    return torch.device("cuda"), smi
+
+
+def patches_run(torch, np, dev):
+    """Phase 6's run: BSC at the patches width (D=256, H=300, H'=8,
+    gamma=4) through 6 iterations of ``EM.run`` on 131072 planted-
+    dictionary rows.  Returns (model, em, init, data, held_out, gt)."""
+    from prosper_tpu_torch import EM
+    from prosper_tpu_torch.data.bars import planted_dictionary
+    from prosper_tpu_torch.models import BSC
+    model = BSC(256, 300, 8, 4, chunk=8192)
+    gt = {"W": planted_dictionary(256, 300, seed=0),
+          "pi": np.float32(2.0 / 300), "sigma": np.float32(1.0)}
+    data = model.generate_data(gt, 131072, seed=1)
+    held_out = model.generate_data(gt, 8192, seed=2)
+    init = model.standard_init(data, seed=3, device=dev)
+    em = EM(model, patches_anneal(), {"y": torch.tensor(data["y"],
+                                                        device=dev)},
+            params=init, seed=4, device=dev)
+    em.run()
+    return model, em, init, data, held_out, gt
+
+
+def phase23_alone() -> int:
+    """``python3 chip_smoke.py --phase 23``: the build, phase 6's and phase
+    12's runs again, and phase 23, without the other phases."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    dev, smi = alone_setup(torch)
+    model, em, init, data, _, _ = patches_run(torch, np, dev)
+    run12 = tsc_bigs_run(torch, np, dev, patches_anneal)
+    stamp("phase 6's and phase 12's runs")
+    err = {"bigs": 0.0}
+    out = state_path(torch, np, dev, smi, err,
+                     {"model": model, "em": em, "init": init,
+                      "y_host": data["y"]}, run12, patches_anneal)
+    stamp("phase 23")
+    log(json.dumps({"state": dict(out, max_abs_err=err["bigs"], card=smi)}))
+    return 0
+
+
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--rank22"]:
-        sys.exit(rank22(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
+    for flag, rank_fn in (("--rank22", rank22), ("--rank23", rank23)):
+        if sys.argv[1:2] == [flag]:
+            sys.exit(rank_fn(int(sys.argv[2]), int(sys.argv[3]),
+                             sys.argv[4]))
     if sys.argv[1:3] == ["--phase", "22"]:
         sys.exit(phase22_alone())
+    if sys.argv[1:3] == ["--phase", "23"]:
+        sys.exit(phase23_alone())
     sys.exit(main())

@@ -174,8 +174,10 @@ def _runtime(args):
     if args.mesh:
         m = re.fullmatch(r"data=(\d+)", args.mesh)
         if m is None:
-            raise SystemExit(f"--mesh takes data=N, got {args.mesh!r} (state "
-                             "sharding is not ported: ROADMAP.md)")
+            raise SystemExit(
+                f"--mesh takes data=N, got {args.mesh!r}, as the JAX CLI "
+                "does (a state axis is MeshRuntime(mesh_shape=(n_data, "
+                "n_state), axis_names=(\"data\", \"state\")) in the API)")
         n = int(m.group(1))
     init_multihost(device=args.device)
     if not dist.is_initialized():

@@ -28,6 +28,8 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 
 from prosper_tpu_torch.core.select import top_hprime_candidates, top_l_argmax
+from prosper_tpu_torch.parallel.mesh import (maybe_pmax, maybe_psum,
+                                             state_rank, state_sharded)
 
 NEG = -3e38   # masked logit
 
@@ -66,6 +68,101 @@ def traced_state_arrays(slot_onehot: torch.Tensor,
     return LinearStateArrays(states=states, outer=outer,
                              abs_states=abs_states,
                              value_counts=value_counts, values=phi)
+
+
+def state_slice(S: int, n: int, srank: int, unit: int = 1
+                ) -> Tuple[int, int, int]:
+    """Shard ``srank`` of ``n`` over S states: the S axis padded so that
+    each of the n contiguous slices holds S_loc states, a multiple of
+    ``unit``.  Returns (lo, hi, S_loc): the slice's real states are
+    ``lo:hi`` (none where lo == hi), the rest of its S_loc is padding."""
+    per_rank = -(-S // n)
+    S_loc = -(-per_rank // unit) * unit
+    lo = min(srank * S_loc, S)
+    return lo, min(lo + S_loc, S), S_loc
+
+
+def slice_state_shard(srank: int, n: int, arrays, unit: int = 1):
+    """This rank's slice of state-indexed arrays under state sharding (the
+    JAX package's ``slice_state_shard``): the S axis padded with zeros to
+    n slices of S_loc states (a multiple of ``unit``), the contiguous slice
+    of state rank ``srank``.  Returns (sliced list, svalid (S_loc,): 1 for
+    a real state and 0 for padding, own_zs): ``own_zs`` is 1.0 on state
+    rank 0 alone, which owns the zero and singleton states and the
+    per-datapoint scalars (the sums are added over the state axis, so
+    those must count once)."""
+    S = arrays[0].shape[0]
+    lo, hi, S_loc = state_slice(S, n, srank, unit)
+
+    def sl(a):
+        pad = (0, 0) * (a.dim() - 1) + (0, S_loc - (hi - lo))
+        return torch.nn.functional.pad(a[lo:hi], pad)
+    svalid = (torch.arange(S_loc, device=arrays[0].device)
+              < hi - lo).float()
+    return [sl(a) for a in arrays], svalid, float(srank == 0)
+
+
+def pmax_pair(a, b, state_axis):
+    """(a, b) (b may be None), each maximised over the state group in one
+    all-reduce (a alone: in place)."""
+    if b is None:
+        return maybe_pmax(a, state_axis), None
+    ab = maybe_pmax(torch.stack([a, b]), state_axis)
+    return ab[0], ab[1]
+
+
+def psum_pair(a, b, state_axis):
+    """(a, b) (b may be None), each summed over the state group in one
+    all-reduce (a alone: in place)."""
+    if b is None:
+        return maybe_psum(a, state_axis), None
+    ab = maybe_psum(torch.stack([a, b]), state_axis)
+    return ab[0], ab[1]
+
+
+def mask_union(logits, lead: int, own: float, svalid):
+    """A state shard's union logits ``[zero | singletons (lead - 1) |
+    slice]``: the zero and singleton columns NEG off state rank 0, the
+    slice's padding NEG (None stays None)."""
+    if logits is None:
+        return None
+    head = logits[:, :lead] if own else torch.full_like(logits[:, :lead],
+                                                        NEG)
+    tail = torch.where(svalid[None, :] > 0, logits[:, lead:],
+                       torch.full_like(logits[:, lead:], NEG))
+    return torch.cat([head, tail], dim=1)
+
+
+def union_softmax(logits, logits_t, state_axis=None):
+    """The union softmax of a chunk's logits (C, columns) and the
+    un-annealed channel's log-normaliser (``logits_t`` may be None).
+    Returns (q, logZ (C,), logZ_t (C,) or None).  With a state group (a
+    shard's masked logits, ``mask_union``) the row maxima are combined by
+    one MAX all-reduce and the rescaled masses by one SUM, both channels in
+    each, so every state rank gets the same logZ."""
+    if state_axis is None:
+        m = logits.max(dim=1, keepdim=True).values
+        p = torch.exp(logits - m)
+        Z = p.sum(dim=1, keepdim=True)
+        return (p / Z, (m + torch.log(Z))[:, 0],
+                None if logits_t is None else torch.logsumexp(logits_t, dim=1))
+    M, M_t = pmax_pair(logits.max(dim=1).values,
+                       None if logits_t is None
+                       else logits_t.max(dim=1).values, state_axis)
+    p = torch.exp(logits - M[:, None])
+    Z_t = (None if logits_t is None
+           else torch.exp(logits_t - M_t[:, None]).sum(dim=1))
+    Z, Z_t = psum_pair(p.sum(dim=1), Z_t, state_axis)
+    return (p / Z[:, None], M + torch.log(Z),
+            None if logits_t is None else M_t + torch.log(Z_t))
+
+
+def own_scalars(sums: Dict[str, torch.Tensor], own: float):
+    """The per-datapoint scalars of a state shard's sums counted on state
+    rank 0 alone (times 1.0 there, 0.0 elsewhere: exact)."""
+    for k in ("y2", "n", "F", "F_true"):
+        sums[k] = sums[k] * own
+    return sums
 
 
 def _candidates(y, W, gram, gram_diag, Hp: int, signed_select: bool, P=None):
@@ -143,40 +240,56 @@ def _weighted_sums(y, y2, wv, s_full, sum_ss, abs_n, vc_n, F, F_true,
 def _chunk_estats(y, w, W, gram, gram_diag, sigma2, log_odds,
                   sa: LinearStateArrays, Hp: int, signed_select: bool,
                   beta, prior_beta, collect_true: bool = True, P=None,
-                  collect_phi: bool = False, slot_onehot=None):
+                  collect_phi: bool = False, slot_onehot=None,
+                  state_axis=None, n_state_shards: int = 1):
     """E-statistics for one chunk: y (C, D), w (C,) accumulation weights.
     Returns (F (C,), sums).  F is the per-datapoint truncated
     log-pseudo-likelihood with every constant term.  Given ``P = y @ W``
     it is the middle stage alone (``linear_et_estep_rows``).
     ``collect_phi`` adds the value-set sums ``phi_c`` (K,) and ``phi_M``
-    (K, K) from ``slot_onehot`` (S, Hp, K)."""
+    (K, K) from ``slot_onehot`` (S, Hp, K).
+
+    State sharding (``state_axis``, the state group, and
+    ``n_state_shards > 1``): the rank evaluates its contiguous slice of
+    the S multi states (``slice_state_shard``), the zero and singleton
+    states on state rank 0 alone, and the softmax is combined over the
+    group (``union_softmax``: one MAX and one SUM all-reduce for both
+    channels).  F is then the same on every state rank; the sums are this
+    rank's part, which the caller adds over the state group too."""
     C, D = y.shape
     H = W.shape[1]
     K = sa.values.shape[0]
     staged = P is not None
+    sharded = state_sharded(state_axis, n_state_shards)
+    if sharded:
+        to_slice = [sa.states, sa.outer, sa.value_counts, sa.abs_states]
+        if collect_phi:
+            to_slice.append(slot_onehot)
+        sliced, svalid, own = slice_state_shard(
+            state_rank(state_axis), n_state_shards, to_slice)
+        sa = sa._replace(states=sliced[0], outer=sliced[1],
+                         value_counts=sliced[2], abs_states=sliced[3])
+        if collect_phi:
+            slot_onehot = sliced[4]
     (P, cand, proj, Gf, logits, lik_single, lik_multi,
      prior_multi) = _union_logits(y, W, gram, gram_diag, sigma2, log_odds,
                                   sa, Hp, signed_select, beta, prior_beta, P)
-    m = logits.max(dim=1, keepdim=True).values
-    p = torch.exp(logits - m)
-    Z = p.sum(dim=1, keepdim=True)
-    q = p / Z
-    logZ = (m + torch.log(Z))[:, 0]
-
+    # the un-annealed channel (beta = prior_beta = 1); skipped when the
+    # caller knows the schedule is saturated, where it equals F
+    logits_t = None if not collect_true else torch.cat(
+        [torch.zeros((C, 1), dtype=y.dtype, device=y.device),
+         (lik_single + log_odds[None, None, :]).reshape(C, H * K),
+         lik_multi + prior_multi[None, :]], dim=1)
+    if sharded:
+        logits, logits_t = (mask_union(t, 1 + H * K, own, svalid)
+                            for t in (logits, logits_t))
+    q, logZ, logZ_t = union_softmax(logits, logits_t,
+                                    state_axis if sharded else None)
     y2 = (y * y).sum(dim=1)
     F = logZ + _free_energy_const(y2, D, H, sigma2, log_odds, beta,
                                   prior_beta)
-    if collect_true:
-        # the un-annealed channel (beta = prior_beta = 1); skipped when the
-        # caller knows the schedule is saturated, where it equals F
-        logits_t = torch.cat(
-            [torch.zeros((C, 1), dtype=y.dtype, device=y.device),
-             (lik_single + log_odds[None, None, :]).reshape(C, H * K),
-             lik_multi + prior_multi[None, :]], dim=1)
-        F_true = (torch.logsumexp(logits_t, dim=1)
-                  + _free_energy_const(y2, D, H, sigma2, log_odds, 1.0, 1.0))
-    else:
-        F_true = F
+    F_true = F if not collect_true else (
+        logZ_t + _free_energy_const(y2, D, H, sigma2, log_odds, 1.0, 1.0))
 
     v = sa.values
     q_single = q[:, 1:1 + H * K].reshape(C, H, K)
@@ -216,7 +329,7 @@ def _chunk_estats(y, w, W, gram, gram_diag, sigma2, log_odds,
         phi_M_single = torch.einsum("nhk,h,n->k", q_single, gram_diag, wv)
         sums["phi_c"] = phi_c_multi + phi_c_single
         sums["phi_M"] = phi_M_multi + torch.diag(phi_M_single)
-    return F, sums
+    return F, own_scalars(sums, own) if sharded else sums
 
 
 def linear_et_estep_rows(y, weight, P, W, sigma2, log_odds,
@@ -351,7 +464,11 @@ def bigs_multi(proj, Gf, states_p, outer_p, vcounts_p, prior, valid,
     proj (C, Hp), Gf (C, Hp^2); the state tables padded to S_pad rows, a
     multiple of ``s_block``, with ``valid`` (S_pad,) marking the real ones.
     Returns (m, l, m_t, l_t, a_abs, a_s, a_ss, a_vc), datapoint first; with
-    ``collect_true`` off, m_t = NEG and l_t = 0."""
+    ``collect_true`` off, m_t = NEG and l_t = 0.  A table with no real
+    state (a state shard's slice of padding only, or S_pad = 0) gives
+    m = m_t = NEG, l = l_t = 0 and zero moments: each tile's weights are
+    multiplied by ``valid``, since a padded logit is NEG and a tile of
+    padding alone would otherwise weigh each of its states exp(0) = 1."""
     C, Hp = proj.shape
     S_pad, K = vcounts_p.shape
     if S_pad % s_block:
@@ -367,16 +484,17 @@ def bigs_multi(proj, Gf, states_p, outer_p, vcounts_p, prior, valid,
                       device=proj.device)
     for j in range(0, S_pad, s_block):
         A_b, B_b = A[j:j + s_block], B[j:j + s_block]
+        v_b = valid[None, j:j + s_block]
         logits = Xa @ A_b.T
         m_new = torch.maximum(m, logits.max(dim=1).values)
-        p = torch.exp(logits - m_new[:, None])
+        p = torch.exp(logits - m_new[:, None]) * v_b
         acc = acc * torch.exp(m - m_new)[:, None] + p @ B_b
         m = m_new
         if collect_true:
             logits_t = Xt @ A_b.T
             m_tn = torch.maximum(m_t, logits_t.max(dim=1).values)
             l_t = (l_t * torch.exp(m_t - m_tn)
-                   + torch.exp(logits_t - m_tn[:, None]).sum(dim=1))
+                   + (torch.exp(logits_t - m_tn[:, None]) * v_b).sum(dim=1))
             m_t = m_tn
     return split_moments(m, m_t, l_t, acc, Hp, K)
 
@@ -398,70 +516,99 @@ def slot_sum_ss(ssw, cand, H: int):
 
 
 def bigs_front(y, W, gram, gram_diag, log_odds, sa: LinearStateArrays,
-               Hp: int, signed_select: bool, s_block: int):
+               Hp: int, signed_select: bool, s_block: int, shard=None):
     """The big-S front end: ``P = y @ W``, the candidates, and the operands
     of ``bigs_multi`` before its scalars: proj (C, Hp), Gf (C, Hp^2) and the
     state tables padded to a multiple of ``s_block``, with the prior and
-    the validity of each padded state.
+    the validity of each padded state.  ``shard = (srank, n)``: the tables
+    of state rank srank's slice instead, the S axis padded so that each of
+    the n slices is a whole number of ``s_block`` tiles
+    (``slice_state_shard``).
     Returns (P, cand, (proj, Gf, states_p, outer_p, vcounts_p, prior,
     valid, absst_p))."""
     S = sa.states.shape[0]
     P, cand, proj, Gf = _candidates(y, W, gram, gram_diag, Hp, signed_select)
-    pad = -S % s_block
+    tables = [sa.states, sa.outer, sa.value_counts, sa.abs_states]
+    if shard is not None:
+        (states_p, outer_p, vcounts_p, absst_p), valid, _ = \
+            slice_state_shard(shard[0], shard[1], tables, s_block)
+    else:
+        pad = -S % s_block
 
-    def padded(t):
-        return torch.nn.functional.pad(
-            t, (0, 0, 0, pad) if t.dim() == 2 else (0, pad))
-    vcounts_p = padded(sa.value_counts)
-    valid = (torch.arange(S + pad, device=y.device) < S).float()
-    return P, cand, (proj, Gf, padded(sa.states), padded(sa.outer),
-                     vcounts_p, vcounts_p @ log_odds, valid,
-                     padded(sa.abs_states))
+        def padded(t):
+            return torch.nn.functional.pad(
+                t, (0, 0, 0, pad) if t.dim() == 2 else (0, pad))
+        states_p, outer_p, vcounts_p, absst_p = (padded(t) for t in tables)
+        valid = (torch.arange(S + pad, device=y.device) < S).float()
+    return P, cand, (proj, Gf, states_p, outer_p, vcounts_p,
+                     vcounts_p @ log_odds, valid, absst_p)
 
 
 def _chunk_estats_bigs(y, w, W, gram, gram_diag, sigma2, log_odds,
                        sa: LinearStateArrays, Hp: int, signed_select: bool,
                        beta, prior_beta, s_block: int,
-                       collect_true: bool = True, multi=bigs_multi):
+                       collect_true: bool = True, multi=bigs_multi,
+                       state_axis=None, n_state_shards: int = 1):
     """Big-S E-statistics for one chunk: the zero and singleton states in
     closed form, the S multi states through ``multi`` (``bigs_multi`` or its
     kernel), the two partial softmaxes combined.  Same (F, sums) as
-    ``_chunk_estats``; no (C, S) tensor exists."""
+    ``_chunk_estats``; no (C, S) tensor exists.
+
+    State sharding (as ``_chunk_estats``): ``multi`` runs over this state
+    rank's slice of the tables (``bigs_front``), state rank 0 alone holds
+    the zero and singleton states (elsewhere their part is m = NEG, l = 0),
+    and the two partial softmaxes are combined over the group as well: one
+    MAX all-reduce of the row maxima, one SUM of the rescaled masses (both
+    channels in each)."""
     C, D = y.shape
     H = W.shape[1]
     K = sa.values.shape[0]
     inv2s2 = 0.5 / sigma2
+    sharded = state_sharded(state_axis, n_state_shards)
+    shard = (state_rank(state_axis), n_state_shards) if sharded else None
+    own = 1.0 if shard is None else float(shard[0] == 0)
     P, cand, tables = bigs_front(y, W, gram, gram_diag, log_odds, sa, Hp,
-                                 signed_select, s_block)
+                                 signed_select, s_block, shard)
 
     # zero + singleton part (1 + H*K columns) in closed form
     v = sa.values
     lik_single = _lik_single(P, gram_diag, v, inv2s2)
 
     def part_a(logits_single):
+        if not own:
+            return (torch.full((C,), NEG, device=y.device),
+                    torch.zeros((C,), device=y.device))
         m_a = torch.clamp(logits_single.max(dim=1).values, min=0.0)
         return m_a, (torch.exp(-m_a) + torch.exp(
             logits_single - m_a[:, None]).sum(dim=1))
 
     logits_single = (beta * lik_single
                      + prior_beta * log_odds[None, None, :]).reshape(C, H * K)
+    if not own:
+        logits_single = torch.full_like(logits_single, NEG)
     m_a, l_a = part_a(logits_single)
+    if collect_true:
+        m_at, l_at = part_a((lik_single
+                             + log_odds[None, None, :]).reshape(C, H * K))
 
     # the multi states, over the tables padded to a multiple of s_block
     m_b, l_b, m_bt, l_bt, a_abs, a_s, a_ss, a_vc = multi(
         *tables, inv2s2, beta, prior_beta, s_block, collect_true)
 
-    # combine the two partial softmaxes
+    # combine the two partial softmaxes (and those of the state ranks)
     M = torch.maximum(m_a, m_b)
+    M_t = torch.maximum(m_at, m_bt) if collect_true else None
+    if sharded:
+        M, M_t = pmax_pair(M, M_t, state_axis)
     Z = l_a * torch.exp(m_a - M) + l_b * torch.exp(m_b - M)
+    Z_t = (l_at * torch.exp(m_at - M_t) + l_bt * torch.exp(m_bt - M_t)
+           if collect_true else None)
+    if sharded:
+        Z, Z_t = psum_pair(Z, Z_t, state_axis)
     y2 = (y * y).sum(dim=1)
     F = M + torch.log(Z) + _free_energy_const(y2, D, H, sigma2, log_odds,
                                               beta, prior_beta)
     if collect_true:
-        m_at, l_at = part_a((lik_single
-                             + log_odds[None, None, :]).reshape(C, H * K))
-        M_t = torch.maximum(m_at, m_bt)
-        Z_t = l_at * torch.exp(m_at - M_t) + l_bt * torch.exp(m_bt - M_t)
         F_true = M_t + torch.log(Z_t) + _free_energy_const(
             y2, D, H, sigma2, log_odds, 1.0, 1.0)
     else:
@@ -478,8 +625,8 @@ def _chunk_estats_bigs(y, w, W, gram, gram_diag, sigma2, log_odds,
         ((q_single @ (v ** 2)) * wv[:, None]).sum(dim=0))
     abs_n = q_single.sum(dim=(1, 2)) + a_abs * scale_b[:, 0]
     vc_n = q_single.sum(dim=1) + a_vc * scale_b
-    return F, _weighted_sums(y, y2, wv, s_full, sum_ss, abs_n, vc_n, F,
-                             F_true)
+    sums = _weighted_sums(y, y2, wv, s_full, sum_ss, abs_n, vc_n, F, F_true)
+    return F, own_scalars(sums, own) if sharded else sums
 
 
 def linear_et_estep(y: torch.Tensor, weight: torch.Tensor, W: torch.Tensor,
@@ -487,12 +634,16 @@ def linear_et_estep(y: torch.Tensor, weight: torch.Tensor, W: torch.Tensor,
                     Hp: int, signed_select: bool, beta, prior_beta,
                     chunk: int = 2048, collect_true: bool = True,
                     s_block: int = 0, collect_phi: bool = False,
-                    slot_onehot=None
+                    slot_onehot=None, state_axis=None,
+                    n_state_shards: int = 1
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full E-step with chunked accumulation.  Returns (F (N,), sums).
     ``s_block > 0`` takes the big-S path (``_chunk_estats_bigs``, the plain
     ``bigs_multi``).  ``collect_phi`` (with ``slot_onehot``, and without
-    ``s_block``) adds the value-set sums ``phi_c`` and ``phi_M``.
+    ``s_block``) adds the value-set sums ``phi_c`` and ``phi_M``.  With
+    ``state_axis`` and ``n_state_shards > 1`` each chunk runs on this state
+    rank's slice of the states and the caller adds the sums over the state
+    group too.
 
     N must be a multiple of ``chunk`` unless N <= chunk (pad with
     ``weight == 0`` rows; ``EM`` does)."""
@@ -507,11 +658,14 @@ def linear_et_estep(y: torch.Tensor, weight: torch.Tensor, W: torch.Tensor,
         if s_block > 0:
             return _chunk_estats_bigs(y_i, w_i, W, gram, gram_diag, sigma2,
                                       log_odds, sa, Hp, signed_select, beta,
-                                      prior_beta, s_block, collect_true)
+                                      prior_beta, s_block, collect_true,
+                                      state_axis=state_axis,
+                                      n_state_shards=n_state_shards)
         return _chunk_estats(y_i, w_i, W, gram, gram_diag, sigma2, log_odds,
                              sa, Hp, signed_select, beta, prior_beta,
                              collect_true, collect_phi=collect_phi,
-                             slot_onehot=slot_onehot)
+                             slot_onehot=slot_onehot, state_axis=state_axis,
+                             n_state_shards=n_state_shards)
 
     if N <= chunk:
         return body(y, weight)

@@ -45,9 +45,12 @@ import numpy as np
 import torch
 
 from prosper_tpu_torch.core.etstep import (LinearStateArrays, _candidates,
-                                           slot_sum_ss, top_states_from_topk)
+                                           mask_union, own_scalars,
+                                           slot_sum_ss, top_states_from_topk,
+                                           union_softmax)
 from prosper_tpu_torch.core.select import top_l_argmax
 from prosper_tpu_torch.ops.cuda_lib import cached_for
+from prosper_tpu_torch.parallel.mesh import state_rank, state_sharded
 
 
 # ---- the padded tensor form: (..., n, n) matrices ---------------------------
@@ -230,6 +233,55 @@ class GSCLevel:
         self.EE = t(EE)
 
 
+def _gsc_shard_level_arrays(act_np: np.ndarray, n_shards: int):
+    """The level-aligned layout of the supports over ``n_shards`` state
+    shards (host numpy, the JAX package's ``_gsc_shard_level_arrays``):
+    each size-m level's supports are dealt round-robin over the shards
+    (shard r takes the level's supports r, r + n, ...) and padded per
+    (level, shard) to L_m = ceil(S_m / n) with supports on slots 0..m-1 (a
+    real SPD system, masked out of the logits), so that every shard holds
+    the same level structure and shard r the same supports as the JAX
+    package's shard r.  Returns (states (n, S_loc, Hp), svalid (n, S_loc),
+    abs_states (n, S_loc))."""
+    act = act_np.astype(bool)
+    Hp = act.shape[1]
+    sizes = act.sum(axis=1)
+    states_sh, svalid_sh, absst_sh = [], [], []
+    for m in range(int(sizes.min()), int(sizes.max()) + 1):
+        rows = np.flatnonzero(sizes == m)
+        if rows.size == 0:
+            continue
+        L_m = -(-rows.size // n_shards)
+        valid = np.zeros((n_shards, L_m), np.float32)
+        st = np.zeros((n_shards, L_m, Hp), np.float32)
+        for r in range(n_shards):
+            sub = rows[r::n_shards]
+            valid[r, :sub.size] = 1.0
+            st[r, :sub.size] = act[sub]
+            st[r, sub.size:, :m] = 1.0
+        states_sh.append(st)
+        svalid_sh.append(valid)
+        absst_sh.append(np.full((n_shards, L_m), float(m), np.float32))
+    return (np.concatenate(states_sh, axis=1),
+            np.concatenate(svalid_sh, axis=1),
+            np.concatenate(absst_sh, axis=1))
+
+
+def gsc_shard_arrays(sa: LinearStateArrays, n: int, srank: int):
+    """State rank ``srank``'s share of the supports under ``n`` state
+    shards (``_gsc_shard_level_arrays``), on the device of ``sa``: (its
+    state arrays, svalid (S_loc,)), built once per (state space, n,
+    srank); ``gsc_levels`` of those arrays solves its levels."""
+    def build():
+        st, sv, ab = _gsc_shard_level_arrays(
+            (sa.states > 0.5).cpu().numpy(), n)
+
+        def t(a):
+            return torch.as_tensor(a[srank], device=sa.states.device)
+        return sa._replace(states=t(st), abs_states=t(ab)), t(sv)
+    return cached_for(sa.states, ("gsc_shard", n, srank), build)
+
+
 def gsc_levels(sa: LinearStateArrays) -> List[GSCLevel]:
     """The levels of ``sa``'s state space on its device, built once per
     state table: a step then builds no tensor from the host (a CUDA graph
@@ -271,14 +323,24 @@ def _scalars(device, *values):
 
 def _chunk_gsc_estats(y, w, W, gram, gram_diag, sigma2, pi, mu, psi,
                       sa: LinearStateArrays, Hp: int, beta, prior_beta,
-                      collect_true: bool = True):
+                      collect_true: bool = True, state_axis=None,
+                      n_state_shards: int = 1):
     """E-statistics for one chunk: y (C, D), w (C,) accumulation weights.
-    Returns (F (C,), sums)."""
+    Returns (F (C,), sums).  State sharding (``state_axis``,
+    ``n_state_shards > 1``), as the linear family's ``_chunk_estats``:
+    this rank's level-aligned share of the supports (``gsc_shard_arrays``,
+    each level solved at its size), the zero and singleton states on state
+    rank 0, the softmax combined over the group."""
     C, D = y.shape
     H = W.shape[1]
     inv_s2 = 1.0 / sigma2
     inv_psi = 1.0 / psi
     log_odds = torch.log(pi) - torch.log1p(-pi)
+    sharded = state_sharded(state_axis, n_state_shards)
+    if sharded:
+        srank = state_rank(state_axis)
+        sa, svalid = gsc_shard_arrays(sa, n_state_shards, srank)
+        own = float(srank == 0)
 
     P, cand, proj, Gf = _candidates(y, W, gram, gram_diag, Hp, True)
     bsrc = proj * inv_s2 + mu * inv_psi                            # (C, Hp)
@@ -312,21 +374,19 @@ def _chunk_gsc_estats(y, w, W, gram, gram_diag, sigma2, pi, mu, psi,
     logits = torch.cat([zero, beta * lik_single + prior_beta * log_odds,
                         beta * lik_multi + prior_beta * prior_multi[None, :]],
                        dim=1)
-    m = logits.max(dim=1, keepdim=True).values
-    p = torch.exp(logits - m)
-    Z = p.sum(dim=1, keepdim=True)
-    q = p / Z
+    # the un-annealed channel; a saturated step skips it (F_true == F)
+    logits_t = None if not collect_true else torch.cat(
+        [zero, lik_single + log_odds, lik_multi + prior_multi[None, :]],
+        dim=1)
+    if sharded:
+        logits, logits_t = (mask_union(t, 1 + H, own, svalid)
+                            for t in (logits, logits_t))
+    q, logZ, logZ_t = union_softmax(logits, logits_t,
+                                    state_axis if sharded else None)
     y2 = (y * y).sum(dim=1)
-    F = (m + torch.log(Z))[:, 0] + _free_energy_const(
-        y2, D, H, sigma2, pi, beta, prior_beta)
-    if collect_true:
-        # the un-annealed channel; a saturated step skips it (F_true == F)
-        logits_t = torch.cat([zero, lik_single + log_odds,
-                              lik_multi + prior_multi[None, :]], dim=1)
-        F_true = torch.logsumexp(logits_t, dim=1) + _free_energy_const(
-            y2, D, H, sigma2, pi, 1.0, 1.0)
-    else:
-        F_true = F
+    F = logZ + _free_energy_const(y2, D, H, sigma2, pi, beta, prior_beta)
+    F_true = F if not collect_true else (
+        logZ_t + _free_energy_const(y2, D, H, sigma2, pi, 1.0, 1.0))
 
     q_single = q[:, 1:1 + H]                                       # (C, H)
     q_multi = q[:, 1 + H:]                                         # (C, S)
@@ -353,18 +413,21 @@ def _chunk_gsc_estats(y, w, W, gram, gram_diag, sigma2, pi, mu, psi,
     sums = dict(xs=y.T @ sw, ss=sum_ss, s=sw.sum(dim=0),
                 abs=(abs_n * wv).sum(), y2=(y2 * wv).sum(), n=wv.sum(),
                 F=(F * wv).sum(), F_true=(F_true * wv).sum())
-    return F, sums
+    return F, own_scalars(sums, own) if sharded else sums
 
 
 def gsc_et_estep(y: torch.Tensor, weight: torch.Tensor, W: torch.Tensor,
                  sigma2, pi, mu, psi, sa: LinearStateArrays, Hp: int,
                  beta, prior_beta, chunk: int = 1024,
-                 collect_true: bool = True
+                 collect_true: bool = True, state_axis=None,
+                 n_state_shards: int = 1
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The GSC E-step with chunked accumulation: (F (N,), sums).  N must
     be a multiple of ``chunk`` unless N <= chunk (``EM`` pads with weight-0
     rows).  The JAX package's ``batch_last=False`` (the padded form in the
-    E-step) is left out: the decode runs that form."""
+    E-step) is left out: the decode runs that form.  Under a state axis
+    each chunk runs on this rank's share of the supports, and the caller
+    adds the sums over the state group too."""
     N = y.shape[0]
     sigma2, pi, mu, psi = _scalars(y.device, sigma2, pi, mu, psi)
     gram = W.T @ W
@@ -373,7 +436,7 @@ def gsc_et_estep(y: torch.Tensor, weight: torch.Tensor, W: torch.Tensor,
     def body(y_i, w_i):
         return _chunk_gsc_estats(y_i, w_i, W, gram, gram_diag, sigma2, pi,
                                  mu, psi, sa, Hp, beta, prior_beta,
-                                 collect_true)
+                                 collect_true, state_axis, n_state_shards)
 
     if N <= chunk:
         return body(y, weight)

@@ -28,10 +28,13 @@ from typing import Dict, List, NamedTuple, Tuple
 import numpy as np
 import torch
 
-from prosper_tpu_torch.core.etstep import (LinearStateArrays,
-                                           _free_energy_const,
+from prosper_tpu_torch.core.etstep import (NEG, LinearStateArrays,
+                                           _free_energy_const, mask_union,
+                                           own_scalars, slice_state_shard,
+                                           union_softmax,
                                            top_states_from_topk)
 from prosper_tpu_torch.core.select import top_hprime_candidates, top_l_argmax
+from prosper_tpu_torch.parallel.mesh import state_rank, state_sharded
 
 
 def _subset_dp_plan(states_np):
@@ -158,11 +161,46 @@ def _dp_hard_resp(qa, plan: DPPlan, masks, Hp: int):
     return A
 
 
-def _soft_resp(qa, Wc, states, plan: DPPlan, magnitude: bool, rho):
+def _loop_winner_tile(Wc, states, magnitude: bool):
+    """Winner tile over the multi states by the per-state loop over the
+    slots (the JAX package's ``dp_winner=False`` form, which needs no
+    global lattice): slot h takes dimension d of state s where it is
+    active and its key is strictly greater (ties keep the earlier slot),
+    the subset-lattice DP's rule.  A state with no active slot (a state
+    shard's padding) gets ybar = 0 and key NEG.  Returns (ybar, best, key),
+    each (C, S, D)."""
+    C, Hp, D = Wc.shape
+    S = states.shape[0]
+    act = states > 0.5
+    ybar = torch.full((C, S, D), NEG, dtype=Wc.dtype, device=Wc.device)
+    key = ybar.clone()
+    best = torch.zeros((C, S, D), dtype=torch.long, device=Wc.device)
+    for h in range(Hp):
+        vh = Wc[:, h:h + 1, :]                                      # (C,1,D)
+        kh = torch.where(act[None, :, h, None], vh.abs() if magnitude
+                         else vh, torch.full_like(key, NEG))        # (C,S,D)
+        better = kh > key
+        ybar = torch.where(better, vh, ybar)
+        best = torch.where(better, torch.full_like(best, h), best)
+        key = torch.where(better, kh, key)
+    ybar = torch.where(key > NEG / 2, ybar, torch.zeros_like(ybar))
+    return ybar, best, key
+
+
+def _loop_hard_resp(qa, best, key, Hp: int):
+    """Hard-winner responsibilities of the loop form: A[n, h, d] =
+    sum_s qa[n, s] [slot h wins (s, d)]."""
+    live = key > NEG / 2
+    return torch.stack([torch.einsum("ns,nsd->nd", qa,
+                                     ((best == h) & live).to(qa.dtype))
+                        for h in range(Hp)], dim=1)
+
+
+def _soft_resp(qa, Wc, states, kv_full, magnitude: bool, rho):
     """Softened-max responsibilities A[n, h, d] = sum_s qa[n, s] *
-    exp(rho (K_h - K_max) / |K_max|) / Z over the active slots."""
+    exp(rho (K_h - K_max) / |K_max|) / Z over the active slots, from the
+    winner keys ``kv_full`` (C, S, D)."""
     Hp = Wc.shape[1]
-    kv_full = _dp_winner_tile(Wc, plan, magnitude, ("key",))[0]["key"]
     kv_scale = torch.clamp(kv_full.abs(), min=1e-6)
 
     def powers(h):
@@ -184,7 +222,9 @@ def _union_terms(y, W, gram_diag, sigma2, log_odds, sa: LinearStateArrays,
                  P=None):
     """Candidates, winner tile and the annealed union logits
     [zero | H singletons | S multi] of one chunk (from P = y @ W, if
-    given)."""
+    given); the tile by the subset-lattice DP over ``plan``, or by the
+    per-state loop where ``plan`` is None (then with ``best`` and ``key``
+    in place of the DP's ``masks``)."""
     C = y.shape[0]
     inv2s2 = 0.5 / sigma2
     if P is None:
@@ -192,8 +232,13 @@ def _union_terms(y, W, gram_diag, sigma2, log_odds, sa: LinearStateArrays,
     w_norm = torch.sqrt(torch.clamp(gram_diag, min=1e-30))
     cand = top_hprime_candidates(P, w_norm, Hp, magnitude)          # (C, Hp)
     Wc = W.T[cand]                                                   # (C,Hp,D)
-    tile, masks = _dp_winner_tile(Wc, plan, magnitude)
-    ybar = tile["ybar"]                                              # (C,S,D)
+    winner = {}
+    if plan is None:
+        ybar, winner["best"], winner["key"] = _loop_winner_tile(
+            Wc, sa.states, magnitude)
+    else:
+        tile, winner["masks"] = _dp_winner_tile(Wc, plan, magnitude)
+        ybar = tile["ybar"]                                          # (C,S,D)
     y_dot = torch.einsum("nd,nsd->ns", y, ybar)
     ybar2 = (ybar * ybar).sum(dim=2)
     lik_multi = (2.0 * y_dot - ybar2) * inv2s2
@@ -203,43 +248,55 @@ def _union_terms(y, W, gram_diag, sigma2, log_odds, sa: LinearStateArrays,
         [torch.zeros((C, 1), dtype=P.dtype, device=P.device),
          beta * lik_single + prior_beta * log_odds,
          beta * lik_multi + prior_beta * prior_multi[None, :]], dim=1)
-    return dict(P=P, cand=cand, Wc=Wc, ybar=ybar, masks=masks, y_dot=y_dot,
+    return dict(P=P, cand=cand, Wc=Wc, ybar=ybar, y_dot=y_dot,
                 ybar2=ybar2, lik_multi=lik_multi, prior_multi=prior_multi,
-                lik_single=lik_single, logits=logits)
+                lik_single=lik_single, logits=logits, **winner)
 
 
 def _chunk_max_estats(y, w, W, gram_diag, sigma2, log_odds,
                       sa: LinearStateArrays, Hp: int, magnitude: bool,
-                      beta, prior_beta, plan: DPPlan, rho=None,
-                      collect_true: bool = True, P=None):
+                      beta, prior_beta, plan, rho=None,
+                      collect_true: bool = True, P=None, state_axis=None,
+                      n_state_shards: int = 1):
     """E-statistics for one chunk: y (C, D), w (C,) weights.
     Returns (F (C,), sums).  ``rho`` (a host number or a 0-d tensor) is the
-    softened max's exponent; None takes the hard winner.  Given
-    ``P = y @ W`` it is the middle stage alone (``max_et_estep_rows``): the
-    sums then hold ``qsw = w q_single`` (C, H), and numer lacks its
-    singleton part ``qsw.T @ y``."""
+    softened max's exponent; None takes the hard winner.  ``plan`` (a
+    ``DPPlan``) builds the winner tile by the subset-lattice DP, None by
+    the per-state loop.  Given ``P = y @ W`` it is the middle stage alone
+    (``max_et_estep_rows``): the sums then hold ``qsw = w q_single``
+    (C, H), and numer lacks its singleton part ``qsw.T @ y``.
+
+    State sharding (``state_axis``, ``n_state_shards > 1``), as the linear
+    family's ``_chunk_estats``: the loop form on this state rank's slice
+    (the DP needs the whole lattice), the zero and singleton states on
+    state rank 0, the softmax combined over the group."""
     C, D = y.shape
     H = W.shape[1]
     staged = P is not None
+    sharded = state_sharded(state_axis, n_state_shards)
+    if sharded:
+        (states, absst), svalid, own = slice_state_shard(
+            state_rank(state_axis), n_state_shards,
+            [sa.states, sa.abs_states])
+        sa = sa._replace(states=states, abs_states=absst)
+        plan = None
     u = _union_terms(y, W, gram_diag, sigma2, log_odds, sa, Hp, magnitude,
                      beta, prior_beta, plan, P)
     logits = u["logits"]
-    m = logits.max(dim=1, keepdim=True).values
-    p = torch.exp(logits - m)
-    Z = p.sum(dim=1, keepdim=True)
-    q = p / Z
+    logits_t = None if not collect_true else torch.cat(
+        [torch.zeros((C, 1), dtype=y.dtype, device=y.device),
+         u["lik_single"] + log_odds,
+         u["lik_multi"] + u["prior_multi"][None, :]], dim=1)
+    if sharded:
+        logits, logits_t = (mask_union(t, 1 + H, own, svalid)
+                            for t in (logits, logits_t))
+    q, logZ, logZ_t = union_softmax(logits, logits_t,
+                                    state_axis if sharded else None)
     y2 = (y * y).sum(dim=1)
-    F = (m + torch.log(Z))[:, 0] + _free_energy_const(
-        y2, D, H, sigma2, log_odds, beta, prior_beta)
-    if collect_true:
-        logits_t = torch.cat(
-            [torch.zeros((C, 1), dtype=y.dtype, device=y.device),
-             u["lik_single"] + log_odds,
-             u["lik_multi"] + u["prior_multi"][None, :]], dim=1)
-        F_true = torch.logsumexp(logits_t, dim=1) + _free_energy_const(
-            y2, D, H, sigma2, log_odds, 1.0, 1.0)
-    else:
-        F_true = F
+    F = logZ + _free_energy_const(y2, D, H, sigma2, log_odds, beta,
+                                  prior_beta)
+    F_true = F if not collect_true else (
+        logZ_t + _free_energy_const(y2, D, H, sigma2, log_odds, 1.0, 1.0))
 
     q_zero, q_single, q_multi = q[:, 0], q[:, 1:1 + H], q[:, 1 + H:]
     wv = w.to(torch.float32)
@@ -249,7 +306,11 @@ def _chunk_max_estats(y, w, W, gram_diag, sigma2, log_odds,
 
     qa = q_multi * wv[:, None]                                       # (C, S)
     if rho is not None:
-        accA = _soft_resp(qa, u["Wc"], sa.states, plan, magnitude, rho)
+        key = (u["key"] if plan is None else _dp_winner_tile(
+            u["Wc"], plan, magnitude, ("key",))[0]["key"])
+        accA = _soft_resp(qa, u["Wc"], sa.states, key, magnitude, rho)
+    elif plan is None:
+        accA = _loop_hard_resp(qa, u["best"], u["key"], Hp)
     else:
         accA = _dp_hard_resp(qa, plan, u["masks"], Hp)               # (C,Hp,D)
     idx = cand.reshape(-1)
@@ -273,7 +334,7 @@ def _chunk_max_estats(y, w, W, gram_diag, sigma2, log_odds,
                 F_true=(F_true * wv).sum())
     if staged:
         sums["qsw"] = qsw
-    return F, sums
+    return F, own_scalars(sums, own) if sharded else sums
 
 
 def max_et_estep_rows(y, weight, P, W, sigma2, log_odds,
@@ -290,12 +351,6 @@ def max_et_estep_rows(y, weight, P, W, sigma2, log_odds,
     return F, sums.pop("qsw"), sums
 
 
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to prosper_tpu_torch yet "
-        "(ROADMAP.md, open item: state sharding)")
-
-
 def max_et_estep(y: torch.Tensor, weight: torch.Tensor, W: torch.Tensor,
                  sigma2, log_odds, sa: LinearStateArrays, Hp: int,
                  magnitude: bool, beta, prior_beta, chunk: int = 2048,
@@ -307,18 +362,22 @@ def max_et_estep(y: torch.Tensor, weight: torch.Tensor, W: torch.Tensor,
     (chunk, S, D) winner tile).  Returns (F (N,), sums).  N must be a
     multiple of ``chunk`` unless N <= chunk (``EM`` pads).  ``rho`` is the
     softened max's exponent, on the host or the device; None (the
-    schedule's rho <= 0) takes the hard winner."""
-    if state_axis is not None or n_state_shards != 1 or not dp_winner:
-        raise _not_ported("state sharding of the max family (state_axis, "
-                          "n_state_shards, dp_winner=False)")
+    schedule's rho <= 0) takes the hard winner.  ``dp_winner=False`` builds
+    the winner tile by the per-state loop instead of the subset-lattice
+    DP (the same winners; the responsibilities summed in another order).
+    Under a state axis (``state_axis``: the state group,
+    ``n_state_shards > 1``) each chunk runs the loop form on this state
+    rank's slice, and the caller adds the sums over the state group too."""
     N = y.shape[0]
     gram_diag = (W * W).sum(dim=0)
-    plan = dp_plan(sa.states)
+    sharded = state_sharded(state_axis, n_state_shards)
+    plan = dp_plan(sa.states) if dp_winner and not sharded else None
 
     def body(y_i, w_i):
         return _chunk_max_estats(y_i, w_i, W, gram_diag, sigma2, log_odds,
                                  sa, Hp, magnitude, beta, prior_beta, plan,
-                                 rho, collect_true)
+                                 rho, collect_true, state_axis=state_axis,
+                                 n_state_shards=n_state_shards)
 
     if N <= chunk:
         return body(y, weight)

@@ -308,8 +308,11 @@ class EM:
         N = data["y"].shape[0]
         self._n_local = N
         if runtime is not None:
+            # the rows of each data shard; the ranks of a state group hold
+            # the same rows
             self._n_locals = runtime.n_locals(N)
-            self._row_offset = int(self._n_locals[:runtime.rank].sum())
+            self._row_offset = int(
+                self._n_locals[:runtime.data_index].sum())
         else:
             self._n_locals, self._row_offset = np.asarray([N]), 0
         self.N_global = int(self._n_locals.sum())

@@ -33,6 +33,11 @@ the pass's sums are reduced once, in ``finalize_mstep``, as the in-memory
 step reduces them (the JAX package reduces per segment), so a streamed run
 equals the in-memory run under the same runtime with the same row cut.  A
 checkpoint holds the global ``F_prev`` in stride order; rank 0 writes it.
+Under a ``("data", "state")`` mesh the shards are those of the data axis
+(the ranks of a state group stream the same rows) and each segment's
+E-step runs on the rank's slice of the states, its all-reduces over the
+state group in the same lockstep (the JAX package passes the state
+keywords to ``estep_sums`` the same way).
 
 ``host_quantile_threshold`` is the host twin of the device threshold, kept
 as the JAX package keeps it.
@@ -148,7 +153,7 @@ class StreamingEM:
                 raise ValueError(f"StreamingEM(device={device!r}) differs "
                                  f"from the runtime's device "
                                  f"{runtime.device}")
-            device, self.group = runtime.device, runtime.group
+            device, self.group = runtime.device, runtime.data_group
         self.model = model
         self.anneal = anneal
         self.dlog = dlog
@@ -163,8 +168,12 @@ class StreamingEM:
         self._n_locals = (runtime.n_locals(self.N) if runtime is not None
                           else np.asarray([self.N], np.int64))
         self.N_global = int(self._n_locals.sum())
-        self._row_offset = (int(self._n_locals[:runtime.rank].sum())
+        self._row_offset = (int(self._n_locals[:runtime.data_index].sum())
                             if runtime is not None else 0)
+        #: the state axis's keywords for the E-step and the M-step (none
+        #: without a state axis of more than one shard)
+        self._state_kw = ({} if runtime is None
+                          else runtime.state_kwargs(model.estep_sums))
         c = max(int(model.chunk), 1)
         N_for_seg = int(self._n_locals.max())
         seg = min(int(seg_size), max(N_for_seg, 1))
@@ -235,7 +244,8 @@ class StreamingEM:
                  if pattern.partial else valid)
             if pattern.ncut:
                 w = w * (self.F_prev[rows] >= thresh).float()
-            F, sums = model.estep_sums(params, y_seg, w, sched)
+            F, sums = model.estep_sums(params, y_seg, w, sched,
+                                       **self._state_kw)
             up.release(k)
             if keep_F:
                 self.F_prev[rows] = F
@@ -243,8 +253,8 @@ class StreamingEM:
                                             for n, v in sums.items()}
             if k + 1 < self.n_seg:
                 up.put(k + 1)
-        self.params, scalars = model.finalize_mstep(params, acc,
-                                                    self.N_total, self.group)
+        self.params, scalars = model.finalize_mstep(
+            params, acc, self.N_total, self.group, **self._state_kw)
 
         vals = torch.stack([torch.as_tensor(v, dtype=torch.float32,
                                             device=self.device)

@@ -244,11 +244,15 @@ class ETModel:
 
     # -- shared ET data-selection masks ---------------------------------------
     #
-    # With a process group (``parallel/mesh.py``) the rows are this rank's:
-    # the partial mask draws per rank, the Ncut cut ranks the rows of every
-    # rank (``n_sel`` and the threshold's histograms are summed), and
+    # With a process group (``parallel/mesh.py``; the data group of a
+    # ("data", "state") mesh) the rows are this rank's: the partial mask
+    # draws per data shard, the Ncut cut ranks the rows of every data shard
+    # (``n_sel`` and the threshold's histograms are summed), and
     # ``N_total`` is this rank's count, summed with the sufficient
-    # statistics in ``finalize_mstep`` (one all-reduce for both).
+    # statistics in ``finalize_mstep`` (one all-reduce for both).  The
+    # state ranks of a row hold the same rows, the same generator and the
+    # same F bit for bit (the softmax is combined over them), so they draw
+    # the same mask and cut the same rows.
 
     def partial_mask(self, data, sched, generator, group=None) -> torch.Tensor:
         """Exact-count random subsampling mask (``partial`` channel)."""

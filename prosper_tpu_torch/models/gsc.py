@@ -24,8 +24,7 @@ from prosper_tpu_torch.core.gscstep import gsc_et_estep, gsc_posterior
 from prosper_tpu_torch.core.states import binary_state_space
 from prosper_tpu_torch.models.base import (ETModel, device_sched, pattern_of,
                                            sched_floats, to_numpy)
-from prosper_tpu_torch.models.linear import (_no_state_sharding,
-                                             reduce_sums, solve)
+from prosper_tpu_torch.models.linear import reduce_sums, solve
 from prosper_tpu_torch.parallel.mesh import check_runtime
 from prosper_tpu_torch.utils.staging import rows_to_device
 
@@ -54,39 +53,45 @@ class GSC(ETModel):
                    n_state_shards: int = 1):
         """E-step over one block of data: (F (N,), sums).  ``params`` are
         already noisified; the caller owns the weight mask.  A saturated
-        step skips the un-annealed channel (F_true == F there)."""
-        _no_state_sharding(state_axis, n_state_shards)
+        step skips the un-annealed channel (F_true == F there).  Under a
+        state axis (``state_axis``, ``n_state_shards > 1``) this rank's
+        level-aligned share of the supports (``core/gscstep.py``)."""
         W = params["W"]
         return gsc_et_estep(
             y, weight, W, params["sigma"] ** 2, params["pi"], params["mu"],
             params["psi"], self.state_arrays(W.device), self.Hprime,
             sched["beta"], sched["prior_beta"], self.chunk,
-            collect_true=not pattern_of(sched).saturated)
+            collect_true=not pattern_of(sched).saturated,
+            state_axis=state_axis, n_state_shards=n_state_shards)
 
     def step_fn(self, params, data, sched, generator, state_axis=None,
                 n_state_shards: int = 1, group=None):
         """One EM iteration: noisify -> masks -> E-step -> M-step.
         Returns (new_params, F (N,), scalars); with a process group on this
-        rank's rows (``LinearETModel.step_fn``)."""
-        _no_state_sharding(state_axis, n_state_shards)
+        rank's rows and, under a state axis, its share of the supports
+        (``LinearETModel.step_fn``)."""
         y = data["y"]
         sched = device_sched(sched, y.device)
         params = self.noisify(params, sched, generator)
 
         def estep(weight):
-            return self.estep_sums(params, y, weight, sched)
+            return self.estep_sums(params, y, weight, sched, state_axis,
+                                   n_state_shards)
 
         F, sums, _, _, N_total = self.run_estep_with_ncut(
             estep, self.log_pi_active(params), data, sched, generator, group)
-        new, scalars = self.finalize_mstep(params, sums, N_total, group)
+        new, scalars = self.finalize_mstep(params, sums, N_total, group,
+                                           state_axis, n_state_shards)
         return new, F, scalars
 
-    def finalize_mstep(self, params, sums, N_total, group=None):
+    def finalize_mstep(self, params, sums, N_total, group=None,
+                       state_axis=None, n_state_shards: int = 1):
         """The slab M-step (W, pi, sigma, mu, psi) and the per-iteration
         scalars.  ``params`` is the noisified dict the E-step ran with; with
         a process group the sums and ``N_total`` are this rank's and are
-        summed over the ranks first, in one all-reduce."""
-        sums, N_total = reduce_sums(sums, N_total, group)
+        summed over the ranks first (``models/linear.py::reduce_sums``)."""
+        sums, N_total = reduce_sums(sums, N_total, group, state_axis,
+                                    n_state_shards)
         logA, logB = truncated_prior_logmass(self.log_pi_active(params),
                                              self.H, self.gamma)
         new = dict(params)

@@ -40,7 +40,8 @@ from prosper_tpu_torch.models.base import (ETModel, device_sched,
                                            pattern_of, resolve_backend,
                                            sched_floats, to_numpy)
 from prosper_tpu_torch.ops.linear_cuda import linear_et_estep
-from prosper_tpu_torch.parallel.mesh import check_runtime, psum_dict
+from prosper_tpu_torch.parallel.mesh import (check_runtime, psum_dict,
+                                             state_rank, state_sharded)
 from prosper_tpu_torch.utils.staging import rows_to_device
 
 
@@ -58,19 +59,24 @@ def solve(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     return torch.linalg.solve_ex(A, B, check_errors=False).result
 
 
-def reduce_sums(sums: Dict, N_total, group):
-    """(sums, N_total) summed over the ranks of ``group`` in one all-reduce
-    (``parallel/mesh.py::psum_dict``); as they are without a group."""
-    if group is None:
+def reduce_sums(sums: Dict, N_total, group, state_axis=None,
+                n_state_shards: int = 1):
+    """(sums, N_total) summed over the ranks of ``group`` (the data group)
+    in one all-reduce (``parallel/mesh.py::psum_dict``); as they are
+    without a group.  Under a state axis the sums are this state rank's
+    part and are summed over the state group as well (a second all-reduce;
+    the two together are the sum over the whole mesh), with ``N_total``
+    counted on state rank 0 alone: each data shard's rows count once, as
+    the JAX package keeps ``N_total`` out of its state psum."""
+    sharded = state_sharded(state_axis, n_state_shards)
+    if group is None and not sharded:
         return sums, N_total
+    if sharded:
+        N_total = N_total * float(state_rank(state_axis) == 0)
     out = psum_dict(dict(sums, N_total=N_total), group)
+    if sharded:
+        out = psum_dict(out, state_axis)
     return {k: out[k] for k in sums}, out["N_total"]
-
-
-def _no_state_sharding(state_axis, n_state_shards):
-    if state_axis is not None or n_state_shards != 1:
-        raise not_ported("state sharding (state_axis, n_state_shards)",
-                         "state sharding")
 
 
 class LinearETModel(ETModel):
@@ -159,9 +165,18 @@ class LinearETModel(ETModel):
         E-step or the big-S one when ``s_block > 0``, or raises (learned
         Phi); ``backend="plain"`` runs the plain version on the tensors'
         device.  Learned Phi tiles no states: ``s_block`` is not read.  A
-        saturated step skips the un-annealed channel (F_true == F there)."""
-        _no_state_sharding(state_axis, n_state_shards)
+        saturated step skips the un-annealed channel (F_true == F there).
+
+        Under a state axis (``state_axis``: the state group,
+        ``n_state_shards > 1``) the rank's slice of the states:
+        ``backend="cuda"`` on a CUDA tensor runs the big-S kernel on it
+        whatever ``s_block`` is (the fused rows kernel needs the whole
+        union, as the JAX package turns its own kernel off there);
+        ``backend="plain"`` and learned Phi run the plain version sliced
+        (``_chunk_estats`` for ``s_block = 0``, ``_chunk_estats_bigs``
+        above).  The sums are then this state rank's part."""
         W = params["W"]
+        shard = dict(state_axis=state_axis, n_state_shards=n_state_shards)
         saturated = pattern_of(sched).saturated
         args = (y, weight, W, params["sigma"] ** 2, self.log_odds(params),
                 self._sa_for(params), self.Hprime, self.signed_select,
@@ -170,18 +185,22 @@ class LinearETModel(ETModel):
             self._check_phi_backend(W.device)
             return etstep.linear_et_estep(
                 *args, chunk=self.chunk, collect_true=not saturated,
-                collect_phi=True, slot_onehot=self.slot_onehot(W.device))
+                collect_phi=True, slot_onehot=self.slot_onehot(W.device),
+                **shard)
         estep = (linear_et_estep if self.backend == "cuda"
                  else etstep.linear_et_estep)
         return estep(*args, chunk=self.chunk, collect_true=not saturated,
-                     s_block=self.s_block)
+                     s_block=self.s_block, **shard)
 
-    def finalize_mstep(self, params, sums, N_total, group=None):
+    def finalize_mstep(self, params, sums, N_total, group=None,
+                       state_axis=None, n_state_shards: int = 1):
         """Closed-form M-step and the per-iteration scalars (0-d tensors).
         ``params`` is the noisified dict the E-step ran with.  With a
         process group the sums and ``N_total`` are this rank's and are
-        summed over the ranks first, in one all-reduce."""
-        sums, N_total = reduce_sums(sums, N_total, group)
+        summed over the ranks first (``reduce_sums``; over the state group
+        too under a state axis)."""
+        sums, N_total = reduce_sums(sums, N_total, group, state_axis,
+                                    n_state_shards)
         logA, logB = truncated_prior_logmass(self.log_pi_active(params),
                                              self.H, self.gamma)
         new_params = self.m_step(params, sums, logA, logB)
@@ -201,19 +220,22 @@ class LinearETModel(ETModel):
         """One EM iteration: noisify -> masks -> E-step -> M-step.
         Returns (new_params, F (N,), scalars).  With a process group
         (``MeshRuntime.shard_step``) ``data`` holds this rank's rows and
-        the parameters, scalars and generator stay replicated."""
-        _no_state_sharding(state_axis, n_state_shards)
+        the parameters, scalars and generator stay replicated.  Under a
+        state axis (``state_axis``, ``n_state_shards``; ``group`` is then
+        the data group) the E-step runs on this rank's slice of the states
+        and F is the same on every state rank of a row."""
         y = data["y"]
         sched = device_sched(sched, y.device)
         params = self.noisify(params, sched, generator)
 
         def estep(weight):
-            return self.estep_sums(params, y, weight, sched)
+            return self.estep_sums(params, y, weight, sched, state_axis,
+                                   n_state_shards)
 
         F, sums, logA, logB, N_total = self.run_estep_with_ncut(
             estep, self.log_pi_active(params), data, sched, generator, group)
-        new_params, scalars = self.finalize_mstep(params, sums, N_total,
-                                                  group)
+        new_params, scalars = self.finalize_mstep(
+            params, sums, N_total, group, state_axis, n_state_shards)
         return new_params, F, scalars
 
     def m_step(self, params, sums, logA, logB):

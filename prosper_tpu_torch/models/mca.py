@@ -17,7 +17,11 @@ the plain version on either device, as the JAX package's ``lax.cond`` sends
 it to XLA.  ``backend="plain"`` (or "xla") runs the plain version on
 whatever device the tensors lie on, which is also how a state space larger
 than the kernel holds (H' > 8 or more than 128 multi states) trains on the
-card.
+card.  Under a state axis (``state_axis``, ``n_state_shards > 1``) the
+E-step is the plain loop form on this rank's slice of the states
+(``core/maxstep.py``): the kernel needs the whole subset lattice, so
+``backend="cuda"`` on a CUDA tensor raises there and ``backend="plain"``
+trains such a run on the card.
 """
 
 from __future__ import annotations
@@ -31,9 +35,9 @@ from prosper_tpu_torch.core.states import binary_state_space
 from prosper_tpu_torch.models.base import (ETModel, device_sched, pattern_of,
                                            resolve_backend, sched_floats,
                                            to_numpy)
-from prosper_tpu_torch.models.linear import _no_state_sharding, reduce_sums
+from prosper_tpu_torch.models.linear import reduce_sums
 from prosper_tpu_torch.ops import max_cuda
-from prosper_tpu_torch.parallel.mesh import check_runtime
+from prosper_tpu_torch.parallel.mesh import check_runtime, state_sharded
 from prosper_tpu_torch.utils.staging import rows_to_device
 
 
@@ -71,27 +75,38 @@ class MCA(ETModel):
         """E-step over one block of data: (F (N,), sums).  rho > 0 runs the
         softened max (plain version); rho <= 0 the hard winner, through the
         fused kernel on a CUDA tensor unless ``backend="plain"``.  A
-        saturated step skips the un-annealed channel (F_true == F there)."""
-        _no_state_sharding(state_axis, n_state_shards)
+        saturated step skips the un-annealed channel (F_true == F there).
+        Under a state axis the plain loop form on this rank's slice; on a
+        CUDA tensor that needs ``backend="plain"``."""
         W = params["W"]
+        sharded = state_sharded(state_axis, n_state_shards)
+        if sharded and self.backend == "cuda" and W.device.type == "cuda":
+            raise ValueError(
+                "under a state axis the max family runs the plain loop form "
+                "on each rank's slice of the states: the CUDA kernel needs "
+                "the whole subset lattice; build the model with "
+                'backend="plain" to train it on the card')
         args = (y, weight, W, params["sigma"] ** 2, self._log_odds(params),
                 self.state_arrays(W.device), self.Hprime, self.magnitude,
                 sched["beta"], sched["prior_beta"])
         pattern = pattern_of(sched)
-        if pattern.soft or self.backend == "plain":
+        if pattern.soft or self.backend == "plain" or sharded:
             return maxstep.max_et_estep(
                 *args, chunk=self.chunk,
                 rho=sched["rho"] if pattern.soft else None,
-                collect_true=not pattern.saturated)
+                collect_true=not pattern.saturated, state_axis=state_axis,
+                n_state_shards=n_state_shards)
         return max_cuda.max_et_estep(*args, chunk=self.chunk,
                                      collect_true=not pattern.saturated)
 
-    def finalize_mstep(self, params, sums, N_total, group=None):
+    def finalize_mstep(self, params, sums, N_total, group=None,
+                       state_axis=None, n_state_shards: int = 1):
         """Winner-responsibility M-step and the per-iteration scalars.
         ``params`` is the noisified dict the E-step ran with; with a
         process group the sums and ``N_total`` are this rank's and are
-        summed over the ranks first, in one all-reduce."""
-        sums, N_total = reduce_sums(sums, N_total, group)
+        summed over the ranks first (``models/linear.py::reduce_sums``)."""
+        sums, N_total = reduce_sums(sums, N_total, group, state_axis,
+                                    n_state_shards)
         logA, logB = truncated_prior_logmass(self.log_pi_active(params),
                                              self.H, self.gamma)
         new = dict(params)
@@ -119,18 +134,20 @@ class MCA(ETModel):
                 n_state_shards: int = 1, group=None):
         """One EM iteration: noisify -> masks -> E-step -> M-step.
         Returns (new_params, F (N,), scalars); with a process group on this
-        rank's rows (``LinearETModel.step_fn``)."""
-        _no_state_sharding(state_axis, n_state_shards)
+        rank's rows and, under a state axis, its slice of the states
+        (``LinearETModel.step_fn``)."""
         y = data["y"]
         sched = device_sched(sched, y.device)
         params = self.noisify(params, sched, generator)
 
         def estep(weight):
-            return self.estep_sums(params, y, weight, sched)
+            return self.estep_sums(params, y, weight, sched, state_axis,
+                                   n_state_shards)
 
         F, sums, _, _, N_total = self.run_estep_with_ncut(
             estep, self.log_pi_active(params), data, sched, generator, group)
-        new, scalars = self.finalize_mstep(params, sums, N_total, group)
+        new, scalars = self.finalize_mstep(params, sums, N_total, group,
+                                           state_axis, n_state_shards)
         return new, F, scalars
 
     # -- generation -----------------------------------------------------------

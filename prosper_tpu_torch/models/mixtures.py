@@ -8,7 +8,9 @@ the framework's EM loop and annealing: the step has the ET models'
 are two GEMMs.  Plain PyTorch on whatever device the tensors lie on.
 With a process group (``MeshRuntime.shard_step``) each rank holds its own
 rows, draws its own ``partial`` mask, and the sums and the valid count are
-summed over the ranks in one all-reduce before the M-step.
+summed over the ranks in one all-reduce before the M-step.  A mixture has
+no enumerated states: on a ``("data", "state")`` mesh its step takes the
+data group alone and runs state-replicated, as in the JAX package.
 """
 
 from __future__ import annotations

@@ -19,7 +19,7 @@ the two is the E-step's, ``ops/linear_cuda.py::linear_et_estep``.
 from __future__ import annotations
 
 import functools
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -29,9 +29,10 @@ from prosper_tpu_torch.ops.cuda_lib import (LAUNCHES, SMEM_LIMIT, cached_for,
                                             check, in_row_chunks,
                                             load_library, raise_on,
                                             schedule_pair)
+from prosper_tpu_torch.parallel.mesh import state_rank, state_sharded
 
-__all__ = ["LAUNCHES", "bigs_multi_cuda", "linear_et_estep_bigs",
-           "linear_et_estep_bigs_cuda"]
+__all__ = ["LAUNCHES", "bigs_multi_cuda", "empty_moments",
+           "linear_et_estep_bigs", "linear_et_estep_bigs_cuda"]
 
 LEAD = 4                     # floats: every tile row is a 16-byte copy
 NM_MAX = 152                 # moment columns the register tile holds
@@ -71,17 +72,32 @@ def tri_tables(lib, states_p, outer_p, vcounts_p, absst_p):
                                   LEAD, cols)
 
 
+def empty_moments(C: int, Hp: int, K: int, device):
+    """``bigs_multi``'s output for a table with no real state: m = m_t =
+    NEG, l = l_t = 0, zero moments."""
+    neg = torch.full((C,), etstep.NEG, dtype=torch.float32, device=device)
+    z = torch.zeros((C,), dtype=torch.float32, device=device)
+    return (neg, z, neg.clone(), z.clone(), z.clone(),
+            torch.zeros((C, Hp), dtype=torch.float32, device=device),
+            torch.zeros((C, Hp * Hp), dtype=torch.float32, device=device),
+            torch.zeros((C, K), dtype=torch.float32, device=device))
+
+
 def bigs_multi_cuda(proj, Gf, states_p, outer_p, vcounts_p, prior, valid,
                     absst_p, inv2s2, beta, prior_beta, s_block: int,
-                    collect_true: bool = True, tables=None
+                    collect_true: bool = True, tables=None,
+                    n_states: Optional[int] = None
                     ) -> Tuple[torch.Tensor, ...]:
     """The big-S recurrence kernel on CUDA tensors; same contract as
     ``core.etstep.bigs_multi``.  One launch covers all C rows.  ``s_block``
     is not read: the kernel walks the states in tiles of its own (64) and
-    masks those past the table itself, so the tables may be padded (``valid``
-    marks the real states) or not.  ``tables`` are the ``tri_tables`` of
-    these state tables where the caller keeps them; else they are built
-    here."""
+    masks those past its S itself, so the tables may be padded (``valid``
+    marks the real states) or not.  ``n_states`` (default: all rows of
+    the tables) is that S: the rows past it may hold padding only.  With
+    ``n_states = 0`` (a state shard whose slice holds padding only) there
+    is no launch and the output is ``empty_moments``, as the plain
+    version's.  ``tables`` are the ``tri_tables`` of these state tables
+    where the caller keeps them; else they are built here."""
     if proj.device.type != "cuda":
         raise ValueError(f"the CUDA kernels take CUDA tensors, got "
                          f"{proj.device}")
@@ -98,6 +114,12 @@ def bigs_multi_cuda(proj, Gf, states_p, outer_p, vcounts_p, prior, valid,
     check(absst_p, "abs_states", (S_pad,), dev)
     if C < 1:
         raise ValueError("need at least one datapoint")
+    n_states = S_pad if n_states is None else int(n_states)
+    if not 0 <= n_states <= S_pad:
+        raise ValueError(f"n_states={n_states} is outside the table's "
+                         f"{S_pad} rows")
+    if n_states == 0:
+        return empty_moments(C, Hp, K, dev)
     lib = load_library()
     if tables is None:
         tables = tri_tables(lib, states_p, outer_p, vcounts_p, absst_p)
@@ -111,7 +133,7 @@ def bigs_multi_cuda(proj, Gf, states_p, outer_p, vcounts_p, prior, valid,
     stats = torch.empty((3, C), dtype=torch.float32, device=dev)
     err = lib.bigs_multi(
         X.data_ptr(), AT.data_ptr(), PV.data_ptr(), B.data_ptr(),
-        scal.data_ptr(), acc.data_ptr(), stats.data_ptr(), C, S_pad, nL,
+        scal.data_ptr(), acc.data_ptr(), stats.data_ptr(), C, n_states, nL,
         X.shape[1], lda, nL + K + 2, int(collect_true),
         torch.cuda.current_stream(dev).cuda_stream)
     raise_on(lib, err, "bigs_multi")
@@ -122,14 +144,16 @@ def bigs_multi_cuda(proj, Gf, states_p, outer_p, vcounts_p, prior, valid,
 def linear_et_estep_bigs(y, weight, W, sigma2, log_odds,
                          sa: LinearStateArrays, Hp: int, signed_select: bool,
                          beta, prior_beta, s_block: int,
-                         collect_true: bool = True, multi=etstep.bigs_multi
+                         collect_true: bool = True, multi=etstep.bigs_multi,
+                         state_axis=None, n_state_shards: int = 1
                          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The big-S E-step around ``multi`` (the plain ``bigs_multi`` or its
     kernel), any N, on either device: the rows are cut where the larger of
     the (rows, H) and the two (rows, H', H) float32 workspaces of
     ``core.etstep._chunk_estats_bigs`` (``slot_sum_ss``) would exceed
     ``cuda_lib.P_LIMIT_BYTES``, F concatenated and the sums added in chunk
-    order; where all rows fit it is one call, as without the cut."""
+    order; where all rows fit it is one call, as without the cut.  Under
+    a state axis each chunk runs on this state rank's slice."""
     N, H = y.shape[0], W.shape[1]
     gram = W.T @ W
     gram_diag = torch.diagonal(gram)
@@ -137,20 +161,62 @@ def linear_et_estep_bigs(y, weight, W, sigma2, log_odds,
         N, max(H, Hp * H), lambda i, j: etstep._chunk_estats_bigs(
             y[i:j], weight[i:j], W, gram, gram_diag, sigma2, log_odds, sa,
             Hp, signed_select, beta, prior_beta, s_block, collect_true,
-            multi=multi))
+            multi=multi, state_axis=state_axis,
+            n_state_shards=n_state_shards))
+
+
+def _slice_multi(sa: LinearStateArrays, state_axis, n_state_shards: int):
+    """The recurrence on this state rank's slice as the kernel runs it:
+    the slice of ``ceil(S / n)`` states (a padding unit of 1; the tables
+    ``core.etstep.bigs_front`` cuts) whose ``n_states`` leading rows are
+    real, and on a CUDA tensor its reduced tables, built once per (state
+    space, n, state rank).  On a CPU tensor
+    the plain ``bigs_multi`` over the same slice in one tile."""
+    srank = state_rank(state_axis)
+    lo, hi, _ = etstep.state_slice(sa.states.shape[0], n_state_shards,
+                                   srank)
+    if sa.states.device.type != "cuda":
+        def plain(*args):
+            *ops, inv2s2, beta, prior_beta, _, collect_true = args
+            return etstep.bigs_multi(*ops, inv2s2, beta, prior_beta,
+                                     max(1, ops[2].shape[0]), collect_true)
+        return plain
+    tables = cached_for(sa.states, ("bigs_tri", n_state_shards, srank),
+                        lambda: tri_tables(load_library(), *(
+                            etstep.slice_state_shard(
+                                srank, n_state_shards,
+                                [sa.states, sa.outer, sa.value_counts,
+                                 sa.abs_states])[0])))
+    return functools.partial(bigs_multi_cuda, tables=tables,
+                             n_states=hi - lo)
 
 
 def linear_et_estep_bigs_cuda(y, weight, W, sigma2, log_odds,
                               sa: LinearStateArrays, Hp: int,
                               signed_select: bool, beta, prior_beta,
-                              s_block: int, collect_true: bool = True
+                              s_block: int, collect_true: bool = True,
+                              state_axis=None, n_state_shards: int = 1
                               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """The big-S E-step on CUDA tensors: the torch front end and sums of
+    """The big-S E-step through the kernel: the torch front end and sums of
     ``core.etstep._chunk_estats_bigs`` around one kernel launch per chunk
     of rows (``linear_et_estep_bigs``; one chunk unless N is very large).
     ``s_block`` tiles only the plain version: the kernel masks states past
     S itself, so the tables go to it unpadded (a padding unit of 1), and
-    their reduced form is built once per state space."""
+    their reduced form is built once per state space.
+
+    Under a state axis (``state_axis``, ``n_state_shards > 1``) the kernel
+    runs on this state rank's slice of ``ceil(S / n)`` states, whatever
+    ``s_block`` is, with the reduced tables of the slice built once per
+    (state space, n, state rank); a slice of padding alone launches
+    nothing.  On a CPU tensor that path runs the plain ``bigs_multi`` over
+    the same slice (the kernel's plain version); without a state axis the
+    kernel takes CUDA tensors only."""
+    if state_sharded(state_axis, n_state_shards):
+        multi = _slice_multi(sa, state_axis, n_state_shards)
+        return linear_et_estep_bigs(
+            y, weight, W, sigma2, log_odds, sa, Hp, signed_select, beta,
+            prior_beta, 1, collect_true, multi=multi, state_axis=state_axis,
+            n_state_shards=n_state_shards)
     if y.device.type != "cuda":
         raise ValueError(f"the CUDA kernels take CUDA tensors, got {y.device}")
     tables = cached_for(sa.states, "bigs_tri", lambda: tri_tables(

@@ -40,6 +40,7 @@ from prosper_tpu_torch.ops.cuda_lib import (LAUNCHES, SMEM_LIMIT, cached_for,
                                             row_chunks, scalars)
 from prosper_tpu_torch.ops.gemm_cuda import (sgemm_nn_cuda,
                                              sgemm_tn_splitn_cuda)
+from prosper_tpu_torch.parallel.mesh import state_sharded
 
 __all__ = ["LAUNCHES", "load_library", "linear_et_estep",
            "linear_et_estep_cuda", "linear_et_decode", "linear_et_decode_cuda"]
@@ -197,10 +198,20 @@ def linear_et_decode_cuda(y, W, sigma2, log_odds, sa: LinearStateArrays,
 def linear_et_estep(y, weight, W, sigma2, log_odds, sa: LinearStateArrays,
                     Hp: int, signed_select: bool, beta, prior_beta,
                     chunk: int = 2048, collect_true: bool = True,
-                    s_block: int = 0):
+                    s_block: int = 0, state_axis=None,
+                    n_state_shards: int = 1):
     """E-step: kernels on a CUDA tensor, the E-step's three stages or, with
     ``s_block > 0``, the big-S one (``ops/bigs_cuda.py``); its plain version
-    (``core.etstep.linear_et_estep``, chunked by ``chunk``) on a CPU one."""
+    (``core.etstep.linear_et_estep``, chunked by ``chunk``) on a CPU one.
+    Under a state axis (``state_axis``, ``n_state_shards > 1``) the big-S
+    kernel on this state rank's slice, whatever ``s_block`` is (the fused
+    rows kernel needs the whole union in one block), and on a CPU tensor
+    its plain version over the same slice."""
+    if state_sharded(state_axis, n_state_shards):
+        return linear_et_estep_bigs_cuda(
+            y, weight, W, sigma2, log_odds, sa, Hp, signed_select, beta,
+            prior_beta, s_block, collect_true, state_axis=state_axis,
+            n_state_shards=n_state_shards)
     if y.device.type == "cpu":
         return etstep.linear_et_estep(y, weight, W, sigma2, log_odds, sa, Hp,
                                       signed_select, beta, prior_beta, chunk,

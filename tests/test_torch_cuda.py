@@ -1403,3 +1403,75 @@ def test_gloo_on_the_card_runs_and_refuses_run_scanned(device, nccl_rt):
     _, em = _runtime_pair("bsc", rt)
     with pytest.raises(ValueError, match="gloo"):
         em.run_scanned()
+
+
+# -- state sharding on the card (tests/state_threads.py stands in for the
+# state group: n threads, one per state rank, in this process) ---------------
+
+
+@pytest.mark.parametrize("case,n", [(CASES[1], 2), (CASES[1], 4),
+                                    ((500, 16, 8, 3, 2, (1.0,), False), 4)],
+                         ids=["tsc_n2", "tsc_n4", "bsc_S3_n4"])
+def test_state_slices_through_the_bigs_kernel(case, n, device):
+    """Under a state axis the linear E-step runs the big-S kernel on each
+    state rank's slice of ``ceil(S / n)`` states, whatever ``s_block`` is:
+    F the same bits on every rank and within rtol 1e-4 of the unsharded
+    kernel E-step's, the sums added over the ranks within rtol 1e-3 of its
+    (phase 11's tolerances of chip_smoke.py); one launch a rank whose slice
+    holds a state, none for a slice of padding alone (S = 3 over 4: the
+    last), and one cache entry of reduced tables a slice."""
+    from state_threads import run_state_shards
+    y, w, W, lo, sa, Hp, signed = _inputs(case, device)
+    args = (y, w, W, torch.tensor(2.0, device=device), lo, sa, Hp, signed,
+            0.6, 1.0)
+    F0, s0 = linear_cuda.linear_et_estep(*args, s_block=16)
+    S = sa.states.shape[0]
+    real = sum(etstep.state_slice(S, n, r)[1] > etstep.state_slice(S, n, r)[0]
+               for r in range(n))
+    before = cuda_lib.LAUNCHES["bigs"]
+    parts, calls = run_state_shards(n, lambda g: linear_cuda.linear_et_estep(
+        *args, state_axis=g, n_state_shards=n))
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["bigs"] - before == real
+    assert calls == [2] * n
+    for F, _ in parts:
+        assert torch.equal(F, parts[0][0])
+    torch.testing.assert_close(parts[0][0], F0, rtol=1e-4, atol=1e-4)
+    for k in s0:
+        torch.testing.assert_close(sum(p[1][k] for p in parts), s0[k],
+                                   rtol=1e-3, atol=1e-3, msg=k)
+    keys = {key[1] for key in cuda_lib._PER_TENSOR
+            if key[0] == id(sa.states) and isinstance(key[1], tuple)}
+    assert {("bigs_tri", n, r) for r in range(n)} <= keys
+
+
+def test_state_axis_dispatch_rules_on_the_card(device):
+    """Under a state axis on the card: MCA and MMCA with ``backend="cuda"``
+    raise a ValueError naming ``backend="plain"`` (the kernel needs the
+    whole subset lattice) and run with ``backend="plain"``; a linear model
+    past the big-S kernel's limits (H' = 16: 155 moment columns) raises the
+    kernel's ValueError naming ``backend="plain"``.  Nothing falls back."""
+    from prosper_tpu_torch.models import BSC, MCA, MMCA
+    from prosper_tpu_torch.models.base import device_sched, sched_floats
+    from prosper_tpu_torch.engine.anneal import LinearAnnealing
+    from state_threads import run_state_shards
+    sched = device_sched(sched_floats(LinearAnnealing(2)), device)
+    y = torch.randn((64, 16), generator=torch.Generator().manual_seed(0))
+    for cls in (MCA, MMCA):
+        model = cls(16, 12, 5, 3)
+        p = model.standard_init({"y": y}, device=device)
+        with pytest.raises(ValueError, match='backend="plain"'):
+            run_state_shards(2, lambda g: model.estep_sums(
+                p, y.to(device), torch.ones(64, device=device), sched,
+                state_axis=g, n_state_shards=2))
+        plain = cls(16, 12, 5, 3, backend="plain")
+        parts, _ = run_state_shards(2, lambda g: plain.estep_sums(
+            p, y.to(device), torch.ones(64, device=device), sched,
+            state_axis=g, n_state_shards=2))
+        assert torch.isfinite(parts[0][0]).all()
+    wide = BSC(16, 20, 16, 2)
+    p = wide.standard_init({"y": y}, device=device)
+    with pytest.raises(ValueError, match='backend="plain"'):
+        run_state_shards(2, lambda g: wide.estep_sums(
+            p, y.to(device), torch.ones(64, device=device), sched,
+            state_axis=g, n_state_shards=2))

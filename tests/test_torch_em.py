@@ -235,16 +235,24 @@ def test_unported_options_raise():
     params = model.standard_init({"y": y}, device="cpu")
     with pytest.raises(TypeError, match="MeshRuntime"):
         model.inference(params, {"y": y}, runtime=object())
+    # state sharding is ported (tests/test_torch_state_sharding.py): more
+    # than one state shard needs the state group, and a state axis of one
+    # shard runs unsharded, bit for bit
     sched = sched_floats(LinearAnnealing(2))
     data = make_blank_data(y, device="cpu")
-    for shard in ({"state_axis": "s"}, {"n_state_shards": 2}):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.*state sharding"):
-            model.step_fn(params, data, sched, torch.Generator(), **shard)
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.*state sharding"):
-            model.estep_sums(params, data["y"], data["valid"], sched,
-                             **shard)
+    ref = model.step_fn(params, data, sched, torch.Generator())
+    with pytest.raises(ValueError, match="state group"):
+        model.step_fn(params, data, sched, torch.Generator(),
+                      n_state_shards=2)
+    with pytest.raises(ValueError, match="state group"):
+        model.estep_sums(params, data["y"], data["valid"],
+                         device_sched(sched, "cpu"), state_axis="s",
+                         n_state_shards=2)
+    for shard in ({"state_axis": "s"}, {"n_state_shards": 1}):
+        got = model.step_fn(params, data, sched, torch.Generator(), **shard)
+        for k in ref[0]:
+            assert torch.equal(got[0][k], ref[0][k]), k
+        assert torch.equal(got[1], ref[1])
 
 
 def test_weights_round_trip():

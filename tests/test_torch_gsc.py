@@ -32,7 +32,8 @@ from prosper_tpu_torch.core.states import binary_state_space
 from prosper_tpu_torch.data.bars import bars_gt_params, count_recovered_bars
 from prosper_tpu_torch.io.weights import params_from_numpy
 from prosper_tpu_torch.models import GSC
-from prosper_tpu_torch.models.base import make_blank_data, sched_floats
+from prosper_tpu_torch.models.base import (device_sched, make_blank_data,
+                                           sched_floats)
 
 KEYS = ("xs", "ss", "s", "abs", "y2", "n", "F", "F_true")
 
@@ -317,12 +318,22 @@ def test_unported_options_raise():
     params = model.standard_init({"y": y}, device="cpu")
     sched = sched_floats(LinearAnnealing(2))
     data = make_blank_data(y, device="cpu")
-    for shard in ({"state_axis": "s"}, {"n_state_shards": 2}):
-        with pytest.raises(NotImplementedError, match="state sharding"):
-            model.step_fn(params, data, sched, torch.Generator(), **shard)
-        with pytest.raises(NotImplementedError, match="state sharding"):
-            model.estep_sums(params, data["y"], data["valid"], sched,
-                             **shard)
+    # state sharding is ported (tests/test_torch_state_sharding.py): more
+    # than one state shard needs the state group, and a state axis of one
+    # shard runs unsharded, bit for bit
+    ref = model.step_fn(params, data, sched, torch.Generator())
+    with pytest.raises(ValueError, match="state group"):
+        model.step_fn(params, data, sched, torch.Generator(),
+                      n_state_shards=2)
+    with pytest.raises(ValueError, match="state group"):
+        model.estep_sums(params, data["y"], data["valid"],
+                         device_sched(sched, "cpu"), state_axis="s",
+                         n_state_shards=2)
+    for shard in ({"state_axis": "s"}, {"n_state_shards": 1}):
+        got = model.step_fn(params, data, sched, torch.Generator(), **shard)
+        for k in ref[0]:
+            assert torch.equal(got[0][k], ref[0][k]), k
+        assert torch.equal(got[1], ref[1])
     # sharded serving is ported (tests/test_torch_mesh.py): a MeshRuntime
     with pytest.raises(TypeError, match="MeshRuntime"):
         model.inference(params, {"y": y}, runtime=object())

@@ -347,19 +347,34 @@ def test_wrapper_takes_the_plain_version_on_cpu_and_checks_limits():
 
 
 def test_unported_options_raise():
-    a = _inputs(16, 12, 5, 3, 32, 1, False)
-    args = _torch_args(a, 1.0, 1.0, 1.0)
-    for kw in ({"state_axis": "s"}, {"n_state_shards": 2},
-               {"dp_winner": False}):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.*state sharding"):
-            maxstep.max_et_estep(*args, **kw)
+    """``dp_winner=False`` (the per-state loop form, which state sharding
+    runs on each slice) is ported: held against the JAX package's loop
+    form, hard and softened, MCA and MMCA, within ``_assert_match``'s
+    tolerances.  More than one state shard needs the state group; a state
+    axis of one shard runs unsharded, bit for bit (the sharded runs are in
+    tests/test_torch_state_sharding.py)."""
+    for magnitude in (False, True):
+        a = _inputs(16, 12, 5, 3, 64, 1, magnitude)
+        args = _torch_args(a, 1.0, 0.8, 1.0)
+        for rho in (None, 2.0):
+            F_j, s_j = jax_estep(*_jax_args(a, 1.0, 0.8, 1.0), chunk=32,
+                                 rho=jnp.float32(0.0 if rho is None else rho),
+                                 dp_winner=False)
+            F_t, s_t = maxstep.max_et_estep(*args, chunk=32, rho=rho,
+                                            dp_winner=False)
+            _assert_match(F_t, s_t, F_j, s_j)
+    with pytest.raises(ValueError, match="state group"):
+        maxstep.max_et_estep(*args, chunk=32, n_state_shards=2)
     model = MCA(16, 12, 5, 3)
     params = model.standard_init({"y": a["y"]}, device="cpu")
     data = make_blank_data(a["y"], device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*state sharding"):
-        model.step_fn(params, data, sched_floats(LinearAnnealing(2)),
-                      torch.Generator(), state_axis="s")
+    sched = sched_floats(LinearAnnealing(2))
+    ref = model.step_fn(params, data, sched, torch.Generator())
+    got = model.step_fn(params, data, sched, torch.Generator(),
+                        state_axis="s")
+    for k in ref[0]:
+        assert torch.equal(got[0][k], ref[0][k]), k
+    assert torch.equal(got[1], ref[1])
     # sharded serving is ported (tests/test_torch_mesh.py): a MeshRuntime
     with pytest.raises(TypeError, match="MeshRuntime"):
         model.inference(params, {"y": a["y"]}, runtime=object())

@@ -25,7 +25,8 @@ from prosper_tpu_torch.core.select import global_quantile_threshold
 from prosper_tpu_torch.engine.stream import host_quantile_threshold
 from prosper_tpu_torch.io.weights import params_from_numpy
 from prosper_tpu_torch.models import BSC, GSC, MCA, TSC
-from prosper_tpu_torch.models.base import make_blank_data
+from prosper_tpu_torch.models.base import (device_sched, make_blank_data,
+                                           sched_floats)
 from prosper_tpu_torch.models.mixtures import MoG
 from prosper_tpu_torch.parallel import mesh
 
@@ -165,18 +166,45 @@ def test_replication_error(rt):
     assert float(mesh.replication_error({}, rt.group)) == 0.0
 
 
-def test_state_axis_is_state_sharding(rt):
-    with pytest.raises(NotImplementedError, match="state sharding"):
+def test_state_axis_is_state_sharding(rt, y):
+    """The ("data", "state") grid where one process can check it: the rank
+    lists of its columns (data groups) and rows (state groups), row-major
+    as the JAX runtime's ``reshape(mesh_shape)``; the (1, 2) grid needs two
+    ranks, so this one-rank world refuses it by its size; a state axis of
+    one shard builds the data-only runtime; the step's state keywords are
+    checked (state_sharded)."""
+    assert mesh.grid_groups((1, 2)) == ([[0], [1]], [[0, 1]])
+    assert mesh.grid_groups((2, 2)) == ([[0, 2], [1, 3]], [[0, 1], [2, 3]])
+    assert mesh.grid_groups((4, 1)) == ([[0, 1, 2, 3]],
+                                        [[0], [1], [2], [3]])
+    with pytest.raises(ValueError, match="2 shards"):
         MeshRuntime(device="cpu", mesh_shape=(1, 2),
                     axis_names=("data", "state"))
     one = MeshRuntime(device="cpu", mesh_shape=(1, 1),
                       axis_names=("data", "state"))
     assert one.n_data_shards == 1 and one.data_axis == "data"
+    assert one.n_state_shards == 1 and (one.data_index,
+                                        one.state_index) == (0, 0)
+    assert one.data_group is one.group and one.state_group is None
+    assert one.data_host_group is one.host_group
+    model = BSC(D, 8, 4, 3)
+    assert one.state_kwargs(model.step_fn) == {}
+    assert one.shard_step(model.step_fn).keywords == {"group": one.group}
     with pytest.raises(ValueError, match="2 shards"):
         MeshRuntime(device="cpu", mesh_shape=(2,))
-    model = BSC(D, 8, 4, 3)
-    with pytest.raises(NotImplementedError, match="state sharding"):
-        model.estep_sums(None, None, None, None, n_state_shards=2)
+    with pytest.raises(ValueError, match="'state' axis"):
+        MeshRuntime(device="cpu", mesh_shape=(1, 1, 2),
+                    axis_names=("data", "state", "model"))
+    assert not mesh.state_sharded(None, 1)
+    assert not mesh.state_sharded(rt.group, 1)
+    with pytest.raises(ValueError, match="2 ranks|1 ranks"):
+        mesh.state_sharded(rt.group, 2)
+    params = model.standard_init({"y": y}, device="cpu")
+    sched = device_sched(sched_floats(LinearAnnealing(2)), "cpu")
+    yt = torch.from_numpy(y)
+    with pytest.raises(ValueError, match="state group"):
+        model.estep_sums(params, yt, torch.ones(len(y)), sched,
+                         n_state_shards=2)
 
 
 def test_host_collectives(rt):
