@@ -72,7 +72,18 @@ alone, against the plain version; then the script started twice again
 each rank on half of the states through the big-S kernel alone, against
 the one-process run of the same kernel path; (d) MCA with
 ``backend="cuda"`` under the state axis raises.  ``python3 chip_smoke.py
---phase 23`` runs the build, phases 6 and 12 and phase 23 alone.
+--phase 23`` runs the build, phases 6 and 12 and phase 23 alone.  Phase 24
+drives ``compute_dtype``: (a) the 16-bit GEMM kernels (bf16, fp16) against
+the float64 product of the rounded operands at the GEMM phase's shapes,
+their times beside the plain version, ``torch.mm`` with ``out_dtype`` and
+the bound of one 16-bit pass; (b) phase 6's BSC run at
+``compute_dtype=torch.bfloat16`` through ``run`` and ``run_scanned``
+(bit-identical, 6 launches of each 16-bit GEMM and no split-TF32 GEMM but
+the decodes'), its first E-step against float64 sums over the rounded
+operands and its end beside phase 6's float32 run; (c) one bf16 E-step of
+phase 12's big-S TSC and of phase 23's BSC on two state ranks against
+their plain versions.  ``python3 chip_smoke.py --phase 24`` runs the
+build, phases 6 and 12 and phase 24 alone.
 
 Each path's launch counts are set to 0 just before it and checked just
 after.  Every phase raises on failure.  Prints one JSON line of the
@@ -93,9 +104,11 @@ BARS_SEED = 0          # a seed whose noisy bars run recovers all 10 bars
 MCA_BARS_SEED = 0      # a seed whose MCA bars run on CUDA recovers all 8
 GSC_BARS_SEED = 17     # a seed whose GSC bars run on CUDA recovers all 8
 # published peaks of one H100 SXM (NVIDIA's data sheet): float32 outside the
-# tensor cores, TF32 on the tensor cores (dense), and device memory
+# tensor cores, TF32 and bf16 / fp16 on the tensor cores (dense), and
+# device memory
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_16BIT_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
 
@@ -195,10 +208,24 @@ def same_run(torch, tag, ref, em, first=0):
                              "from the reference's")
 
 
-#: the device function behind each launch count (prosper_tpu_torch/csrc)
+#: the device function behind each launch count (prosper_tpu_torch/csrc);
+#: the GEMM kernels are templates on their operand type: float for
+#: ``sgemm_*``, a 16-bit type for ``hgemm_*``
 KERNEL_FUNCS = {"estep": "rows_kernel", "decode": "decode_kernel",
                 "max_estep": "max_estep_kernel", "bigs": "bigs_kernel",
-                "sgemm_nn": "nn_kernel", "sgemm_tn": "tn_kernel"}
+                "sgemm_nn": "nn_kernel", "sgemm_tn": "tn_kernel",
+                "hgemm_nn": "nn_kernel", "hgemm_tn": "tn_kernel"}
+HALF_NAMES = ("bfloat16", "__half")
+
+
+def kernel_of(name, key):
+    """Whether the device function ``name`` (mangled, as in the SASS, or
+    demangled, as in a trace) is the kernel of launch count ``key``."""
+    if KERNEL_FUNCS[key] not in name:
+        return False
+    half = any(h in name for h in HALF_NAMES)
+    return half if key.startswith("hgemm") else (
+        not half if key.startswith("sgemm") else True)
 
 
 def traced_kernels(torch, run):
@@ -218,7 +245,7 @@ def traced_kernels(torch, run):
              if e.device_type == torch.autograd.DeviceType.CUDA]
     if not names:
         raise AssertionError("the profiler recorded no device events")
-    return {k: sum(fn in n for n in names) for k, fn in KERNEL_FUNCS.items()}
+    return {k: sum(kernel_of(n, k) for n in names) for k in KERNEL_FUNCS}
 
 
 def scanned_path(torch, np, cuda_lib, tag, ref, make_em, init, seed, smi,
@@ -307,6 +334,27 @@ def scanned_path(torch, np, cuda_lib, tag, ref, make_em, init, seed, smi,
             "replay_kernels_traced": traced}, launches
 
 
+def gemm_check(torch, what, out, again, ref, quantised, depth):
+    """One GEMM kernel's result ``out`` (and a second call's, ``again``)
+    against the float64 ``ref``: the same bits twice, exact on quantised
+    inputs, else within rtol 1e-5 and atol 2e-7 per unit of depth (a
+    float32 fmaf chain of ``depth`` unit-variance products).  Returns the
+    largest error and, on Gaussian inputs, the largest share of the
+    tolerance it takes (None on quantised ones)."""
+    torch.cuda.synchronize()
+    if not torch.equal(out, again):
+        raise AssertionError(f"{what}: two calls differ")
+    e = (out.double() - ref).abs().max().item()
+    tol = 0.0 if quantised else 2e-7 * depth
+    if quantised and e != 0.0:
+        raise AssertionError(f"{what}: not exact on quantised inputs (max "
+                             f"abs {e})")
+    torch.testing.assert_close(out.double(), ref, rtol=1e-5, atol=tol,
+                               msg=what)
+    return e, None if quantised else (
+        (out.double() - ref).abs() / (tol + 1e-5 * ref.abs())).max().item()
+
+
 def gemm_phase(torch, np, dev, smi, err):
     """The two GEMM kernels against float64 ``torch.matmul``: exactly on
     inputs quantised to 1/4 (every product and partial sum is then exact in
@@ -343,23 +391,10 @@ def gemm_phase(torch, np, dev, smi, err):
                      gemm_cuda.sgemm_tn_splitn_cuda(
                          y, sw, out=base.clone(), accumulate=True),
                      base.double() + y.double().T @ sw.double(), N)):
-                torch.cuda.synchronize()
-                if not torch.equal(out, again):
-                    raise AssertionError(f"{name} {N}x{D}x{H}: two calls "
-                                         "differ")
-                e = (out.double() - ref).abs().max().item()
-                # a float32 fmaf chain of `depth` unit-variance products:
-                # error within 2e-7 per term, relative 1e-5
-                tol = 0.0 if quantised else 2e-7 * depth
-                if quantised and e != 0.0:
-                    raise AssertionError(f"{name} {N}x{D}x{H}: not exact on "
-                                         f"quantised inputs (max abs {e})")
-                torch.testing.assert_close(out.double(), ref, rtol=1e-5,
-                                           atol=tol, msg=f"{name} {N}x{D}x{H}")
+                e, used = gemm_check(torch, f"{name} {N}x{D}x{H}", out,
+                                     again, ref, quantised, depth)
                 err[name] = max(err[name], e)
                 if not quantised:       # the largest share of the tolerance
-                    used = ((out.double() - ref).abs()
-                            / (tol + 1e-5 * ref.abs())).max().item()
                     share[name] = max(share[name], used)
                     log(f"[gemm] {name} {N}x{D}x{H} on Gaussian inputs: max "
                         f"abs error {e:.3e}, {100 * used:.1f} % of the "
@@ -403,11 +438,11 @@ def gemm_phase(torch, np, dev, smi, err):
     return out
 
 
-def gemm_sass():
-    """Instructions of the built GEMM kernels by kind, from the library's
-    SASS (``cuobjdump -sass`` of the CUDA toolkit, or the copy in Triton's
-    package): the tensor-core MMAs must be there.  Where no cuobjdump is
-    found, says so and returns None for each."""
+def gemm_sass(keys=("sgemm_nn", "sgemm_tn")):
+    """Instructions of the built GEMM kernels of launch counts ``keys`` by
+    kind, from the library's SASS (``cuobjdump -sass`` of the CUDA toolkit,
+    or the copy in Triton's package): the tensor-core MMAs must be there.
+    Where no cuobjdump is found, says so and returns None for each."""
     import os
     import shutil
     from prosper_tpu_torch.ops import cuda_lib
@@ -422,7 +457,7 @@ def gemm_sass():
     tool = next((t for t in tools if t and os.path.exists(t)), None)
     if tool is None:
         log("[gemm] SASS: no cuobjdump found, not read")
-        return {"sgemm_nn": None, "sgemm_tn": None}
+        return {k: None for k in keys}
     text = subprocess.run([tool, "-sass", cuda_lib.load_library()._name],
                           capture_output=True, text=True, check=True,
                           timeout=300).stdout
@@ -436,12 +471,11 @@ def gemm_sass():
                 if f" {op}." in line or f" {op} " in line:
                     counts[fn][op] = counts[fn].get(op, 0) + 1
     out = {}
-    for name, func in (("sgemm_nn", KERNEL_FUNCS["sgemm_nn"]),
-                       ("sgemm_tn", KERNEL_FUNCS["sgemm_tn"])):
-        found = {fn: c for fn, c in counts.items() if func in fn}
-        log(f"[gemm] SASS of {func}: {found}")
+    for name in keys:
+        found = {fn: c for fn, c in counts.items() if kernel_of(fn, name)}
+        log(f"[gemm] SASS of {name}'s kernels: {found}")
         if not found or any(c.get("HGMMA", 0) < 1 for c in found.values()):
-            raise AssertionError(f"{func}: no HGMMA in its SASS: the "
+            raise AssertionError(f"{name}: no HGMMA in its SASS: the "
                                  "tensor cores are not used")
         out[name] = {fn: c.get("HGMMA", 0) for fn, c in found.items()}
     return out
@@ -1922,7 +1956,7 @@ ULPS_SQRT_N = 4.0
 
 
 def linear_sums_f64(torch, y, w, W, sigma2, log_odds, sa, Hp, signed, beta,
-                    prior_beta=1.0, chunk=32768, P32=None):
+                    prior_beta=1.0, chunk=32768, P32=None, compute_dtype=None):
     """One linear E-step's sums (xs, ss, s, abs, vc, y2, n, F) from the same
     inputs as the kernel's, every operation in float64: the plain version's
     arithmetic (``core/etstep.py::_chunk_estats``), rows in chunks whose
@@ -1930,8 +1964,13 @@ def linear_sums_f64(torch, y, w, W, sigma2, log_odds, sa, Hp, signed, beta,
     projection y W of the rows that the E-step's own GEMM computes: the
     candidates and logits then start from the step's P, and what differs
     from the kernel's sums is the rest of the arithmetic and the order of
-    the sums, not the projection's rounding."""
+    the sums, not the projection's rounding.  With a 16-bit
+    ``compute_dtype`` xs is the float64 product of y and sw rounded to it
+    (and P, where no ``P32`` is given, that of y and W)."""
     import math
+
+    def rnd(t):
+        return t if compute_dtype is None else t.to(compute_dtype)
 
     from prosper_tpu_torch.core.select import top_hprime_candidates
     f = torch.float64
@@ -1952,7 +1991,8 @@ def linear_sums_f64(torch, y, w, W, sigma2, log_odds, sa, Hp, signed, beta,
     for i in range(0, y.shape[0], chunk):
         yc, wc = y[i:i + chunk].to(f), w[i:i + chunk].to(f)
         C = yc.shape[0]
-        P = yc @ W if P32 is None else P32(y[i:i + chunk]).to(f)
+        P = (rnd(y[i:i + chunk]).to(f) @ rnd(W).to(f) if P32 is None
+             else P32(y[i:i + chunk]).to(f))
         cand = top_hprime_candidates(P, wn, Hp, signed)
         proj = P.gather(1, cand)
         Gf = gram[cand[:, :, None], cand[:, None, :]].reshape(C, Hp * Hp)
@@ -1975,7 +2015,8 @@ def linear_sums_f64(torch, y, w, W, sigma2, log_odds, sa, Hp, signed, beta,
               .index_add_(0, idx, ((qm @ ou) * wc[:, None]).reshape(-1))
               .reshape(H, H)
               + torch.diag(((qs @ (v * v)) * wc[:, None]).sum(dim=0)))
-        part = {"xs": yc.T @ sw, "ss": ss, "s": sw.sum(dim=0),
+        part = {"xs": rnd(y[i:i + chunk]).to(f).T @ rnd(sw).to(f),
+                "ss": ss, "s": sw.sum(dim=0),
                 "abs": ((qs.sum(dim=(1, 2)) + qm @ ab) * wc).sum(),
                 "vc": ((qs.sum(dim=1) + qm @ vcs) * wc[:, None]).sum(dim=0),
                 "y2": (y2 * wc).sum(), "n": wc.sum(), "F": (F * wc).sum()}
@@ -2887,6 +2928,297 @@ def rank23(rank: int, port: int, tmp: str) -> int:
     return 0
 
 
+def bound_16bit(flops, nbytes):
+    """``bound`` for a product of ``flops`` in one pass of the tensor cores
+    at the 16-bit (bf16 and fp16) peak."""
+    t_ops, t_bytes = flops / PEAK_16BIT_FLOPS, nbytes / PEAK_BYTES
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def hgemm_phase(torch, np, dev, smi, err):
+    """Phase 24a: the two 16-bit GEMM kernels (``compute_dtype``) against
+    their plain version, the float64 product of the operands rounded to the
+    type, at the shapes of ``gemm_phase``, bf16 and fp16: exactly on inputs
+    quantised to 1/4 (exact in either type), within rtol 1e-5 / atol 2e-7
+    per unit of depth on Gaussian ones and more than 1e-4 (of the largest
+    entry) away from the unrounded product there, repeated calls
+    bit-identical, the tn kernel's ``accumulate`` too.  Then their times at
+    131072 and 8192 rows beside the plain version on the card
+    (``matmul_as``: the rounding, then a float32 ``torch.matmul``), the
+    library call ``torch.mm(a.to(dt), b.to(dt), out_dtype=torch.float32)``
+    with its casts (where the card's torch has ``aten::mm.dtype``) and the
+    bound of one 16-bit pass; the HGMMA of their SASS.  Returns each
+    kernel's entries for the JSON line."""
+    from prosper_tpu_torch.core.etstep import matmul_as
+    from prosper_tpu_torch.ops import gemm_cuda
+
+    hnn, htn = gemm_cuda.hgemm_nn_cuda, gemm_cuda.hgemm_tn_splitn_cuda
+    halves = (("bf16", torch.bfloat16), ("fp16", torch.float16))
+    gen = torch.Generator(device=dev).manual_seed(24)
+    share = {"hgemm_nn": 0.0, "hgemm_tn": 0.0}
+    shapes = [(131072, 256, 300)] + [(N, D, H) for N in (1000, 16385)
+                                     for D in (25, 256) for H in (10, 300)]
+    for N, D, H in shapes:
+        for quantised in (True, False):
+            def draw(*shape):
+                a = torch.randn(shape, generator=gen, device=dev)
+                return torch.round(a * 4) / 4 if quantised else a
+            y, W, sw, base = draw(N, D), draw(D, H), draw(N, H), draw(D, H)
+            y[3] = 0.0                                  # a row of zeros
+            exact_nn = y.double() @ W.double()
+            exact_tn = y.double().T @ sw.double()
+            for tag, dt in halves:
+                ry, rW, rsw = (t.to(dt).double() for t in (y, W, sw))
+                ref_tn = ry.T @ rsw
+                for name, out, again, ref, exact, depth in (
+                        ("hgemm_nn", hnn(y, W, dt), hnn(y, W, dt), ry @ rW,
+                         exact_nn, D),
+                        ("hgemm_tn", htn(y, sw, dt), htn(y, sw, dt), ref_tn,
+                         exact_tn, N),
+                        ("hgemm_tn", htn(y, sw, dt, out=base.clone(),
+                                         accumulate=True),
+                         htn(y, sw, dt, out=base.clone(), accumulate=True),
+                         base.double() + ref_tn, base.double() + exact_tn,
+                         N)):
+                    what = f"{name} {tag} {N}x{D}x{H}"
+                    e, used = gemm_check(torch, what, out, again, ref,
+                                         quantised, depth)
+                    err[name] = max(err[name], e)
+                    if quantised:
+                        continue
+                    off = ((out.double() - exact).abs().max()
+                           / exact.abs().max()).item()
+                    if off <= 1e-4:
+                        raise AssertionError(f"{what}: only {off:.3g} away "
+                                             "from the unrounded product")
+                    share[name] = max(share[name], used)
+                    log(f"[24a] {what} on Gaussian inputs: max abs error "
+                        f"{e:.3e}, {100 * used:.1f} % of the tolerance; "
+                        f"{off:.3g} of max |ref| off the unrounded product")
+    log(f"[24a] hgemm_nn and hgemm_tn_splitn (bf16, fp16) agree with the "
+        f"float64 product of the rounded operands at {len(shapes)} shapes "
+        "(exactly on quantised inputs; repeated calls bit-identical)")
+
+    sass = gemm_sass(("hgemm_nn", "hgemm_tn"))
+    mm_dtype = "dtype" in torch.ops.aten.mm.overloads()
+    if not mm_dtype:
+        log("[24a] this torch has no aten::mm.dtype (torch.mm with "
+            "out_dtype): no library time")
+    out = {"hgemm_nn": {}, "hgemm_tn": {}}
+    for N in (131072, 8192):          # the main path's rows; a decode's
+        D, H = 256, 300
+        y, W, sw = (torch.randn(s, generator=gen, device=dev)
+                    for s in ((N, D), (D, H), (N, H)))
+        flops = 2.0 * N * D * H
+        b = bound_16bit(flops, 4.0 * (N * D + D * H + N * H))
+        for tag, dt in halves:
+            nn = interleaved_ms(torch, lambda: matmul_as(y, W, dt),
+                                lambda: hnn(y, W, dt), reps=10)
+            tn = interleaved_ms(torch, lambda: matmul_as(y.T, sw, dt),
+                                lambda: htn(y, sw, dt), reps=10)
+            lib = ((cuda_ms(torch, lambda: torch.mm(
+                       y.to(dt), W.to(dt), out_dtype=torch.float32), 10),
+                    cuda_ms(torch, lambda: torch.mm(
+                        y.T.to(dt), sw.to(dt), out_dtype=torch.float32), 10))
+                   if mm_dtype else (None, None))
+            log(f"[24a] {tag} N={N}, D={D}, H={H}: hgemm_nn {nn[0]:.3f} ms "
+                f"({flops / nn[0] / 1e9:.1f} TFLOP/s), plain {nn[1]:.3f}, "
+                f"torch.mm {lib[0]} ms; hgemm_tn_splitn {tn[0]:.3f} ms "
+                f"({flops / tn[0] / 1e9:.1f} TFLOP/s), plain {tn[1]:.3f}, "
+                f"torch.mm {lib[1]} ms; bound of one 16-bit pass "
+                f"{b['bound_ms']:.3f} ms by {b['bound_by']} (hgemm_nn "
+                f"{100 * b['bound_ms'] / nn[0]:.1f} %, hgemm_tn_splitn "
+                f"{100 * b['bound_ms'] / tn[0]:.1f} % of it)  [{smi}]")
+            for name, t, lt in (("hgemm_nn", nn, lib[0]),
+                                ("hgemm_tn", tn, lib[1])):
+                if N == 131072 and tag == "bf16":
+                    out[name].update({"ms": t[0], "plain_ms": t[1],
+                                      "library_ms": lt, **b,
+                                      "tolerance_share": share[name],
+                                      "sass": sass[name]})
+                else:
+                    sfx = tag if N == 131072 else f"{tag}_{N}_rows"
+                    out[name].update({f"ms_{sfx}": t[0],
+                                      f"plain_ms_{sfx}": t[1],
+                                      f"library_ms_{sfx}": lt})
+                    if tag == "bf16":
+                        out[name][f"bound_ms_{N}_rows"] = b["bound_ms"]
+    return out
+
+
+def half_path(torch, np, dev, smi, err, p6, run12, patches_anneal):
+    """Phase 24: the linear family's ``compute_dtype`` on the card.  24a:
+    ``hgemm_phase``.  24b: phase 6's BSC patches run (D=256, H=300, H'=8,
+    gamma=4, 131072 rows, 6 iterations, from phase 6's init) at
+    ``compute_dtype=torch.bfloat16`` through ``run`` and ``scanned_path``:
+    bit-identical, exactly 6 E-steps and 6 of each 16-bit GEMM, no
+    split-TF32 GEMM but the two decodes' ``sgemm_nn`` (a decode stays
+    float32); its first E-step's sums against float64 sums over the
+    rounded operands (``against_f64``, bound ``ULPS_SQRT_N``); W and Q_mean
+    after the run beside phase 6's float32 run (a reported distance); E-step
+    #1 at bf16 beside float32.  24c: one bf16 E-step of phase 12's big-S TSC
+    and one of phase 23's state-sharded BSC (two state ranks as threads of
+    this process, ``tests/state_threads.py``) against their plain versions
+    on the card, within phase 11's tolerances.  Returns (the ``half``
+    line, the two kernels' entries for the ``kernels`` line)."""
+    import os
+
+    from prosper_tpu_torch import EM
+    from prosper_tpu_torch.core import etstep
+    from prosper_tpu_torch.models import BSC
+    from prosper_tpu_torch.ops import cuda_lib, gemm_cuda, linear_cuda
+    bf = torch.bfloat16
+    t0 = time.perf_counter()
+    kern = hgemm_phase(torch, np, dev, smi, err)
+    stamp("phase 24a")
+
+    # ---- 24b: phase 6's run at bf16 ----------------------------------------
+    y, init, em6 = p6["em"].data["y"], p6["init"], p6["em"]
+    model = BSC(256, 300, 8, 4, chunk=8192, compute_dtype=bf)
+
+    def make_em():
+        return EM(model, patches_anneal(), {"y": y}, params=init, seed=4,
+                  device=dev)
+    reset_launches(cuda_lib)
+    em = make_em()
+    em.run()
+    serve = {dense: model.inference(em.params, p6["held_out"], top_L=10,
+                                    dense_states=dense)
+             for dense in (False, True)}
+    torch.cuda.synchronize()
+    launches = expect_launches(cuda_lib, "[24b]", estep=6, decode=2,
+                               sgemm_nn=2, hgemm_nn=6, hgemm_tn=6)
+    check_path(torch, np, "[24b]", em, serve, 300)
+    scanned, scanned_launches = scanned_path(
+        torch, np, cuda_lib, "[24b]", em, make_em, init, 4, smi, estep=6,
+        hgemm_nn=6, hgemm_tn=6)
+    p1, beta, prior_beta = first_step_params(torch, dev, model, init,
+                                             patches_anneal)
+    w = torch.ones(y.shape[0], device=dev)
+    sa = model.state_arrays(dev)
+    eargs = (y, w, p1["W"], p1["sigma"] ** 2, model.log_odds(p1), sa, 8,
+             False, beta, prior_beta)
+    _, s1 = linear_cuda.linear_et_estep_cuda(*eargs, compute_dtype=bf)
+    f64 = linear_sums_f64(torch, *eargs, chunk=8192, compute_dtype=bf,
+                          P32=lambda rows: gemm_cuda.hgemm_nn_cuda(
+                              rows, p1["W"], bf))
+    first = against_f64(torch, np, s1, f64, y.shape[0])
+    # xs is bounded apart: where the float32 and the float64 sw straddle a
+    # bf16 rounding boundary they round a bf16 ulp (2^-8) apart
+    worst = max(v["ulps_sqrt_n"] for k, v in first.items() if k != "xs")
+    if worst > ULPS_SQRT_N or first["xs"]["rel"] > 2.0 ** -8:
+        raise AssertionError(f"[24b] the first bf16 E-step's sums are "
+                             f"{worst:.3g} ulps x sqrt(N) off the float64 "
+                             f"sums over the rounded operands: {first}")
+    W6, Wb = em6.params["W"], em.params["W"]
+    cos = (Wb * W6).sum(dim=0) / (Wb.norm(dim=0) * W6.norm(dim=0)).clamp(
+        min=1e-30)
+    q6 = np.asarray([h["Q_mean"] for h in em6.history])
+    qb = np.asarray([h["Q_mean"] for h in em.history])
+    P = em.params
+    est = interleaved_ms(
+        torch,
+        lambda: linear_cuda.linear_et_estep_cuda(
+            y, w, P["W"], P["sigma"] ** 2, model.log_odds(P), sa, 8, False,
+            1.0, 1.0),
+        lambda: linear_cuda.linear_et_estep_cuda(
+            y, w, P["W"], P["sigma"] ** 2, model.log_odds(P), sa, 8, False,
+            1.0, 1.0, compute_dtype=bf), reps=5)
+    out = {"b": {
+        "model": "BSC(256, 300, 8, 4, compute_dtype=torch.bfloat16)",
+        "launches": launches, "scanned": scanned,
+        "first_step_sums_against_f64": first,
+        "W_rel_to_phase6_float32": ((Wb - W6).abs().max()
+                                    / W6.abs().max()).item(),
+        "atoms_cosine_to_phase6_min": cos.min().item(),
+        "atoms_cosine_to_phase6_below_0.99": int((cos < 0.99).sum()),
+        "Q_mean": qb.tolist(), "Q_mean_phase6_float32": q6.tolist(),
+        "Q_mean_max_rel_diff": float(np.max(np.abs(qb - q6) / np.abs(q6))),
+        "estep_ms_bf16": est[0], "estep_ms_float32": est[1]}}
+    log(f"[24b] BSC patches at bf16: launches {launches}; first E-step's "
+        f"sums against float64 over the rounded operands {first}; after 6 "
+        f"iterations W {out['b']['W_rel_to_phase6_float32']:.3g} of max |W| "
+        f"off phase 6's float32 run ({out['b']['atoms_cosine_to_phase6_below_0.99']}"
+        f" of 300 atoms at cosine < 0.99 to its atoms, the least "
+        f"{out['b']['atoms_cosine_to_phase6_min']:.4f}), Q_mean {qb.tolist()} (float32 "
+        f"{q6.tolist()}); host ms per iteration run "
+        f"{scanned['run_ms']:.3f}, replaying {scanned['run_scanned_ms']:.3f}; "
+        f"E-step #1 at bf16 {est[0]:.3f} ms, float32 {est[1]:.3f} ms  "
+        f"[{smi}]")
+    stamp("phase 24b")
+
+    # ---- 24c: big-S TSC and the state-sharded BSC, one bf16 E-step each ---
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    from state_threads import run_state_shards
+
+    def against_plain(tag, got, ref, want):
+        """Phase 11's tolerances (F rtol 1e-4, sums 1e-3); xs within 2^-8
+        of its largest entry: the kernel's and the plain version's sw
+        differ in float32 rounding, and where they straddle a bf16 rounding
+        boundary their roundings are a bf16 ulp apart."""
+        (F1, s1), (F0, s0) = got, ref
+        torch.testing.assert_close(F1, F0, rtol=1e-4, atol=1e-4,
+                                   msg=f"{tag} F")
+        for k in s0:
+            if k == "xs":
+                torch.testing.assert_close(
+                    s1[k], s0[k], rtol=0.0,
+                    atol=2.0 ** -8 * s0[k].abs().max().item(),
+                    msg=f"{tag} {k}")
+            else:
+                torch.testing.assert_close(s1[k], s0[k], rtol=1e-3,
+                                           atol=1e-3, msg=f"{tag} {k}")
+        return {"F_max_abs_diff": (F1 - F0).abs().max().item(),
+                "xs_rel": ((s1["xs"] - s0["xs"]).abs().max()
+                           / s0["xs"].abs().max()).item(),
+                "other_sums_max_abs_diff": max(
+                    (s1[k] - s0[k]).abs().max().item()
+                    for k in s0 if k != "xs"), "launches": want}
+    m12, P12 = run12["model"], run12["em"].params
+    y12 = run12["y_dev"]
+    a12 = (y12, torch.ones(y12.shape[0], device=dev), P12["W"],
+           P12["sigma"] ** 2, m12.log_odds(P12), m12.state_arrays(dev),
+           m12.Hprime, True, 1.0, 1.0)
+    reset_launches(cuda_lib)
+    got = linear_cuda.linear_et_estep(*a12, s_block=m12.s_block,
+                                      compute_dtype=bf)
+    torch.cuda.synchronize()
+    want = expect_launches(cuda_lib, "[24c] big-S TSC", bigs=1, hgemm_nn=1,
+                           hgemm_tn=1)
+    out["c_bigs"] = against_plain("[24c] big-S TSC", got,
+                                  etstep.linear_et_estep(
+                                      *a12, chunk=8192, s_block=m12.s_block,
+                                      compute_dtype=bf), want)
+    reset_launches(cuda_lib)
+    parts, _ = run_state_shards(2, lambda g: linear_cuda.linear_et_estep(
+        *eargs, state_axis=g, n_state_shards=2, compute_dtype=bf))
+    torch.cuda.synchronize()
+    n_chunks = len(cuda_lib.row_chunks(y.shape[0], 8 * 300))
+    want = expect_launches(cuda_lib, "[24c] state-sharded BSC",
+                           bigs=2 * n_chunks, hgemm_nn=2 * n_chunks,
+                           hgemm_tn=2 * n_chunks)
+    plain, _ = run_state_shards(2, lambda g: etstep.linear_et_estep(
+        *eargs, chunk=8192, state_axis=g, n_state_shards=2,
+        compute_dtype=bf))
+    if not torch.equal(parts[0][0], parts[1][0]):
+        raise AssertionError("[24c] state-sharded BSC: F differs between the "
+                             "state ranks")
+    out["c_state"] = {f"rank{r}": against_plain(
+        f"[24c] state-sharded BSC rank {r}", parts[r], plain[r], want)
+        for r in range(2)}
+    log(f"[24c] one bf16 E-step against the plain version on the card: "
+        f"big-S TSC {out['c_bigs']}, BSC on two state ranks "
+        f"{out['c_state']}  [{smi}]")
+    out["phase_s"] = time.perf_counter() - t0
+    stamp("phase 24")
+    for name in kern:
+        kern[name].update(launches=launches[name],
+                          scanned_launches=scanned_launches[name])
+    return out, kern
+
+
 def patches_anneal(iters=6):
     """Phase 6's schedule: T 2 -> 1 and W noise 0.5 -> 0 over the first 60 %,
     the Ncut cut 0 -> 1 from 40 %."""
@@ -2950,7 +3282,9 @@ def main() -> int:
              f"{lib.bigs_multi_warps(65, 69)} warps a block)",
              lib.bigs_multi_smem_bytes(65, 69)),
             ("sgemm_nn kernel", lib.sgemm_smem_bytes(0)),
-            ("sgemm_tn_splitn kernel", lib.sgemm_smem_bytes(1))):
+            ("sgemm_tn_splitn kernel", lib.sgemm_smem_bytes(1)),
+            ("hgemm_nn kernel", lib.hgemm_smem_bytes(0)),
+            ("hgemm_tn_splitn kernel", lib.hgemm_smem_bytes(1))):
         log(f"[build] {name}: {smem} bytes of shared memory a block, "
             f"{cuda_lib.blocks_per_sm(smem)} blocks an SM")
 
@@ -2965,7 +3299,7 @@ def main() -> int:
         ("bsc_patches", 16384, 256, 300, 8, 4, (1.0,), False),
     ]
     err = {"estep": 0.0, "decode": 0.0, "max_estep": 0.0, "bigs": 0.0,
-           "sgemm_nn": 0.0, "sgemm_tn": 0.0}
+           "sgemm_nn": 0.0, "sgemm_tn": 0.0, "hgemm_nn": 0.0, "hgemm_tn": 0.0}
     gm = gemm_phase(torch, np, dev, smi, err)
     rng = np.random.default_rng(0)
     for name, N, D, H, Hp, gamma, values, signed in shapes:
@@ -3181,12 +3515,17 @@ def main() -> int:
     stamp("phase 22")
     # ---- 23. state sharding: the (1, 2) ("data", "state") mesh ------------
     t0 = time.perf_counter()
+    run12 = bg.pop("run12")
     state = state_path(torch, np, dev, smi, err,
                        {"model": model, "em": em, "init": init,
-                        "y_host": data["y"]}, bg.pop("run12"),
-                       patches_anneal)
+                        "y_host": data["y"]}, run12, patches_anneal)
     seconds["23"] = time.perf_counter() - t0
     stamp("phase 23")
+    # ---- 24. compute_dtype: the 16-bit GEMM kernels and their paths -------
+    half, hk = half_path(torch, np, dev, smi, err,
+                         {"em": em, "init": init, "held_out": held_out},
+                         run12, patches_anneal)
+    seconds["24"] = half["phase_s"]
 
     # the bounds, from this run's shapes: the two D x H products, the
     # logits over [proj | Gram] and the moments over the state tables per
@@ -3254,7 +3593,7 @@ def main() -> int:
         # per E-step of the linear and of the MCA patches path, and
         # sgemm_nn once more per decode
         {"name": "sgemm_nn", "route": "cuda",
-         "source": "prosper_tpu_torch/csrc/sgemm.cu",
+         "source": "prosper_tpu_torch/csrc/sgemm.cuh",
          "replaces": "prosper_tpu/ops/linear_pallas.py:63; "
                      "prosper_tpu/ops/max_pallas.py:65",
          "launches": gemm_launches("sgemm_nn"),
@@ -3263,7 +3602,7 @@ def main() -> int:
          "distributed_launches": dl["sgemm_nn"],
          "max_abs_err": err["sgemm_nn"], **gm["sgemm_nn"]},
         {"name": "sgemm_tn_splitn", "route": "cuda",
-         "source": "prosper_tpu_torch/csrc/sgemm.cu",
+         "source": "prosper_tpu_torch/csrc/sgemm.cuh",
          "replaces": "prosper_tpu/ops/linear_pallas.py:179; "
                      "prosper_tpu/ops/max_pallas.py:169",
          "launches": gemm_launches("sgemm_tn"),
@@ -3271,18 +3610,38 @@ def main() -> int:
          "stream_launches": stream_launches.get("sgemm_tn", 0),
          "distributed_launches": dl["sgemm_tn"],
          "max_abs_err": err["sgemm_tn"], **gm["sgemm_tn"]},
+        # the same two products at a linear model's 16-bit compute_dtype
+        # (the JAX package's XLA dots of prosper_tpu/core/etstep.py, inside
+        # kernel #1 here); launches: phase 24b's bf16 run
+        {"name": "hgemm_nn", "route": "cuda",
+         "source": "prosper_tpu_torch/csrc/sgemm.cuh",
+         "replaces": "prosper_tpu/ops/linear_pallas.py:63; "
+                     "prosper_tpu/core/etstep.py:206,426",
+         "max_abs_err": err["hgemm_nn"], **hk["hgemm_nn"]},
+        {"name": "hgemm_tn_splitn", "route": "cuda",
+         "source": "prosper_tpu_torch/csrc/sgemm.cuh",
+         "replaces": "prosper_tpu/ops/linear_pallas.py:179; "
+                     "prosper_tpu/core/etstep.py:331,596",
+         "max_abs_err": err["hgemm_tn"], **hk["hgemm_tn"]},
     ]
     for k in kernels:
+        # the 16-bit GEMMs' path is phase 24's: no stream or runtime phase
+        half_k = k["name"].startswith("hgemm")
         log(f"[kernels] {k['name']}: {k['ms']:.3f} ms, bound "
             f"{k['bound_ms']:.3f} ms by {k['bound_by']} "
             f"({100 * k['bound_ms'] / k['ms']:.1f} % of it), "
             f"{k['launches']} launches through run, "
             f"{k['scanned_launches']} through run_scanned's eager steps and "
-            f"captures, {k['stream_launches']} through StreamingEM, "
-            f"{k['distributed_launches']} under the runtime  [{smi}]")
+            f"captures, {k.get('stream_launches', 0)} through StreamingEM, "
+            f"{k.get('distributed_launches', 0)} under the runtime  [{smi}]")
+        if k["launches"] < 1:
+            raise AssertionError(f"{k['name']} was launched no time on its "
+                                 "main path")
         if k["name"] != "linear_et_decode" and k["scanned_launches"] < 1:
             raise AssertionError(f"{k['name']} was launched no time through "
                                  "run_scanned")
+        if half_k:
+            continue
         if k["name"] != "linear_et_decode" and k["stream_launches"] < 1:
             raise AssertionError(f"{k['name']} was launched no time through "
                                  "StreamingEM")
@@ -3298,6 +3657,7 @@ def main() -> int:
     log(json.dumps({"stream": dict(stream, card=smi)}))
     log(json.dumps({"distributed": dict(distributed, card=smi)}))
     log(json.dumps({"state": dict(state, card=smi)}))
+    log(json.dumps({"half": dict(half, card=smi)}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3398,6 +3758,29 @@ def phase23_alone() -> int:
     return 0
 
 
+def phase24_alone() -> int:
+    """``python3 chip_smoke.py --phase 24``: the build, phase 6's and phase
+    12's runs again, and phase 24, without the other phases."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    dev, smi = alone_setup(torch)
+    _, em, init, _, held_out, _ = patches_run(torch, np, dev)
+    run12 = tsc_bigs_run(torch, np, dev, patches_anneal)
+    stamp("phase 6's and phase 12's runs")
+    err = {"hgemm_nn": 0.0, "hgemm_tn": 0.0}
+    half, hk = half_path(torch, np, dev, smi, err,
+                         {"em": em, "init": init, "held_out": held_out},
+                         run12, patches_anneal)
+    log(json.dumps({"half": dict(half, card=smi)}))
+    log(json.dumps({"kernels": [dict(hk[k], name=k, max_abs_err=err[k])
+                                for k in hk]}))
+    return 0
+
+
 if __name__ == "__main__":
     for flag, rank_fn in (("--rank22", rank22), ("--rank23", rank23)):
         if sys.argv[1:2] == [flag]:
@@ -3407,4 +3790,6 @@ if __name__ == "__main__":
         sys.exit(phase22_alone())
     if sys.argv[1:3] == ["--phase", "23"]:
         sys.exit(phase23_alone())
+    if sys.argv[1:3] == ["--phase", "24"]:
+        sys.exit(phase24_alone())
     sys.exit(main())

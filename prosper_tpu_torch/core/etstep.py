@@ -165,12 +165,27 @@ def own_scalars(sums: Dict[str, torch.Tensor], own: float):
     return sums
 
 
-def _candidates(y, W, gram, gram_diag, Hp: int, signed_select: bool, P=None):
-    """P = y @ W (unless given), the top-Hp candidates, their projections and
-    Gram entries: (P (C, H), cand (C, Hp), proj (C, Hp), Gf (C, Hp^2))."""
+def matmul_as(a, b, compute_dtype=None):
+    """``a @ b``; with a 16-bit ``compute_dtype`` (``torch.bfloat16`` or
+    ``torch.float16``) the float32 product of ``a`` and ``b`` rounded to it
+    (to nearest, ties to even): the products of the rounded operands are
+    exact in float32 and summed in float32.  This is the JAX package's
+    ``jnp.dot(a.astype(dt), b.astype(dt), preferred_element_type=f32)`` and
+    the plain version of the 16-bit GEMM kernels (``ops/gemm_cuda.py``);
+    the linear family's ``compute_dtype`` rounds nothing else."""
+    if compute_dtype is None:
+        return a @ b
+    return a.to(compute_dtype).float() @ b.to(compute_dtype).float()
+
+
+def _candidates(y, W, gram, gram_diag, Hp: int, signed_select: bool, P=None,
+                compute_dtype=None):
+    """P = y @ W (unless given; ``matmul_as`` at ``compute_dtype``), the
+    top-Hp candidates, their projections and Gram entries: (P (C, H),
+    cand (C, Hp), proj (C, Hp), Gf (C, Hp^2))."""
     C = y.shape[0]
     if P is None:
-        P = y @ W
+        P = matmul_as(y, W, compute_dtype)
     w_norm = torch.sqrt(torch.clamp(gram_diag, min=1e-30))
     cand = top_hprime_candidates(P, w_norm, Hp, signed_select)
     proj = torch.gather(P, 1, cand)
@@ -186,7 +201,7 @@ def _lik_single(P, gram_diag, values, inv2s2):
 
 def _union_logits(y, W, gram, gram_diag, sigma2, log_odds,
                   sa: LinearStateArrays, Hp: int, signed_select: bool,
-                  beta, prior_beta, P=None):
+                  beta, prior_beta, P=None, compute_dtype=None):
     """Shared front end: candidates and the annealed union logits
     ``[zero | H*K singletons | S multi]`` plus the un-annealed pieces.
 
@@ -197,7 +212,7 @@ def _union_logits(y, W, gram, gram_diag, sigma2, log_odds,
     K = sa.values.shape[0]
     inv2s2 = 0.5 / sigma2
     P, cand, proj, Gf = _candidates(y, W, gram, gram_diag, Hp, signed_select,
-                                    P)
+                                    P, compute_dtype)
     lik_multi = (2.0 * (proj @ sa.states.T) - Gf @ sa.outer.T) * inv2s2
     prior_multi = sa.value_counts @ log_odds                         # (S,)
     logits_multi = beta * lik_multi + prior_beta * prior_multi[None, :]
@@ -221,11 +236,11 @@ def _free_energy_const(y2, D: int, H: int, sigma2, log_odds, beta,
 
 
 def _weighted_sums(y, y2, wv, s_full, sum_ss, abs_n, vc_n, F, F_true,
-                   staged: bool = False):
+                   staged: bool = False, compute_dtype=None):
     """A chunk's sufficient statistics, each row weighted by ``wv``;
     ``sum_ss`` comes weighted already.  ``staged`` leaves the last product
     to the caller: the sums then hold ``sw = w <s>`` (C, H) in place of
-    ``xs = y.T @ sw``."""
+    ``xs = y.T @ sw`` (``matmul_as`` at ``compute_dtype``)."""
     sw = s_full * wv[:, None]
     sums = dict(
         ss=sum_ss, s=sw.sum(dim=0),
@@ -234,20 +249,24 @@ def _weighted_sums(y, y2, wv, s_full, sum_ss, abs_n, vc_n, F, F_true,
         F_true=(F_true * wv).sum())
     if staged:
         return dict(sw=sw, **sums)
-    return dict(xs=y.T @ sw, **sums)
+    return dict(xs=matmul_as(y.T, sw, compute_dtype), **sums)
 
 
 def _chunk_estats(y, w, W, gram, gram_diag, sigma2, log_odds,
                   sa: LinearStateArrays, Hp: int, signed_select: bool,
                   beta, prior_beta, collect_true: bool = True, P=None,
                   collect_phi: bool = False, slot_onehot=None,
-                  state_axis=None, n_state_shards: int = 1):
+                  state_axis=None, n_state_shards: int = 1,
+                  compute_dtype=None):
     """E-statistics for one chunk: y (C, D), w (C,) accumulation weights.
     Returns (F (C,), sums).  F is the per-datapoint truncated
     log-pseudo-likelihood with every constant term.  Given ``P = y @ W``
     it is the middle stage alone (``linear_et_estep_rows``).
     ``collect_phi`` adds the value-set sums ``phi_c`` (K,) and ``phi_M``
-    (K, K) from ``slot_onehot`` (S, Hp, K).
+    (K, K) from ``slot_onehot`` (S, Hp, K).  ``compute_dtype`` (16-bit)
+    rounds the operands of the two D x H products alone (``matmul_as``):
+    y for ||y||^2, W for the Gram matrix and the rows' other inputs stay
+    float32, as in the JAX package.
 
     State sharding (``state_axis``, the state group, and
     ``n_state_shards > 1``): the rank evaluates its contiguous slice of
@@ -273,7 +292,8 @@ def _chunk_estats(y, w, W, gram, gram_diag, sigma2, log_odds,
             slot_onehot = sliced[4]
     (P, cand, proj, Gf, logits, lik_single, lik_multi,
      prior_multi) = _union_logits(y, W, gram, gram_diag, sigma2, log_odds,
-                                  sa, Hp, signed_select, beta, prior_beta, P)
+                                  sa, Hp, signed_select, beta, prior_beta, P,
+                                  compute_dtype)
     # the un-annealed channel (beta = prior_beta = 1); skipped when the
     # caller knows the schedule is saturated, where it equals F
     logits_t = None if not collect_true else torch.cat(
@@ -310,7 +330,7 @@ def _chunk_estats(y, w, W, gram, gram_diag, sigma2, log_odds,
     abs_n = q_single.sum(dim=(1, 2)) + q_multi @ sa.abs_states
     vc_n = q_single.sum(dim=1) + q_multi @ sa.value_counts           # (C, K)
     sums = _weighted_sums(y, y2, wv, s_full, sum_ss, abs_n, vc_n, F, F_true,
-                          staged)
+                          staged, compute_dtype)
     if collect_phi:
         # With s = sum_k phi_k b_k (b_k the indicator of value k per unit)
         # the expected complete-data log-likelihood is quadratic in phi; its
@@ -516,8 +536,10 @@ def slot_sum_ss(ssw, cand, H: int):
 
 
 def bigs_front(y, W, gram, gram_diag, log_odds, sa: LinearStateArrays,
-               Hp: int, signed_select: bool, s_block: int, shard=None):
-    """The big-S front end: ``P = y @ W``, the candidates, and the operands
+               Hp: int, signed_select: bool, s_block: int, shard=None,
+               P=None, compute_dtype=None):
+    """The big-S front end: ``P = y @ W`` (unless given; ``matmul_as`` at
+    ``compute_dtype``), the candidates, and the operands
     of ``bigs_multi`` before its scalars: proj (C, Hp), Gf (C, Hp^2) and the
     state tables padded to a multiple of ``s_block``, with the prior and
     the validity of each padded state.  ``shard = (srank, n)``: the tables
@@ -527,7 +549,8 @@ def bigs_front(y, W, gram, gram_diag, log_odds, sa: LinearStateArrays,
     Returns (P, cand, (proj, Gf, states_p, outer_p, vcounts_p, prior,
     valid, absst_p))."""
     S = sa.states.shape[0]
-    P, cand, proj, Gf = _candidates(y, W, gram, gram_diag, Hp, signed_select)
+    P, cand, proj, Gf = _candidates(y, W, gram, gram_diag, Hp, signed_select,
+                                    P, compute_dtype)
     tables = [sa.states, sa.outer, sa.value_counts, sa.abs_states]
     if shard is not None:
         (states_p, outer_p, vcounts_p, absst_p), valid, _ = \
@@ -548,11 +571,14 @@ def _chunk_estats_bigs(y, w, W, gram, gram_diag, sigma2, log_odds,
                        sa: LinearStateArrays, Hp: int, signed_select: bool,
                        beta, prior_beta, s_block: int,
                        collect_true: bool = True, multi=bigs_multi,
-                       state_axis=None, n_state_shards: int = 1):
+                       state_axis=None, n_state_shards: int = 1, P=None,
+                       compute_dtype=None):
     """Big-S E-statistics for one chunk: the zero and singleton states in
     closed form, the S multi states through ``multi`` (``bigs_multi`` or its
     kernel), the two partial softmaxes combined.  Same (F, sums) as
-    ``_chunk_estats``; no (C, S) tensor exists.
+    ``_chunk_estats``; no (C, S) tensor exists.  Given ``P = y @ W`` the
+    sums hold ``sw`` in place of ``xs``, as ``_chunk_estats``'s; otherwise
+    both products run at ``compute_dtype`` (``matmul_as``).
 
     State sharding (as ``_chunk_estats``): ``multi`` runs over this state
     rank's slice of the tables (``bigs_front``), state rank 0 alone holds
@@ -567,8 +593,10 @@ def _chunk_estats_bigs(y, w, W, gram, gram_diag, sigma2, log_odds,
     sharded = state_sharded(state_axis, n_state_shards)
     shard = (state_rank(state_axis), n_state_shards) if sharded else None
     own = 1.0 if shard is None else float(shard[0] == 0)
+    staged = P is not None
     P, cand, tables = bigs_front(y, W, gram, gram_diag, log_odds, sa, Hp,
-                                 signed_select, s_block, shard)
+                                 signed_select, s_block, shard, P,
+                                 compute_dtype)
 
     # zero + singleton part (1 + H*K columns) in closed form
     v = sa.values
@@ -625,7 +653,8 @@ def _chunk_estats_bigs(y, w, W, gram, gram_diag, sigma2, log_odds,
         ((q_single @ (v ** 2)) * wv[:, None]).sum(dim=0))
     abs_n = q_single.sum(dim=(1, 2)) + a_abs * scale_b[:, 0]
     vc_n = q_single.sum(dim=1) + a_vc * scale_b
-    sums = _weighted_sums(y, y2, wv, s_full, sum_ss, abs_n, vc_n, F, F_true)
+    sums = _weighted_sums(y, y2, wv, s_full, sum_ss, abs_n, vc_n, F, F_true,
+                          staged, compute_dtype)
     return F, own_scalars(sums, own) if sharded else sums
 
 
@@ -635,7 +664,7 @@ def linear_et_estep(y: torch.Tensor, weight: torch.Tensor, W: torch.Tensor,
                     chunk: int = 2048, collect_true: bool = True,
                     s_block: int = 0, collect_phi: bool = False,
                     slot_onehot=None, state_axis=None,
-                    n_state_shards: int = 1
+                    n_state_shards: int = 1, compute_dtype=None
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full E-step with chunked accumulation.  Returns (F (N,), sums).
     ``s_block > 0`` takes the big-S path (``_chunk_estats_bigs``, the plain
@@ -643,7 +672,9 @@ def linear_et_estep(y: torch.Tensor, weight: torch.Tensor, W: torch.Tensor,
     ``s_block``) adds the value-set sums ``phi_c`` and ``phi_M``.  With
     ``state_axis`` and ``n_state_shards > 1`` each chunk runs on this state
     rank's slice of the states and the caller adds the sums over the state
-    group too.
+    group too.  ``compute_dtype`` (``torch.bfloat16`` or ``torch.float16``;
+    None: float32) is the model's: the two D x H products of every chunk
+    run on operands rounded to it (``matmul_as``).
 
     N must be a multiple of ``chunk`` unless N <= chunk (pad with
     ``weight == 0`` rows; ``EM`` does)."""
@@ -660,12 +691,14 @@ def linear_et_estep(y: torch.Tensor, weight: torch.Tensor, W: torch.Tensor,
                                       log_odds, sa, Hp, signed_select, beta,
                                       prior_beta, s_block, collect_true,
                                       state_axis=state_axis,
-                                      n_state_shards=n_state_shards)
+                                      n_state_shards=n_state_shards,
+                                      compute_dtype=compute_dtype)
         return _chunk_estats(y_i, w_i, W, gram, gram_diag, sigma2, log_odds,
                              sa, Hp, signed_select, beta, prior_beta,
                              collect_true, collect_phi=collect_phi,
                              slot_onehot=slot_onehot, state_axis=state_axis,
-                             n_state_shards=n_state_shards)
+                             n_state_shards=n_state_shards,
+                             compute_dtype=compute_dtype)
 
     if N <= chunk:
         return body(y, weight)

@@ -45,10 +45,24 @@ from prosper_tpu_torch.parallel.mesh import (check_runtime, psum_dict,
 from prosper_tpu_torch.utils.staging import rows_to_device
 
 
-def not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to prosper_tpu_torch yet "
-        f"(ROADMAP.md, open item: {item})")
+#: what ``compute_dtype`` takes (a torch dtype or its name) and what it
+#: means: None (float32) or the 16-bit type of the two D x H products
+COMPUTE_DTYPES = {None: None, torch.float32: None, "float32": None,
+                  torch.bfloat16: torch.bfloat16, "bfloat16": torch.bfloat16,
+                  torch.float16: torch.float16, "float16": torch.float16}
+
+
+def resolve_compute_dtype(value):
+    """``compute_dtype`` normalised: None for float32 (or None), else
+    ``torch.bfloat16`` or ``torch.float16``.  Names are taken because a
+    JSON config holds only strings."""
+    try:
+        return COMPUTE_DTYPES[value]
+    except (KeyError, TypeError):
+        raise ValueError(
+            f"compute_dtype must be None, torch.float32, torch.bfloat16, "
+            f"torch.float16 or one of the names 'float32', 'bfloat16', "
+            f"'float16'; got {value!r}") from None
 
 
 def solve(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
@@ -98,9 +112,16 @@ class LinearETModel(ETModel):
         #: logsumexp (core/etstep.py::_chunk_estats_bigs), for state spaces
         #: too large for the fused kernel; 0 = off
         self.s_block = int(s_block)
-        if compute_dtype is not None:
-            raise not_ported("compute_dtype",
-                             "compute_dtype and the tensor cores")
+        #: the throughput mode of the two D x H products (P = yW and
+        #: xs = y^T sw): None keeps them float32; torch.bfloat16 or
+        #: torch.float16 rounds their operands to that type and sums in
+        #: float32, on every path of ``estep_sums``.  The JAX package's
+        #: Pallas kernel ignores it; here ``backend="cuda"`` is the one path
+        #: on the card, so its 16-bit GEMM kernels carry it, and
+        #: ``backend="plain"`` computes the same function with no kernel.
+        #: Decodes, the big-S kernel's own products and the Gram matrix stay
+        #: float32, as in the JAX package.
+        self.compute_dtype = resolve_compute_dtype(compute_dtype)
         #: rank the Ncut data cut by the current iteration's F (reference
         #: semantics) with a second E-step pass while the cut is active;
         #: the default ranks by the previous iteration's F
@@ -186,11 +207,12 @@ class LinearETModel(ETModel):
             return etstep.linear_et_estep(
                 *args, chunk=self.chunk, collect_true=not saturated,
                 collect_phi=True, slot_onehot=self.slot_onehot(W.device),
-                **shard)
+                compute_dtype=self.compute_dtype, **shard)
         estep = (linear_et_estep if self.backend == "cuda"
                  else etstep.linear_et_estep)
         return estep(*args, chunk=self.chunk, collect_true=not saturated,
-                     s_block=self.s_block, **shard)
+                     s_block=self.s_block, compute_dtype=self.compute_dtype,
+                     **shard)
 
     def finalize_mstep(self, params, sums, N_total, group=None,
                        state_axis=None, n_state_shards: int = 1):

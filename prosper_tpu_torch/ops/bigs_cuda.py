@@ -29,6 +29,8 @@ from prosper_tpu_torch.ops.cuda_lib import (LAUNCHES, SMEM_LIMIT, cached_for,
                                             check, in_row_chunks,
                                             load_library, raise_on,
                                             schedule_pair)
+from prosper_tpu_torch.ops.gemm_cuda import (hgemm_nn_cuda,
+                                             hgemm_tn_splitn_cuda)
 from prosper_tpu_torch.parallel.mesh import state_rank, state_sharded
 
 __all__ = ["LAUNCHES", "bigs_multi_cuda", "empty_moments",
@@ -145,7 +147,8 @@ def linear_et_estep_bigs(y, weight, W, sigma2, log_odds,
                          sa: LinearStateArrays, Hp: int, signed_select: bool,
                          beta, prior_beta, s_block: int,
                          collect_true: bool = True, multi=etstep.bigs_multi,
-                         state_axis=None, n_state_shards: int = 1
+                         state_axis=None, n_state_shards: int = 1,
+                         compute_dtype=None
                          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The big-S E-step around ``multi`` (the plain ``bigs_multi`` or its
     kernel), any N, on either device: the rows are cut where the larger of
@@ -153,16 +156,31 @@ def linear_et_estep_bigs(y, weight, W, sigma2, log_odds,
     ``core.etstep._chunk_estats_bigs`` (``slot_sum_ss``) would exceed
     ``cuda_lib.P_LIMIT_BYTES``, F concatenated and the sums added in chunk
     order; where all rows fit it is one call, as without the cut.  Under
-    a state axis each chunk runs on this state rank's slice."""
+    a state axis each chunk runs on this state rank's slice.  With a
+    16-bit ``compute_dtype`` P = yW and xs = y^T sw of a chunk come from
+    the 16-bit GEMM kernels on a CUDA tensor (``matmul_as`` on a CPU one);
+    without it they are float32 torch products.  The Gram matrix stays
+    float32 either way, as in the JAX package."""
     N, H = y.shape[0], W.shape[1]
     gram = W.T @ W
     gram_diag = torch.diagonal(gram)
-    return in_row_chunks(
-        N, max(H, Hp * H), lambda i, j: etstep._chunk_estats_bigs(
-            y[i:j], weight[i:j], W, gram, gram_diag, sigma2, log_odds, sa,
-            Hp, signed_select, beta, prior_beta, s_block, collect_true,
+    kernels = compute_dtype is not None and y.device.type == "cuda"
+
+    def chunk(i, j):
+        y_c = y[i:j]
+        F, sums = etstep._chunk_estats_bigs(
+            y_c, weight[i:j], W, gram, gram_diag, sigma2, log_odds, sa, Hp,
+            signed_select, beta, prior_beta, s_block, collect_true,
             multi=multi, state_axis=state_axis,
-            n_state_shards=n_state_shards))
+            n_state_shards=n_state_shards,
+            P=hgemm_nn_cuda(y_c, W, compute_dtype) if kernels else None,
+            compute_dtype=compute_dtype)
+        if kernels:                       # the sums hold sw in place of xs
+            xs = hgemm_tn_splitn_cuda(y_c, sums.pop("sw"), compute_dtype)
+            sums = dict(xs=xs, **sums)
+        return F, sums
+
+    return in_row_chunks(N, max(H, Hp * H), chunk)
 
 
 def _slice_multi(sa: LinearStateArrays, state_axis, n_state_shards: int):
@@ -195,7 +213,8 @@ def linear_et_estep_bigs_cuda(y, weight, W, sigma2, log_odds,
                               sa: LinearStateArrays, Hp: int,
                               signed_select: bool, beta, prior_beta,
                               s_block: int, collect_true: bool = True,
-                              state_axis=None, n_state_shards: int = 1
+                              state_axis=None, n_state_shards: int = 1,
+                              compute_dtype=None
                               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The big-S E-step through the kernel: the torch front end and sums of
     ``core.etstep._chunk_estats_bigs`` around one kernel launch per chunk
@@ -210,13 +229,14 @@ def linear_et_estep_bigs_cuda(y, weight, W, sigma2, log_odds,
     (state space, n, state rank); a slice of padding alone launches
     nothing.  On a CPU tensor that path runs the plain ``bigs_multi`` over
     the same slice (the kernel's plain version); without a state axis the
-    kernel takes CUDA tensors only."""
+    kernel takes CUDA tensors only.  ``compute_dtype`` as
+    ``linear_et_estep_bigs``'s: the kernel itself stays float32."""
     if state_sharded(state_axis, n_state_shards):
         multi = _slice_multi(sa, state_axis, n_state_shards)
         return linear_et_estep_bigs(
             y, weight, W, sigma2, log_odds, sa, Hp, signed_select, beta,
             prior_beta, 1, collect_true, multi=multi, state_axis=state_axis,
-            n_state_shards=n_state_shards)
+            n_state_shards=n_state_shards, compute_dtype=compute_dtype)
     if y.device.type != "cuda":
         raise ValueError(f"the CUDA kernels take CUDA tensors, got {y.device}")
     tables = cached_for(sa.states, "bigs_tri", lambda: tri_tables(
@@ -224,4 +244,5 @@ def linear_et_estep_bigs_cuda(y, weight, W, sigma2, log_odds,
     return linear_et_estep_bigs(
         y, weight, W, sigma2, log_odds, sa, Hp, signed_select, beta,
         prior_beta, 1, collect_true,
-        multi=functools.partial(bigs_multi_cuda, tables=tables))
+        multi=functools.partial(bigs_multi_cuda, tables=tables),
+        compute_dtype=compute_dtype)

@@ -27,15 +27,19 @@ import torch
 
 #: kernel launches by kernel name; a run resets and reads it to show that
 #: its main path went through the kernels.  An E-step counts once per call
-#: (``estep``, ``max_estep``), and its two GEMMs count beside it.
+#: (``estep``, ``max_estep``), and its two GEMMs count beside it: the
+#: float32 ones (``sgemm_*``), or the 16-bit ones of a linear model's
+#: ``compute_dtype`` (``hgemm_*``).
 LAUNCHES: Dict[str, int] = {"estep": 0, "decode": 0, "max_estep": 0,
-                             "bigs": 0, "sgemm_nn": 0, "sgemm_tn": 0}
+                             "bigs": 0, "sgemm_nn": 0, "sgemm_tn": 0,
+                             "hgemm_nn": 0, "hgemm_tn": 0}
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
-SOURCES = ("sgemm.cu", "linear_et_estep.cu", "linear_et_decode.cu",
-           "max_et_estep.cu", "bigs_multi.cu")
-HEADERS = ("linear_et_frontend.cuh", "cp_async.cuh", "launch_once.cuh")
+SOURCES = ("sgemm.cu", "hgemm_bf16.cu", "hgemm_f16.cu", "linear_et_estep.cu",
+           "linear_et_decode.cu", "max_et_estep.cu", "bigs_multi.cu")
+HEADERS = ("sgemm.cuh", "linear_et_frontend.cuh", "cp_async.cuh",
+           "launch_once.cuh")
 #: -fno-gnu-unique: the launchers' function-local statics (a kernel's
 #: shared-memory attribute, set once) stay private to each library, so
 #: that two builds loaded in one process (edited copies of the sources, as
@@ -111,6 +115,12 @@ def load_library() -> ctypes.CDLL:
             ("sgemm_nn_ws_floats", [i, i], z),
             ("sgemm_smem_bytes", [i], z),
             ("sgemm_tn_splitn", [p] * 4 + [i] * 5 + [p], i),
+            ("hgemm_nn_bf16", [p] * 4 + [i] * 3 + [p], i),
+            ("hgemm_nn_f16", [p] * 4 + [i] * 3 + [p], i),
+            ("hgemm_nn_ws_floats", [i, i], z),
+            ("hgemm_smem_bytes", [i], z),
+            ("hgemm_tn_splitn_bf16", [p] * 4 + [i] * 5 + [p], i),
+            ("hgemm_tn_splitn_f16", [p] * 4 + [i] * 5 + [p], i),
             ("linear_et_estep_rows", [p] * 14 + [i] * 9 + [p], i),
             ("linear_et_decode_rows", [p] * 15 + [i] * 9 + [p], i),
             ("linear_et_estep_ws_stride", [i, i], z),

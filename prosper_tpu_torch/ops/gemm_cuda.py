@@ -1,4 +1,4 @@
-"""Hand-written float32 GEMM kernels of the ET E-steps (``csrc/sgemm.cu``).
+"""Hand-written GEMM kernels of the ET E-steps (``csrc/sgemm.cuh``).
 
 * ``sgemm_nn``:         C (N, H) = A (N, D) @ B (D, H), the projection
   ``P = y @ W`` of both E-step kernels;
@@ -20,6 +20,15 @@ are added to a float32 running sum.  That keeps float32 accuracy (not the
 rounding of an IEEE ``fmaf`` chain: the tests' float32 tolerances, rtol
 1e-5 and atol 2e-7 per unit of depth), is exact on inputs quantised to
 1/4, and gives the same bits on every call.
+
+``hgemm_nn`` and ``hgemm_tn_splitn`` are the same two products of the
+operands rounded to bf16 or fp16 (to nearest even), one tensor-core pass
+summed in float32: the linear family's ``compute_dtype``.  They take and
+give float32 tensors, as the split-TF32 kernels do (the kernels round y
+and W on their way into shared memory, so no cast pass runs over y), and
+count in ``LAUNCHES["hgemm_nn"]`` and ``["hgemm_tn"]``.  Their plain
+version is ``core/etstep.py::matmul_as``, the float32 product of the
+rounded operands, which they match within the same float32 tolerances.
 """
 
 from __future__ import annotations
@@ -28,11 +37,13 @@ from typing import Optional
 
 import torch
 
+from prosper_tpu_torch.core.etstep import matmul_as
 from prosper_tpu_torch.ops.cuda_lib import (LAUNCHES, check, load_library,
                                             raise_on)
 
-__all__ = ["sgemm_nn", "sgemm_nn_cuda", "sgemm_tn_splitn",
-           "sgemm_tn_splitn_cuda", "split_rows"]
+__all__ = ["hgemm_nn", "hgemm_nn_cuda", "hgemm_tn_splitn",
+           "hgemm_tn_splitn_cuda", "sgemm_nn", "sgemm_nn_cuda",
+           "sgemm_tn_splitn", "sgemm_tn_splitn_cuda", "split_rows"]
 
 #: ``sgemm_tn_splitn`` cuts its sum over N into about this many splits, of
 #: a multiple of 32 rows and at least ``MIN_SPLIT_ROWS`` each: at the
@@ -43,6 +54,9 @@ SPLITS = 33
 MIN_SPLIT_ROWS = 256
 #: the kernels index their grids with 16 bits in two dimensions
 N_MAX = 65535 * 128
+#: the 16-bit operand types of ``hgemm_*``, by the suffix of their C entry
+#: points (csrc/hgemm_bf16.cu, csrc/hgemm_f16.cu)
+HALF_TYPES = {torch.bfloat16: "bf16", torch.float16: "f16"}
 
 
 def split_rows(N: int) -> int:
@@ -67,8 +81,16 @@ def _check_pair(a: torch.Tensor, b: torch.Tensor, rows_match: bool):
         raise ValueError("empty operand")
 
 
-def sgemm_nn_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` by the ``sgemm_nn`` kernel."""
+def _half_code(dtype) -> str:
+    if dtype not in HALF_TYPES:
+        raise ValueError(f"the 16-bit GEMM kernels take torch.bfloat16 or "
+                         f"torch.float16, got {dtype}")
+    return HALF_TYPES[dtype]
+
+
+def _nn_cuda(a, b, code: Optional[str]) -> torch.Tensor:
+    """``a @ b`` by ``sgemm_nn`` (code None) or ``hgemm_nn`` (the suffix of
+    its 16-bit type)."""
     if a.device.type != "cuda":
         raise ValueError(f"the CUDA kernels take CUDA tensors, got {a.device}")
     _check_pair(a, b, rows_match=False)
@@ -77,22 +99,24 @@ def sgemm_nn_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"kernel limit: at most {N_MAX} rows, got {N}")
     out = torch.empty((N, H), dtype=torch.float32, device=a.device)
     lib = load_library()
-    img = torch.empty(lib.sgemm_nn_ws_floats(D, H), dtype=torch.float32,
-                      device=a.device)               # b's split TF32 image
-    err = lib.sgemm_nn(a.data_ptr(), b.data_ptr(), img.data_ptr(),
-                       out.data_ptr(), N, D, H,
-                       torch.cuda.current_stream(a.device).cuda_stream)
-    raise_on(lib, err, "sgemm_nn")
-    LAUNCHES["sgemm_nn"] += 1
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    name = "sgemm_nn" if code is None else "hgemm_nn"
+    # b's image: split TF32, or rounded to the 16-bit type
+    img = torch.empty(getattr(lib, f"{name}_ws_floats")(D, H),
+                      dtype=torch.float32, device=a.device)
+    ptrs = (a.data_ptr(), b.data_ptr(), img.data_ptr(), out.data_ptr(), N, D,
+            H)
+    err = (lib.sgemm_nn(*ptrs, stream) if code is None
+           else getattr(lib, f"hgemm_nn_{code}")(*ptrs, stream))
+    raise_on(lib, err, name)
+    LAUNCHES[name] += 1
     return out
 
 
-def sgemm_tn_splitn_cuda(a: torch.Tensor, b: torch.Tensor,
-                         out: Optional[torch.Tensor] = None,
-                         accumulate: bool = False) -> torch.Tensor:
-    """``a.T @ b`` by the ``sgemm_tn_splitn`` kernel: one partial per
-    ``split_rows(N)`` rows, the partials summed in order into ``out`` (added to
-    what it holds when ``accumulate``)."""
+def _tn_cuda(a, b, code: Optional[str], out: Optional[torch.Tensor],
+             accumulate: bool) -> torch.Tensor:
+    """``a.T @ b`` by ``sgemm_tn_splitn`` (code None) or ``hgemm_tn_splitn``
+    (the suffix of its 16-bit type)."""
     if a.device.type != "cuda":
         raise ValueError(f"the CUDA kernels take CUDA tensors, got {a.device}")
     _check_pair(a, b, rows_match=True)
@@ -109,13 +133,44 @@ def sgemm_tn_splitn_cuda(a: torch.Tensor, b: torch.Tensor,
     n_split = -(-N // rows)
     ws = torch.empty(n_split * M * K, dtype=torch.float32, device=a.device)
     lib = load_library()
-    err = lib.sgemm_tn_splitn(
-        a.data_ptr(), b.data_ptr(), ws.data_ptr(), out.data_ptr(), N, M, K,
-        rows, int(accumulate),
-        torch.cuda.current_stream(a.device).cuda_stream)
-    raise_on(lib, err, "sgemm_tn_splitn")
-    LAUNCHES["sgemm_tn"] += 1
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    args = (a.data_ptr(), b.data_ptr(), ws.data_ptr(), out.data_ptr(), N, M,
+            K, rows, int(accumulate))
+    prefix = "sgemm" if code is None else "hgemm"
+    err = (lib.sgemm_tn_splitn(*args, stream) if code is None
+           else getattr(lib, f"hgemm_tn_splitn_{code}")(*args, stream))
+    raise_on(lib, err, f"{prefix}_tn_splitn")
+    LAUNCHES[f"{prefix}_tn"] += 1
     return out
+
+
+def sgemm_nn_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` by the ``sgemm_nn`` kernel."""
+    return _nn_cuda(a, b, None)
+
+
+def sgemm_tn_splitn_cuda(a: torch.Tensor, b: torch.Tensor,
+                         out: Optional[torch.Tensor] = None,
+                         accumulate: bool = False) -> torch.Tensor:
+    """``a.T @ b`` by the ``sgemm_tn_splitn`` kernel: one partial per
+    ``split_rows(N)`` rows, the partials summed in order into ``out`` (added to
+    what it holds when ``accumulate``)."""
+    return _tn_cuda(a, b, None, out, accumulate)
+
+
+def hgemm_nn_cuda(a: torch.Tensor, b: torch.Tensor, dtype) -> torch.Tensor:
+    """``a @ b`` of the operands rounded to ``dtype`` (``torch.bfloat16`` or
+    ``torch.float16``), summed in float32, by the ``hgemm_nn`` kernel."""
+    return _nn_cuda(a, b, _half_code(dtype))
+
+
+def hgemm_tn_splitn_cuda(a: torch.Tensor, b: torch.Tensor, dtype,
+                         out: Optional[torch.Tensor] = None,
+                         accumulate: bool = False) -> torch.Tensor:
+    """``a.T @ b`` of the operands rounded to ``dtype``, summed in float32,
+    by the ``hgemm_tn_splitn`` kernel; ``out`` and ``accumulate`` as
+    ``sgemm_tn_splitn_cuda``'s."""
+    return _tn_cuda(a, b, _half_code(dtype), out, accumulate)
 
 
 def sgemm_nn(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -133,3 +188,23 @@ def sgemm_tn_splitn(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         _check_pair(a, b, rows_match=True)
         return torch.matmul(a.T, b)
     return sgemm_tn_splitn_cuda(a, b)
+
+
+def hgemm_nn(a: torch.Tensor, b: torch.Tensor, dtype) -> torch.Tensor:
+    """``a @ b`` at ``dtype``: the kernel on CUDA tensors, its plain version
+    (``matmul_as``) on CPU ones."""
+    if a.device.type == "cpu":
+        _half_code(dtype)
+        _check_pair(a, b, rows_match=False)
+        return matmul_as(a, b, dtype)
+    return hgemm_nn_cuda(a, b, dtype)
+
+
+def hgemm_tn_splitn(a: torch.Tensor, b: torch.Tensor, dtype) -> torch.Tensor:
+    """``a.T @ b`` at ``dtype``: the kernel on CUDA tensors, its plain
+    version (``matmul_as``) on CPU ones."""
+    if a.device.type == "cpu":
+        _half_code(dtype)
+        _check_pair(a, b, rows_match=True)
+        return matmul_as(a.T, b, dtype)
+    return hgemm_tn_splitn_cuda(a, b, dtype)

@@ -10,7 +10,11 @@ Two per-datapoint kernels share one front end
   runs in three stages: ``P = y W``, the per-datapoint kernel
   (``csrc/linear_et_estep.cu``), which turns P's rows into ``w <s>`` in
   place, and ``xs = y^T (w <s>)`` by the ``sgemm_tn_splitn`` kernel.  One
-  call counts once in ``LAUNCHES["estep"]``.
+  call counts once in ``LAUNCHES["estep"]``.  With a model's 16-bit
+  ``compute_dtype`` the two GEMM stages are ``hgemm_nn`` and
+  ``hgemm_tn_splitn`` (the operands rounded to bf16 or fp16, summed in
+  float32); the rows kernel is the same and reads float32 P, y, W and
+  Gram matrix.
 * ``linear_et_decode`` replaces ``linear_et_decode_pallas``: F, the
   posterior mean, the top-L states in canonical union indices and the
   candidates (serving).  It runs in two stages: ``P = y W``, then the
@@ -38,7 +42,9 @@ from prosper_tpu_torch.ops.cuda_lib import (LAUNCHES, SMEM_LIMIT, cached_for,
                                             check, in_row_chunks,
                                             load_library, n_blocks, raise_on,
                                             row_chunks, scalars)
-from prosper_tpu_torch.ops.gemm_cuda import (sgemm_nn_cuda,
+from prosper_tpu_torch.ops.gemm_cuda import (hgemm_nn_cuda,
+                                             hgemm_tn_splitn_cuda,
+                                             sgemm_nn_cuda,
                                              sgemm_tn_splitn_cuda)
 from prosper_tpu_torch.parallel.mesh import state_sharded
 
@@ -103,8 +109,10 @@ def _state_minor(sa: LinearStateArrays):
 
 def _estep_rows(lib, y, weight, W, gram, scal, log_odds, tables,
                 sa: LinearStateArrays, Hp: int, signed_select: bool,
-                collect_true: bool, smem: int):
-    """The three stages on one chunk of rows: (F, sums (D*H + stride,))."""
+                collect_true: bool, smem: int, compute_dtype=None):
+    """The three stages on one chunk of rows: (F, sums (D*H + stride,)).
+    The GEMMs are the split-TF32 kernels, or with a 16-bit
+    ``compute_dtype`` the 16-bit ones."""
     (N, D), H = y.shape, W.shape[1]
     S, K = sa.value_counts.shape
     dev = y.device
@@ -114,7 +122,8 @@ def _estep_rows(lib, y, weight, W, gram, scal, log_odds, tables,
     F = torch.empty(N, dtype=torch.float32, device=dev)
     ws = torch.empty(nb * stride, dtype=torch.float32, device=dev)
     sums = torch.empty(D * H + stride, dtype=torch.float32, device=dev)
-    P = sgemm_nn_cuda(y, W)
+    P = (sgemm_nn_cuda(y, W) if compute_dtype is None
+         else hgemm_nn_cuda(y, W, compute_dtype))
     err = lib.linear_et_estep_rows(
         y.data_ptr(), weight.data_ptr(), P.data_ptr(), gram.data_ptr(),
         states.data_ptr(), outer.data_ptr(), vcounts.data_ptr(),
@@ -123,17 +132,23 @@ def _estep_rows(lib, y, weight, W, gram, scal, log_odds, tables,
         sums[D * H:].data_ptr(), N, D, H, Hp, S, K, int(signed_select),
         int(collect_true), nb, torch.cuda.current_stream(dev).cuda_stream)
     raise_on(lib, err, "linear_et_estep_rows")
-    sgemm_tn_splitn_cuda(y, P, out=sums[:D * H].view(D, H))  # P holds w <s>
+    xs = sums[:D * H].view(D, H)                      # P holds w <s>
+    if compute_dtype is None:
+        sgemm_tn_splitn_cuda(y, P, out=xs)
+    else:
+        hgemm_tn_splitn_cuda(y, P, compute_dtype, out=xs)
     return F, sums
 
 
 def linear_et_estep_cuda(y, weight, W, sigma2, log_odds,
                          sa: LinearStateArrays, Hp: int, signed_select: bool,
-                         beta, prior_beta, collect_true: bool = True
+                         beta, prior_beta, collect_true: bool = True,
+                         compute_dtype=None
                          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The E-step kernels on CUDA tensors; same contract as
     ``core.etstep.linear_et_estep`` (any N; rows are chunked only where the
-    (N, H) workspace for P would exceed ``cuda_lib.P_LIMIT_BYTES``)."""
+    (N, H) workspace for P would exceed ``cuda_lib.P_LIMIT_BYTES``).  The
+    Gram matrix stays float32 at every ``compute_dtype``."""
     lib, N, D, H, S, K = _check_common(y, W, log_odds, sa, Hp)
     smem = lib.linear_et_rows_smem_bytes(H, Hp, S, K)
     _check_smem(smem, S)
@@ -144,7 +159,7 @@ def linear_et_estep_cuda(y, weight, W, sigma2, log_odds,
     tables = _state_minor(sa)
     F, sums = in_row_chunks(N, H, lambda i, j: _estep_rows(
         lib, y[i:j], weight[i:j], W, gram, scal, log_odds, tables, sa, Hp,
-        signed_select, collect_true, smem))
+        signed_select, collect_true, smem, compute_dtype))
     LAUNCHES["estep"] += 1
     o = D * H + H * H
     out = dict(xs=sums[:D * H].view(D, H), ss=sums[D * H:o].view(H, H),
@@ -199,29 +214,34 @@ def linear_et_estep(y, weight, W, sigma2, log_odds, sa: LinearStateArrays,
                     Hp: int, signed_select: bool, beta, prior_beta,
                     chunk: int = 2048, collect_true: bool = True,
                     s_block: int = 0, state_axis=None,
-                    n_state_shards: int = 1):
+                    n_state_shards: int = 1, compute_dtype=None):
     """E-step: kernels on a CUDA tensor, the E-step's three stages or, with
     ``s_block > 0``, the big-S one (``ops/bigs_cuda.py``); its plain version
     (``core.etstep.linear_et_estep``, chunked by ``chunk``) on a CPU one.
     Under a state axis (``state_axis``, ``n_state_shards > 1``) the big-S
     kernel on this state rank's slice, whatever ``s_block`` is (the fused
     rows kernel needs the whole union in one block), and on a CPU tensor
-    its plain version over the same slice."""
+    its plain version over the same slice.  A 16-bit ``compute_dtype``
+    takes the two D x H products of every one of these paths to the 16-bit
+    GEMM kernels on a CUDA tensor (``matmul_as`` on a CPU one)."""
     if state_sharded(state_axis, n_state_shards):
         return linear_et_estep_bigs_cuda(
             y, weight, W, sigma2, log_odds, sa, Hp, signed_select, beta,
             prior_beta, s_block, collect_true, state_axis=state_axis,
-            n_state_shards=n_state_shards)
+            n_state_shards=n_state_shards, compute_dtype=compute_dtype)
     if y.device.type == "cpu":
         return etstep.linear_et_estep(y, weight, W, sigma2, log_odds, sa, Hp,
                                       signed_select, beta, prior_beta, chunk,
-                                      collect_true, s_block)
+                                      collect_true, s_block,
+                                      compute_dtype=compute_dtype)
     if s_block > 0:
         return linear_et_estep_bigs_cuda(y, weight, W, sigma2, log_odds, sa,
                                          Hp, signed_select, beta, prior_beta,
-                                         s_block, collect_true)
+                                         s_block, collect_true,
+                                         compute_dtype=compute_dtype)
     return linear_et_estep_cuda(y, weight, W, sigma2, log_odds, sa, Hp,
-                                signed_select, beta, prior_beta, collect_true)
+                                signed_select, beta, prior_beta, collect_true,
+                                compute_dtype)
 
 
 def linear_et_decode(y, W, sigma2, log_odds, sa: LinearStateArrays, Hp: int,

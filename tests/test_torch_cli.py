@@ -16,6 +16,7 @@ import sys
 import h5py
 import numpy as np
 import pytest
+import torch
 
 from prosper_tpu import cli as jcli
 from prosper_tpu_torch import cli
@@ -212,6 +213,38 @@ def test_train_py_config_backend_and_result_file(tmp_path, capsys):
     capsys.readouterr()
     assert cli.main(["diagnose", "-c", npz, "--gt", str(p)]) == 0
     assert "/8 atoms" in capsys.readouterr().out
+
+
+def test_train_json_config_at_bfloat16(tmp_path):
+    """A JSON config whose model table holds ``"compute_dtype":
+    "bfloat16"`` trains through the port's ``train`` (the table goes to the
+    constructor as keyword arguments, as the JAX CLI passes it): the
+    checkpoint's parameters equal those of the in-process ``EM`` run of the
+    same model within rtol 1e-4, and differ from the float32 run's."""
+    model = {"type": "bsc", "D": 16, "H": 8, "Hprime": 5, "gamma": 3}
+    cfgs = {"bf16": _config(tmp_path, "bf16.json",
+                            model=dict(model, compute_dtype="bfloat16")),
+            "f32": _config(tmp_path, "f32.json", model=model)}
+    got = {}
+    for tag, cfg in cfgs.items():
+        out = tmp_path / tag
+        assert cli.main(["train", cfg, "-o", str(out), "-q", "--device",
+                         "cpu"]) == 0
+        with h5py.File(out / "checkpoint.h5") as f:
+            assert f.attrs["step"] == 6
+            got[tag] = {k: np.asarray(f["params"][k]) for k in f["params"]}
+    cfg = cli.load_config(cfgs["bf16"])
+    m = cfg["model"]
+    assert m.compute_dtype is torch.bfloat16
+    data = m.generate_data(cfg["gt_params"], cfg["N"], seed=cfg["seed"])
+    em = EM(m, cfg["anneal"], {"y": data["y"]}, seed=cfg["seed"],
+            device="cpu")
+    em.run()
+    for k, v in em.params.items():
+        np.testing.assert_allclose(got["bf16"][k], v.numpy(), rtol=1e-4,
+                                   err_msg=k)
+    assert not np.allclose(got["bf16"]["W"], got["f32"]["W"], rtol=1e-5,
+                           atol=0.0)
 
 
 def test_every_port_config_loads():

@@ -1475,3 +1475,139 @@ def test_state_axis_dispatch_rules_on_the_card(device):
         run_state_shards(2, lambda g: wide.estep_sums(
             p, y.to(device), torch.ones(64, device=device), sched,
             state_axis=g, n_state_shards=2))
+
+
+# -- the 16-bit GEMM kernels (compute_dtype) ----------------------------------
+
+HALF = [torch.bfloat16, torch.float16]
+HGEMM_SHAPES = sorted({c[:3] for c in CASES}) + [(16385, 256, 300)]
+
+
+def _rounded(a, dtype):
+    return a.to(dtype).double()
+
+
+@pytest.mark.parametrize("shape", HGEMM_SHAPES, ids=lambda s: "N%dD%dH%d" % s)
+@pytest.mark.parametrize("quantised", [True, False], ids=["quarters", "randn"])
+@pytest.mark.parametrize("dtype", HALF, ids=["bf16", "fp16"])
+def test_hgemm_kernels_match_their_plain_version(shape, quantised, dtype,
+                                                 device):
+    """Both 16-bit kernels against the float64 product of the rounded
+    operands (their plain version in float64), rows of zeros among the
+    operands: exact on inputs quantised to 1/4 (exact in either 16-bit
+    type, so nothing is rounded and every partial sum is exact), within
+    the float32 tolerance otherwise and more than 1e-4 away from the
+    product of the unrounded operands; two calls give the same bits; the
+    tn kernel's ``accumulate`` adds to ``out``; the split-TF32 counts do
+    not move."""
+    N, D, H = shape
+    rng = np.random.default_rng(N + D + H)
+    y, W = _gemm_draw(rng, quantised, device, N, D), _gemm_draw(
+        rng, quantised, device, D, H)
+    sw, base = _gemm_draw(rng, quantised, device, N, H), _gemm_draw(
+        rng, quantised, device, D, H)
+    y[:40] = 0.0
+    sw[-3:] = 0.0
+    before = dict(cuda_lib.LAUNCHES)
+    for out, again, ref, exact, depth in (
+            (gemm_cuda.hgemm_nn_cuda(y, W, dtype),
+             gemm_cuda.hgemm_nn_cuda(y, W, dtype),
+             _rounded(y, dtype) @ _rounded(W, dtype),
+             y.double() @ W.double(), D),
+            (gemm_cuda.hgemm_tn_splitn_cuda(y, sw, dtype),
+             gemm_cuda.hgemm_tn_splitn_cuda(y, sw, dtype),
+             _rounded(y, dtype).T @ _rounded(sw, dtype),
+             y.double().T @ sw.double(), N),
+            (gemm_cuda.hgemm_tn_splitn_cuda(y, sw, dtype, out=base.clone(),
+                                            accumulate=True),
+             gemm_cuda.hgemm_tn_splitn_cuda(y, sw, dtype, out=base.clone(),
+                                            accumulate=True),
+             base.double() + _rounded(y, dtype).T @ _rounded(sw, dtype),
+             base.double() + y.double().T @ sw.double(), N)):
+        _exact_or_close(out, again, ref, quantised, depth)
+        if not quantised:
+            assert ((out.double() - exact).abs().max()
+                    > 1e-4 * exact.abs().max())
+    counts = {k: cuda_lib.LAUNCHES[k] - before[k] for k in before}
+    assert counts == dict({k: 0 for k in before}, hgemm_nn=2, hgemm_tn=4)
+
+
+@pytest.mark.parametrize("dtype", HALF, ids=["bf16", "fp16"])
+def test_hgemm_kernels_round_ties_to_even(dtype, device):
+    """Operands halfway between two neighbours of the 16-bit type, and the
+    identity for the other operand: each kernel returns its operand rounded
+    as ``Tensor.to`` rounds it (to nearest, ties to even), on both sides of
+    each product."""
+    rng = np.random.default_rng(5)
+    n = 96
+    lo = torch.as_tensor(rng.standard_normal((n, n)).astype(np.float32),
+                         device=device).to(dtype)
+    nxt = (lo.view(torch.int16) + 1).view(dtype)    # the next, away from 0
+    mid = (lo.float() + nxt.float()) / 2            # exact in float32
+    want = mid.to(dtype).float()
+    assert not torch.equal(want, mid)
+    eye = torch.eye(n, device=device)
+    for got in (gemm_cuda.hgemm_nn_cuda(mid, eye, dtype),
+                gemm_cuda.hgemm_nn_cuda(eye, mid.T.contiguous(), dtype).T,
+                gemm_cuda.hgemm_tn_splitn_cuda(eye, mid, dtype),
+                gemm_cuda.hgemm_tn_splitn_cuda(mid.T.contiguous(), eye,
+                                               dtype)):
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", CASES, ids=lambda c: f"H{c[2]}K{len(c[5])}")
+@pytest.mark.parametrize("dtype", HALF, ids=["bf16", "fp16"])
+def test_estep_kernel_at_a_16_bit_compute_dtype_matches_plain(case, dtype,
+                                                              device):
+    """The fused E-step at a 16-bit ``compute_dtype``: its two GEMM stages
+    are the 16-bit kernels (one launch each, no split-TF32 launch) and it
+    matches the plain version at the same ``compute_dtype`` as the float32
+    E-step matches its own (y and W quantised: P exact, sw rounded)."""
+    y, w, W, lo, sa, Hp, signed = _inputs(case, device)
+    args = (y, w, W, torch.tensor(2.5, device=device), lo, sa, Hp, signed,
+            0.6, 1.0)
+    F0, ref = etstep.linear_et_estep(*args, chunk=y.shape[0],
+                                     compute_dtype=dtype)
+    before = dict(cuda_lib.LAUNCHES)
+    F1, on = linear_cuda.linear_et_estep_cuda(*args, compute_dtype=dtype)
+    torch.cuda.synchronize()
+    counts = {k: cuda_lib.LAUNCHES[k] - before[k] for k in before}
+    assert counts == dict({k: 0 for k in before}, estep=1, hgemm_nn=1,
+                          hgemm_tn=1)
+    torch.testing.assert_close(F1, F0, rtol=1e-4, atol=1e-4)
+    for k in ref:
+        torch.testing.assert_close(on[k], ref[k], rtol=1e-3, atol=1e-3,
+                                   msg=k)
+
+
+@pytest.mark.parametrize("path", ["fused", "bigs", "state"])
+def test_a_16_bit_cast_reaches_only_the_two_products_on_the_card(path,
+                                                                 device):
+    """With y = 0 both products are 0 whatever they round, so a bf16 E-step
+    equals the float32 one bit for bit unless a cast reached the Gram
+    matrix, ||y||^2 or another input of the rows or big-S stages: on the
+    fused path, the big-S path and a state axis of 2 (the 16-bit kernels
+    launched in each)."""
+    from state_threads import run_state_shards
+    y, w, W, lo, sa, Hp, signed = _inputs(CASES[1], device)
+    W = W + 0.01 * torch.randn(W.shape, device=device,
+                               generator=torch.Generator(device).manual_seed(2))
+    y = torch.zeros_like(y)
+    args = (y, w, W, torch.tensor(2.5, device=device), lo, sa, Hp, signed,
+            0.6, 1.0)
+
+    def run(dtype):
+        if path == "state":
+            return run_state_shards(2, lambda g: linear_cuda.linear_et_estep(
+                *args, state_axis=g, n_state_shards=2,
+                compute_dtype=dtype))[0][0]
+        return linear_cuda.linear_et_estep(
+            *args, s_block=16 if path == "bigs" else 0, compute_dtype=dtype)
+    before = cuda_lib.LAUNCHES["hgemm_nn"]
+    (F16, s16), (F32, s32) = run(torch.bfloat16), run(None)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["hgemm_nn"] > before
+    assert torch.equal(F16, F32)
+    for k in s32:
+        assert torch.equal(s16[k], s32[k]), k

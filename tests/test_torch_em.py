@@ -212,10 +212,14 @@ def test_bad_configs_raise_value_error(args):
         BSC(*args)
 
 
-def test_unported_options_raise():
+def test_ported_options_build_and_bad_values_raise():
     y = np.zeros((8, 25), np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TSC(25, 10, 6, 3, compute_dtype=torch.bfloat16)
+    # compute_dtype is ported (tests/test_torch_compute_dtype.py): a 16-bit
+    # type builds, a type outside the accepted ones raises
+    assert TSC(25, 10, 6, 3,
+               compute_dtype=torch.bfloat16).compute_dtype is torch.bfloat16
+    with pytest.raises(ValueError, match="compute_dtype"):
+        TSC(25, 10, 6, 3, compute_dtype=torch.float64)
     assert DSC(25, 10, 6, 3, to_learn=("W", "pi", "sigma", "phi")).learn_phi
     # runtime= is ported (tests/test_torch_mesh.py); it takes a MeshRuntime
     with pytest.raises(TypeError, match="MeshRuntime"):

@@ -85,17 +85,17 @@ ABLATIONS = [
      "for (int s4 = 0; s4 < 0; s4 += 4) {"),
     ("bigs: staging of the A and B tiles after the first", "bigs_multi.cu",
      "if (t + 1 < nt) {", "if (false) {"),
-    ("gemm nn: the copies of B's split image", "sgemm.cu",
+    ("gemm nn: the copies of B's split image", "sgemm.cuh",
      "      cp_async16(dst + 4 * c, src + 4 * c, true);",
      "      cp_async16(dst + 4 * c, src + 4 * c, false);"),
-    ("gemm nn: the stores of C", "sgemm.cu",
+    ("gemm nn: the stores of C", "sgemm.cuh",
      "      if (r >= N || c >= H) continue;\n"
      "      float* p = C + (size_t)r * H + c;",
      "      if (r >= 0) continue;\n      float* p = C + (size_t)r * H + c;"),
-    ("gemm tn: the loads of the raw slabs", "sgemm.cu",
-     "    load_rows<VEC, BM>(xs_of(s), XS, X, P, r0, p0, r_end);\n"
-     "    load_rows<VEC, BN>(ys_of(s), YS, Y, Q, r0, q0, r_end);", ""),
-    ("gemm tn: the split and transposition of the B slab", "sgemm.cu",
+    ("gemm tn: the loads of the raw slabs", "sgemm.cuh",
+     "    load_rows<VEC, BM, BK>(xs_of(s), XS, X, P, r0, p0, r_end);\n"
+     "    load_rows<VEC, BN, BK>(ys_of(s), YS, Y, Q, r0, q0, r_end);", ""),
+    ("gemm tn: the split and transposition of the B slab", "sgemm.cuh",
      "  auto split_b = [&](int s, int b, int j0, int j1) {",
      "  auto split_b = [&](int s, int b, int j0, int j1) {\n    return;"),
 ]
@@ -105,16 +105,16 @@ ABLATED = ("linear_et_estep", "linear_et_decode", "max_et_estep",
            "bigs_multi_annealed_16k_rows", "sgemm_nn", "sgemm_tn_splitn")
 #: variants of the kernels (right results, other choices)
 VARIANTS = [
-    ("nothing, but sgemm_nn with 3 stages of slabs in flight", "sgemm.cu",
+    ("nothing, but sgemm_nn with 3 stages of slabs in flight", "sgemm.cuh",
      "constexpr int NN_STAGES = 4;", "constexpr int NN_STAGES = 3;"),
-    ("nothing, but sgemm_tn_splitn with 4 raw stages", "sgemm.cu",
+    ("nothing, but sgemm_tn_splitn with 4 raw stages", "sgemm.cuh",
      "constexpr int TN_STAGES = 3;", "constexpr int TN_STAGES = 4;"),
     ("nothing, but the sgemm kernels' TF32 split by cvt.rna",
-     "sgemm.cu", "return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;",
+     "sgemm.cuh", "return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;",
      'uint32_t r;\n  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));\n'
      "  return r;"),
     ("nothing, but sgemm_nn summing every depth one k8 step at a time",
-     "sgemm.cu", "one = n_slabs == 1;", "one = true;"),
+     "sgemm.cuh", "one = n_slabs == 1;", "one = true;"),
     ("nothing, but the big-S kernel at its largest block whatever the rows",
      "bigs_multi.cu", "while (nw > 1 &&", "while (false &&")]
 
@@ -203,6 +203,12 @@ def kernel_calls(torch, np):
         calls["sgemm_nn"] = lambda: linear_cuda.sgemm_nn_cuda(y, p["W"])
         calls["sgemm_tn_splitn"] = (
             lambda: linear_cuda.sgemm_tn_splitn_cuda(y, sw))
+    if hasattr(linear_cuda, "hgemm_nn_cuda"):      # the 16-bit GEMMs
+        for tag, dt in (("bf16", torch.bfloat16), ("fp16", torch.float16)):
+            calls[f"hgemm_nn_{tag}"] = (
+                lambda dt=dt: linear_cuda.hgemm_nn_cuda(y, p["W"], dt))
+            calls[f"hgemm_tn_splitn_{tag}"] = (
+                lambda dt=dt: linear_cuda.hgemm_tn_splitn_cuda(y, sw, dt))
     yd = y[:N_DECODE].contiguous()
     calls["linear_et_decode"] = lambda: linear_cuda.linear_et_decode_cuda(
         yd, p["W"], s2, lo, sa, 8, False, 10, 1.0, 1.0)
