@@ -75,8 +75,11 @@ the one-process run of the same kernel path; (d) MCA with
 --phase 23`` runs the build, phases 6 and 12 and phase 23 alone.  Phase 24
 drives ``compute_dtype``: (a) the 16-bit GEMM kernels (bf16, fp16) against
 the float64 product of the rounded operands at the GEMM phase's shapes,
-their times beside the plain version, ``torch.mm`` with ``out_dtype`` and
-the bound of one 16-bit pass; (b) phase 6's BSC run at
+both of ``hgemm_tn_splitn``'s kernels (tensor copies; cp.async for the
+shapes those cannot take) giving the same bits, a one-hot permutation
+check of its layouts, its design in the SASS, their times beside the plain
+version, ``torch.mm`` with ``out_dtype`` and the bound of one 16-bit
+pass; (b) phase 6's BSC run at
 ``compute_dtype=torch.bfloat16`` through ``run`` and ``run_scanned``
 (bit-identical, 6 launches of each 16-bit GEMM and no split-TF32 GEMM but
 the decodes'), its first E-step against float64 sums over the rounded
@@ -164,17 +167,28 @@ def bound(flops, nbytes):
 
 
 def reset_launches(cuda_lib):
-    for k in cuda_lib.LAUNCHES:
-        cuda_lib.LAUNCHES[k] = 0
+    """Every launch count to 0, hgemm_tn_splitn's counts by kernel too."""
+    from prosper_tpu_torch.ops import gemm_cuda
+    for counts in (cuda_lib.LAUNCHES, gemm_cuda.HGEMM_TN_PATHS):
+        for k in counts:
+            counts[k] = 0
 
 
 def expect_launches(cuda_lib, tag, **want):
     """The launch counts since the last reset are exactly ``want`` (every
-    kernel not named: 0).  Returns them."""
+    kernel not named: 0), and every launch of hgemm_tn_splitn took its
+    bulk-copy kernel (the paths give it 16-byte aligned rows of a multiple
+    of 4 floats).  Returns them."""
+    from prosper_tpu_torch.ops import gemm_cuda
     got = dict(cuda_lib.LAUNCHES)
     if got != {k: want.get(k, 0) for k in got}:
         raise AssertionError(f"{tag} launches {got}, expected {want} and "
                              "nothing else")
+    paths = dict(gemm_cuda.HGEMM_TN_PATHS)
+    if paths != {"bulk": got["hgemm_tn"], "cp_async": 0}:
+        raise AssertionError(f"{tag} hgemm_tn_splitn's launches by kernel "
+                             f"{paths}: its bulk-copy kernel expected at "
+                             f"each of its {got['hgemm_tn']}")
     return got
 
 
@@ -208,20 +222,23 @@ def same_run(torch, tag, ref, em, first=0):
                              "from the reference's")
 
 
-#: the device function behind each launch count (prosper_tpu_torch/csrc);
+#: the device functions behind each launch count (prosper_tpu_torch/csrc);
 #: the GEMM kernels are templates on their operand type: float for
-#: ``sgemm_*``, a 16-bit type for ``hgemm_*``
-KERNEL_FUNCS = {"estep": "rows_kernel", "decode": "decode_kernel",
-                "max_estep": "max_estep_kernel", "bigs": "bigs_kernel",
-                "sgemm_nn": "nn_kernel", "sgemm_tn": "tn_kernel",
-                "hgemm_nn": "nn_kernel", "hgemm_tn": "tn_kernel"}
+#: ``sgemm_*``, a 16-bit type for ``hgemm_*``; ``hgemm_tn`` launches one of
+#: two (``gemm_cuda.HGEMM_TN_PATHS``), of which ``htn_bulk_kernel`` is the
+#: paths' (``traced_kernels`` counts it apart, as ``hgemm_tn_bulk``)
+KERNEL_FUNCS = {"estep": ("rows_kernel",), "decode": ("decode_kernel",),
+                "max_estep": ("max_estep_kernel",), "bigs": ("bigs_kernel",),
+                "sgemm_nn": ("nn_kernel",), "sgemm_tn": ("tn_kernel",),
+                "hgemm_nn": ("nn_kernel",),
+                "hgemm_tn": ("tn_kernel", "htn_bulk_kernel")}
 HALF_NAMES = ("bfloat16", "__half")
 
 
 def kernel_of(name, key):
     """Whether the device function ``name`` (mangled, as in the SASS, or
-    demangled, as in a trace) is the kernel of launch count ``key``."""
-    if KERNEL_FUNCS[key] not in name:
+    demangled, as in a trace) is a kernel of launch count ``key``."""
+    if not any(f in name for f in KERNEL_FUNCS[key]):
         return False
     half = any(h in name for h in HALF_NAMES)
     return half if key.startswith("hgemm") else (
@@ -230,8 +247,10 @@ def kernel_of(name, key):
 
 def traced_kernels(torch, run):
     """How often each of the port's kernels ran on the card during
-    ``run()``, by launch-count name: counted from a profiler trace of the
-    device, so a graph replay, which passes no launch site, shows too."""
+    ``run()``, by launch-count name, and ``hgemm_tn_bulk``: how often
+    hgemm_tn_splitn's bulk-copy kernel ran.  Counted from a profiler trace
+    of the device, so a graph replay, which passes no launch site, shows
+    too."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         # the tracer may miss the first kernels launched after it starts
@@ -245,7 +264,9 @@ def traced_kernels(torch, run):
              if e.device_type == torch.autograd.DeviceType.CUDA]
     if not names:
         raise AssertionError("the profiler recorded no device events")
-    return {k: sum(kernel_of(n, k) for n in names) for k in KERNEL_FUNCS}
+    return dict({k: sum(kernel_of(n, k) for n in names)
+                 for k in KERNEL_FUNCS},
+                hgemm_tn_bulk=sum("htn_bulk_kernel" in n for n in names))
 
 
 def scanned_path(torch, np, cuda_lib, tag, ref, make_em, init, seed, smi,
@@ -438,11 +459,15 @@ def gemm_phase(torch, np, dev, smi, err):
     return out
 
 
-def gemm_sass(keys=("sgemm_nn", "sgemm_tn")):
+def gemm_sass(keys=("sgemm_nn", "sgemm_tn"), ops=False):
     """Instructions of the built GEMM kernels of launch counts ``keys`` by
     kind, from the library's SASS (``cuobjdump -sass`` of the CUDA toolkit,
     or the copy in Triton's package): the tensor-core MMAs must be there.
-    Where no cuobjdump is found, says so and returns None for each."""
+    Returns {key: {function: HGMMA count}}, or with ``ops`` {key: {function:
+    {opcode: count}}}, where ``HGMMA_SMEM_A`` counts the HGMMAs whose A
+    operand is a shared-memory descriptor (``gdesc``) rather than
+    registers.  Where no cuobjdump is found, says so and returns None for
+    each."""
     import os
     import shutil
     from prosper_tpu_torch.ops import cuda_lib
@@ -467,9 +492,17 @@ def gemm_sass(keys=("sgemm_nn", "sgemm_tn")):
             fn = line.split("Function : ")[1].strip()
             counts[fn] = {}
         elif fn is not None:
-            for op in ("HGMMA", "HMMA", "FFMA"):
+            for op in ("HGMMA", "HMMA", "FFMA", "UTMALDG"):
                 if f" {op}." in line or f" {op} " in line:
                     counts[fn][op] = counts[fn].get(op, 0) + 1
+            if " HGMMA." in line:
+                # HGMMA.shape.types D, A, B, C: A is "gdesc[...]" from
+                # shared memory, a register from the threads
+                operands = line.split(" HGMMA.")[1].split(";")[0].split(",")
+                if len(operands) > 1 and operands[1].strip().startswith(
+                        "gdesc"):
+                    counts[fn]["HGMMA_SMEM_A"] = counts[fn].get(
+                        "HGMMA_SMEM_A", 0) + 1
     out = {}
     for name in keys:
         found = {fn: c for fn, c in counts.items() if kernel_of(fn, name)}
@@ -477,7 +510,8 @@ def gemm_sass(keys=("sgemm_nn", "sgemm_tn")):
         if not found or any(c.get("HGMMA", 0) < 1 for c in found.values()):
             raise AssertionError(f"{name}: no HGMMA in its SASS: the "
                                  "tensor cores are not used")
-        out[name] = {fn: c.get("HGMMA", 0) for fn, c in found.items()}
+        out[name] = (found if ops else
+                     {fn: c.get("HGMMA", 0) for fn, c in found.items()})
     return out
 
 
@@ -2943,17 +2977,27 @@ def hgemm_phase(torch, np, dev, smi, err):
     quantised to 1/4 (exact in either type), within rtol 1e-5 / atol 2e-7
     per unit of depth on Gaussian ones and more than 1e-4 (of the largest
     entry) away from the unrounded product there, repeated calls
-    bit-identical, the tn kernel's ``accumulate`` too.  Then their times at
-    131072 and 8192 rows beside the plain version on the card
+    bit-identical, the tn kernel's ``accumulate`` too.  hgemm_tn_splitn's
+    two kernels (``gemm_cuda.hgemm_tn_bulk``): the shapes take both, and
+    at the main path's shape operands moved off their 16-byte alignment
+    take the cp.async kernel, which must give the bulk-copy kernel's bits;
+    one-hot rows of y and sw, each (p, q) in one row with y's entry naming
+    p (or sw's naming q), must put every name where it belongs.  Then their
+    times at 131072 and 8192 rows beside the plain version on the card
     (``matmul_as``: the rounding, then a float32 ``torch.matmul``), the
     library call ``torch.mm(a.to(dt), b.to(dt), out_dtype=torch.float32)``
     with its casts (where the card's torch has ``aten::mm.dtype``) and the
-    bound of one 16-bit pass; the HGMMA of their SASS.  Returns each
-    kernel's entries for the JSON line."""
+    bound of one 16-bit pass; the HGMMA of their SASS, and in the bulk-copy
+    kernel's the design: tensor copies (UTMALDG) and every HGMMA reading
+    both operands from shared memory.  Returns each kernel's entries for
+    the JSON line."""
     from prosper_tpu_torch.core.etstep import matmul_as
-    from prosper_tpu_torch.ops import gemm_cuda
+    from prosper_tpu_torch.ops import cuda_lib, gemm_cuda
 
     hnn, htn = gemm_cuda.hgemm_nn_cuda, gemm_cuda.hgemm_tn_splitn_cuda
+    paths = gemm_cuda.HGEMM_TN_PATHS
+    for k in paths:
+        paths[k] = 0
     halves = (("bf16", torch.bfloat16), ("fp16", torch.float16))
     gen = torch.Generator(device=dev).manual_seed(24)
     share = {"hgemm_nn": 0.0, "hgemm_tn": 0.0}
@@ -2999,8 +3043,46 @@ def hgemm_phase(torch, np, dev, smi, err):
     log(f"[24a] hgemm_nn and hgemm_tn_splitn (bf16, fp16) agree with the "
         f"float64 product of the rounded operands at {len(shapes)} shapes "
         "(exactly on quantised inputs; repeated calls bit-identical)")
+    shape_paths = dict(paths)
+    if min(shape_paths.values()) < 1:
+        raise AssertionError(f"[24a] the shapes did not take both of "
+                             f"hgemm_tn_splitn's kernels: {shape_paths}")
+    N, D, H = shapes[0]
+    y, sw = (torch.randn(s, generator=gen, device=dev)
+             for s in ((N, D), (N, H)))
+    for tag, dt in halves:
+        before = dict(paths)
+        bulk = htn(y, sw, dt)
+        off = htn(off_alignment(torch, y), sw, dt)
+        torch.cuda.synchronize()
+        if paths != dict(before, bulk=before["bulk"] + 1,
+                         cp_async=before["cp_async"] + 1):
+            raise AssertionError(f"[24a] {tag}: the dispatch took {paths}")
+        if not torch.equal(bulk, off):
+            raise AssertionError(f"[24a] {tag}: the bulk-copy and cp.async "
+                                 "kernels differ at the main path's shape")
+        for P, Q in ((D, H), (H, D)):
+            one_hot_names(torch, dev, gen, htn, dt, P, Q, f"[24a] {tag}")
+    log(f"[24a] hgemm_tn_splitn's dispatch: {shape_paths} calls at the "
+        f"shapes above; at {N}x{D}x{H} the cp.async kernel (operands off "
+        "their 16-byte alignment) gives the bulk-copy kernel's bits; one-hot "
+        "rows name every (p, q) right at 256x300 and 300x256 (bf16, fp16)")
 
-    sass = gemm_sass(("hgemm_nn", "hgemm_tn"))
+    sass = gemm_sass(("hgemm_nn", "hgemm_tn"), ops=True)
+    design = {}
+    if sass["hgemm_tn"] is not None:
+        design = {fn: c for fn, c in sass["hgemm_tn"].items()
+                  if "htn_bulk_kernel" in fn}
+        if len(design) != 2 or any(
+                c.get("HGMMA", 0) < 1 or c.get("UTMALDG", 0) < 1
+                or c.get("HGMMA_SMEM_A", 0) != c["HGMMA"]
+                for c in design.values()):
+            raise AssertionError(f"[24a] the bulk-copy kernel's SASS lacks "
+                                 f"its design: {design}")
+        log(f"[24a] SASS of the bulk-copy kernel: tensor copies (UTMALDG) "
+            f"and HGMMA with both operands from shared memory: {design}")
+        sass = {k: {fn: c.get("HGMMA", 0) for fn, c in v.items()}
+                for k, v in sass.items()}
     mm_dtype = "dtype" in torch.ops.aten.mm.overloads()
     if not mm_dtype:
         log("[24a] this torch has no aten::mm.dtype (torch.mm with "
@@ -3037,6 +3119,19 @@ def hgemm_phase(torch, np, dev, smi, err):
                                       "library_ms": lt, **b,
                                       "tolerance_share": share[name],
                                       "sass": sass[name]})
+                    if name == "hgemm_tn":
+                        # the cp.async kernel, on y moved off its alignment
+                        yo = off_alignment(torch, y)
+                        cp_ms = cuda_ms(torch, lambda: htn(yo, sw, dt), 10)
+                        log(f"[24a] bf16 N={N}: hgemm_tn_splitn's cp.async "
+                            f"kernel {cp_ms:.3f} ms, its bulk-copy kernel "
+                            f"{t[0]:.3f} ms  [{smi}]")
+                        out[name].update({
+                            "cp_async_ms": cp_ms,
+                            "smem_bytes": cuda_lib.load_library()
+                            .hgemm_tn_bulk_smem_bytes(),
+                            "paths_at_24a_shapes": shape_paths,
+                            "sass_design": design})
                 else:
                     sfx = tag if N == 131072 else f"{tag}_{N}_rows"
                     out[name].update({f"ms_{sfx}": t[0],
@@ -3045,6 +3140,46 @@ def hgemm_phase(torch, np, dev, smi, err):
                     if tag == "bf16":
                         out[name][f"bound_ms_{N}_rows"] = b["bound_ms"]
     return out
+
+
+def off_alignment(torch, t):
+    """A contiguous copy of ``t`` whose data start 4 bytes past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def one_hot_names(torch, dev, gen, htn, dt, P, Q, tag):
+    """The permutation check of hgemm_tn_splitn at (P, Q): P * Q rows in a
+    random order, row (p, q) with one nonzero in y (column p) and one in sw
+    (column q), so that entry (p, q) of y^T sw is the product of the two;
+    once y's entry names p (sw's is 1), once sw's names q.  Names are
+    p + 1 (fp16: exact to 2048) or p % 256 + 1 (bf16: exact to 256); a
+    wrong offset in a layout puts a wrong name somewhere."""
+    n = P * Q
+    rows = torch.randperm(n, device=dev, generator=gen)
+    idx = torch.arange(n, device=dev)
+    p, q = idx // Q, idx % Q
+    cap = 256 if dt == torch.bfloat16 else n
+    for which, name in (("p", (p % cap + 1).float()),
+                        ("q", (q % cap + 1).float())):
+        y = torch.zeros(n, P, device=dev)
+        sw = torch.zeros(n, Q, device=dev)
+        y[rows, p] = name if which == "p" else 1.0
+        sw[rows, q] = name if which == "q" else 1.0
+        want = torch.zeros(P, Q, device=dev)
+        want[p, q] = name
+        got = htn(y, sw, dt)
+        torch.cuda.synchronize()
+        bad = (got != want).nonzero()
+        if len(bad):
+            pp, qq = bad[0].tolist()
+            raise AssertionError(
+                f"{tag} one-hot {P}x{Q} naming {which}: {len(bad)} entries "
+                f"wrong, ({pp}, {qq}) holds {got[pp, qq].item()}, not "
+                f"{want[pp, qq].item()}")
 
 
 def half_path(torch, np, dev, smi, err, p6, run12, patches_anneal):
@@ -3089,10 +3224,17 @@ def half_path(torch, np, dev, smi, err, p6, run12, patches_anneal):
     torch.cuda.synchronize()
     launches = expect_launches(cuda_lib, "[24b]", estep=6, decode=2,
                                sgemm_nn=2, hgemm_nn=6, hgemm_tn=6)
+    run_paths = dict(gemm_cuda.HGEMM_TN_PATHS)
     check_path(torch, np, "[24b]", em, serve, 300)
     scanned, scanned_launches = scanned_path(
         torch, np, cuda_lib, "[24b]", em, make_em, init, 4, smi, estep=6,
         hgemm_nn=6, hgemm_tn=6)
+    traced = scanned["replay_kernels_traced"]
+    if traced["hgemm_tn_bulk"] != traced["hgemm_tn"] or traced["hgemm_tn"] < 6:
+        raise AssertionError(f"[24b] run_scanned's replays ran "
+                             f"hgemm_tn_splitn's bulk-copy kernel "
+                             f"{traced['hgemm_tn_bulk']} times of "
+                             f"{traced['hgemm_tn']}")
     p1, beta, prior_beta = first_step_params(torch, dev, model, init,
                                              patches_anneal)
     w = torch.ones(y.shape[0], device=dev)
@@ -3216,6 +3358,10 @@ def half_path(torch, np, dev, smi, err, p6, run12, patches_anneal):
     for name in kern:
         kern[name].update(launches=launches[name],
                           scanned_launches=scanned_launches[name])
+    # which of hgemm_tn_splitn's kernels 24b's run launched, and how often
+    # its bulk-copy kernel ran in the traced replays of run_scanned
+    kern["hgemm_tn"].update(paths=run_paths,
+                            replays_traced_bulk=traced["hgemm_tn_bulk"])
     return out, kern
 
 
@@ -3284,7 +3430,10 @@ def main() -> int:
             ("sgemm_nn kernel", lib.sgemm_smem_bytes(0)),
             ("sgemm_tn_splitn kernel", lib.sgemm_smem_bytes(1)),
             ("hgemm_nn kernel", lib.hgemm_smem_bytes(0)),
-            ("hgemm_tn_splitn kernel", lib.hgemm_smem_bytes(1))):
+            ("hgemm_tn_splitn bulk-copy kernel",
+             lib.hgemm_tn_bulk_smem_bytes()),
+            ("hgemm_tn_splitn cp.async kernel (shapes tensor maps cannot "
+             "take)", lib.hgemm_smem_bytes(1))):
         log(f"[build] {name}: {smem} bytes of shared memory a block, "
             f"{cuda_lib.blocks_per_sm(smem)} blocks an SM")
 
@@ -3619,7 +3768,7 @@ def main() -> int:
                      "prosper_tpu/core/etstep.py:206,426",
          "max_abs_err": err["hgemm_nn"], **hk["hgemm_nn"]},
         {"name": "hgemm_tn_splitn", "route": "cuda",
-         "source": "prosper_tpu_torch/csrc/sgemm.cuh",
+         "source": "prosper_tpu_torch/csrc/hgemm_tn.cuh",
          "replaces": "prosper_tpu/ops/linear_pallas.py:179; "
                      "prosper_tpu/core/etstep.py:331,596",
          "max_abs_err": err["hgemm_tn"], **hk["hgemm_tn"]},

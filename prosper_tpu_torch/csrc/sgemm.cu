@@ -13,7 +13,9 @@ size_t sgemm_smem_bytes(int tn) {
   return tn ? sg::Tr<float>::TN_SMEM : sg::Tr<float>::NN_SMEM;
 }
 
-// The same for hgemm_nn_* and hgemm_tn_splitn_* (either 16-bit type).
+// The same for hgemm_nn_* and hgemm_tn_splitn_*'s tn_kernel, its path for
+// the shapes a tensor map cannot describe (either 16-bit type; its bulk-copy
+// kernel: hgemm_tn_bulk_smem_bytes, hgemm_bf16.cu).
 size_t hgemm_smem_bytes(int tn) {
   return tn ? sg::Tr<__nv_bfloat16>::TN_SMEM : sg::Tr<__nv_bfloat16>::NN_SMEM;
 }

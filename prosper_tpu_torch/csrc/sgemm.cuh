@@ -90,6 +90,10 @@
 // The kernels are templates here; each operand type is instantiated, with
 // its C entry points, in a source of its own (sgemm.cu: float;
 // hgemm_bf16.cu, hgemm_f16.cu), so that nvcc builds the three in parallel.
+// hgemm_tn_splitn runs hgemm_tn.cuh's kernel, designed for the 16-bit
+// types (tensor copies, rounding without transposition, both MMA operands
+// from shared memory); tn_kernel at a 16-bit type (VEC false) is its path
+// for the shapes a tensor map cannot describe.
 
 #pragma once
 
@@ -727,23 +731,22 @@ int gemm_nn(const float* A, const float* B, float* img, float* C, int N,
   return static_cast<int>(e);
 }
 
-template <typename T>
-int gemm_tn_splitn(const float* A, const float* B, float* ws, float* out,
-                   int N, int M, int K, int split_rows, int accumulate,
-                   cudaStream_t s) {
+// The split product: launch(grid, X, Y, P, Q, trans) starts the kernel of
+// the split partials of R (P, Q) = X^T . Y into ws, which reduce_blocks
+// then sums in split order into out.  The register side (BM rows of the
+// tile) takes the operand that pads to fewer tiles; with trans the kernel
+// computes out^T and stores it back.
+template <typename Launch>
+int tn_splits(const float* A, const float* B, float* ws, float* out, int N,
+              int M, int K, int split_rows, int accumulate, cudaStream_t s,
+              Launch launch) {
   const int n_split = cdiv(N, split_rows);
-  // the register side (BM rows of the tile) takes the operand that pads to
-  // fewer tiles; with trans the kernel computes out^T and stores it back
   const int trans = cdiv(K, BM) * cdiv(M, BN) < cdiv(M, BM) * cdiv(K, BN);
   const float* X = trans ? B : A;
   const float* Y = trans ? A : B;
   const int P = trans ? K : M, Q = trans ? M : K;
-  const dim3 grid(cdiv(P, BM), cdiv(Q, BN), n_split);
-  cudaError_t e =
-      P % 4 == 0 && Q % 4 == 0 && aligned16(X) && aligned16(Y)
-          ? launch_tn<T, true>(grid, s, X, Y, ws, N, P, Q, split_rows, trans)
-          : launch_tn<T, false>(grid, s, X, Y, ws, N, P, Q, split_rows,
-                                trans);
+  const cudaError_t e =
+      launch(dim3(cdiv(P, BM), cdiv(Q, BN), n_split), X, Y, P, Q, trans);
   if (e != cudaSuccess) return static_cast<int>(e);
   const size_t mk = (size_t)M * K;
   let::reduce_blocks<<<(unsigned)((mk + 255) / 256), 256, 0, s>>>(
@@ -751,23 +754,19 @@ int gemm_tn_splitn(const float* A, const float* B, float* ws, float* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace sg
+template <typename T>
+int gemm_tn_splitn(const float* A, const float* B, float* ws, float* out,
+                   int N, int M, int K, int split_rows, int accumulate,
+                   cudaStream_t s) {
+  return tn_splits(
+      A, B, ws, out, N, M, K, split_rows, accumulate, s,
+      [=](dim3 grid, const float* X, const float* Y, int P, int Q, int trans) {
+        return P % 4 == 0 && Q % 4 == 0 && aligned16(X) && aligned16(Y)
+                   ? launch_tn<T, true>(grid, s, X, Y, ws, N, P, Q,
+                                        split_rows, trans)
+                   : launch_tn<T, false>(grid, s, X, Y, ws, N, P, Q,
+                                         split_rows, trans);
+      });
+}
 
-// The C entry points of the 16-bit GEMMs at operand type T, named
-// hgemm_nn_SUFFIX and hgemm_tn_splitn_SUFFIX: sgemm_nn and sgemm_tn_splitn
-// of A and B rounded to T, summed in float32.  hgemm_nn's img takes
-// hgemm_nn_ws_floats(D, H) floats, 16-byte aligned (sgemm.cu).
-#define SG_HGEMM_ENTRIES(SUFFIX, T)                                          \
-  extern "C" int hgemm_nn_##SUFFIX(const float* A, const float* B,          \
-                                   float* img, float* C, int N, int D,      \
-                                   int H, void* stream) {                   \
-    return sg::gemm_nn<T>(A, B, img, C, N, D, H,                            \
-                          static_cast<cudaStream_t>(stream));               \
-  }                                                                         \
-  extern "C" int hgemm_tn_splitn_##SUFFIX(                                  \
-      const float* A, const float* B, float* ws, float* out, int N, int M,  \
-      int K, int split_rows, int accumulate, void* stream) {                \
-    return sg::gemm_tn_splitn<T>(A, B, ws, out, N, M, K, split_rows,        \
-                                 accumulate,                                \
-                                 static_cast<cudaStream_t>(stream));        \
-  }
+}  // namespace sg

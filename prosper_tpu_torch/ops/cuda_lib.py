@@ -38,8 +38,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 SOURCES = ("sgemm.cu", "hgemm_bf16.cu", "hgemm_f16.cu", "linear_et_estep.cu",
            "linear_et_decode.cu", "max_et_estep.cu", "bigs_multi.cu")
-HEADERS = ("sgemm.cuh", "linear_et_frontend.cuh", "cp_async.cuh",
-           "launch_once.cuh")
+HEADERS = ("sgemm.cuh", "hgemm_tn.cuh", "linear_et_frontend.cuh",
+           "cp_async.cuh", "launch_once.cuh")
 #: -fno-gnu-unique: the launchers' function-local statics (a kernel's
 #: shared-memory attribute, set once) stay private to each library, so
 #: that two builds loaded in one process (edited copies of the sources, as
@@ -119,8 +119,9 @@ def load_library() -> ctypes.CDLL:
             ("hgemm_nn_f16", [p] * 4 + [i] * 3 + [p], i),
             ("hgemm_nn_ws_floats", [i, i], z),
             ("hgemm_smem_bytes", [i], z),
-            ("hgemm_tn_splitn_bf16", [p] * 4 + [i] * 5 + [p], i),
-            ("hgemm_tn_splitn_f16", [p] * 4 + [i] * 5 + [p], i),
+            ("hgemm_tn_splitn_bf16", [p] * 4 + [i] * 6 + [p], i),
+            ("hgemm_tn_splitn_f16", [p] * 4 + [i] * 6 + [p], i),
+            ("hgemm_tn_bulk_smem_bytes", [], z),
             ("linear_et_estep_rows", [p] * 14 + [i] * 9 + [p], i),
             ("linear_et_decode_rows", [p] * 15 + [i] * 9 + [p], i),
             ("linear_et_estep_ws_stride", [i, i], z),

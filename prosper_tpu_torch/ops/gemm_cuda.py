@@ -29,11 +29,17 @@ and W on their way into shared memory, so no cast pass runs over y), and
 count in ``LAUNCHES["hgemm_nn"]`` and ``["hgemm_tn"]``.  Their plain
 version is ``core/etstep.py::matmul_as``, the float32 product of the
 rounded operands, which they match within the same float32 tolerances.
+``hgemm_tn_splitn`` has two kernels: ``csrc/hgemm_tn.cuh``'s, of bulk
+tensor copies (TMA) into an mbarrier ring, rounding without transposition
+and both MMA operands in shared memory, and ``csrc/sgemm.cuh``'s cp.async
+kernel for the shapes a tensor map cannot describe; ``hgemm_tn_bulk`` is
+the rule between them, and ``HGEMM_TN_PATHS`` counts the launches of
+each.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -41,8 +47,8 @@ from prosper_tpu_torch.core.etstep import matmul_as
 from prosper_tpu_torch.ops.cuda_lib import (LAUNCHES, check, load_library,
                                             raise_on)
 
-__all__ = ["hgemm_nn", "hgemm_nn_cuda", "hgemm_tn_splitn",
-           "hgemm_tn_splitn_cuda", "sgemm_nn", "sgemm_nn_cuda",
+__all__ = ["HGEMM_TN_PATHS", "hgemm_nn", "hgemm_nn_cuda", "hgemm_tn_bulk",
+           "hgemm_tn_splitn", "hgemm_tn_splitn_cuda", "sgemm_nn", "sgemm_nn_cuda",
            "sgemm_tn_splitn", "sgemm_tn_splitn_cuda", "split_rows"]
 
 #: ``sgemm_tn_splitn`` cuts its sum over N into about this many splits, of
@@ -57,11 +63,29 @@ N_MAX = 65535 * 128
 #: the 16-bit operand types of ``hgemm_*``, by the suffix of their C entry
 #: points (csrc/hgemm_bf16.cu, csrc/hgemm_f16.cu)
 HALF_TYPES = {torch.bfloat16: "bf16", torch.float16: "f16"}
+#: rows of depth in a slab of ``hgemm_tn_splitn``'s bulk-copy kernel
+#: (``csrc/hgemm_tn.cuh``: ``htn::BK``); ``split_rows`` is a multiple of it
+HTN_SLAB_ROWS = 32
+#: launches of ``hgemm_tn_splitn`` by kernel: ``"bulk"`` (bulk tensor
+#: copies, ``csrc/hgemm_tn.cuh``) and ``"cp_async"`` (``csrc/sgemm.cuh``'s
+#: ``tn_kernel``, for the shapes a tensor map cannot describe); each call
+#: also counts once in ``LAUNCHES["hgemm_tn"]``
+HGEMM_TN_PATHS: Dict[str, int] = {"bulk": 0, "cp_async": 0}
 
 
 def split_rows(N: int) -> int:
     """Rows of N in each split of ``sgemm_tn_splitn``'s sum."""
     return max(MIN_SPLIT_ROWS, -(-N // (32 * SPLITS)) * 32)
+
+
+def hgemm_tn_bulk(M: int, K: int, a_ptr: int, b_ptr: int) -> bool:
+    """Whether ``hgemm_tn_splitn`` of ``a`` (N, M) and ``b`` (N, K) at
+    ``a_ptr`` and ``b_ptr`` takes its bulk-copy kernel: a tensor map needs
+    a row stride of whole 16-byte pieces and a 16-byte aligned base, so M
+    and K are multiples of 4 floats and both pointers 16-byte aligned.
+    Else the cp.async kernel with 4-byte copies.  The kernel refuses a
+    shape this rule does not give it."""
+    return M % 4 == 0 and K % 4 == 0 and a_ptr % 16 == 0 and b_ptr % 16 == 0
 
 
 def _check_pair(a: torch.Tensor, b: torch.Tensor, rows_match: bool):
@@ -136,11 +160,16 @@ def _tn_cuda(a, b, code: Optional[str], out: Optional[torch.Tensor],
     stream = torch.cuda.current_stream(a.device).cuda_stream
     args = (a.data_ptr(), b.data_ptr(), ws.data_ptr(), out.data_ptr(), N, M,
             K, rows, int(accumulate))
-    prefix = "sgemm" if code is None else "hgemm"
-    err = (lib.sgemm_tn_splitn(*args, stream) if code is None
-           else getattr(lib, f"hgemm_tn_splitn_{code}")(*args, stream))
-    raise_on(lib, err, f"{prefix}_tn_splitn")
-    LAUNCHES[f"{prefix}_tn"] += 1
+    if code is None:
+        raise_on(lib, lib.sgemm_tn_splitn(*args, stream), "sgemm_tn_splitn")
+        LAUNCHES["sgemm_tn"] += 1
+        return out
+    bulk = hgemm_tn_bulk(M, K, a.data_ptr(), b.data_ptr())
+    raise_on(lib, getattr(lib, f"hgemm_tn_splitn_{code}")(*args, int(bulk),
+                                                          stream),
+             "hgemm_tn_splitn")
+    LAUNCHES["hgemm_tn"] += 1
+    HGEMM_TN_PATHS["bulk" if bulk else "cp_async"] += 1
     return out
 
 

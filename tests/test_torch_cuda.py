@@ -1556,6 +1556,136 @@ def test_hgemm_kernels_round_ties_to_even(dtype, device):
         assert torch.equal(got, want)
 
 
+HTN_SHAPES = sorted({c[:3] for c in CASES}) + [
+    (4000 * k + d, 256, 300) for k in (1, 2) for d in (-1, 1)] + [
+    (16385, 256, 300), (131072, 256, 300), (4001, 100, 36), (999, 8, 152)]
+
+
+def _off_alignment(t):
+    """A contiguous copy of t whose data start 4 bytes past a 16-byte
+    boundary (hgemm_tn_splitn's cp.async kernel then takes it)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("shape", HTN_SHAPES, ids=lambda s: "N%dD%dH%d" % s)
+@pytest.mark.parametrize("quantised", [True, False], ids=["quarters", "randn"])
+@pytest.mark.parametrize("dtype", HALF, ids=["bf16", "fp16"])
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "off"])
+def test_hgemm_tn_kernels_match_their_plain_version(shape, quantised, dtype,
+                                                    aligned, device):
+    """hgemm_tn_splitn's two kernels against the float64 product of the
+    rounded operands, N around the splits' 4000 rows and the slabs' 32:
+    the dispatch takes the bulk-copy kernel where the rule says so and the
+    cp.async kernel otherwise (operands off their 16-byte alignment, rows
+    no multiple of 4 floats); exact on quarter-quantised inputs, within
+    the float32 tolerance on Gaussian ones; two calls bit-identical;
+    ``accumulate`` adds to ``out``; and the two kernels give the same
+    bits."""
+    N, D, H = shape
+    rng = np.random.default_rng(N + D + H)
+    y, sw = (_gemm_draw(rng, quantised, device, N, k) for k in (D, H))
+    base = _gemm_draw(rng, quantised, device, D, H)
+    y[:40] = 0.0
+    sw[-3:] = 0.0
+    a = y if aligned else _off_alignment(y)
+    want = "bulk" if gemm_cuda.hgemm_tn_bulk(
+        D, H, a.data_ptr(), sw.data_ptr()) else "cp_async"
+    assert (want == "bulk") == (aligned and D % 4 == 0 and H % 4 == 0)
+    before = dict(gemm_cuda.HGEMM_TN_PATHS)
+    ref = _rounded(y, dtype).T @ _rounded(sw, dtype)
+    tn = gemm_cuda.hgemm_tn_splitn_cuda
+    _exact_or_close(tn(a, sw, dtype), tn(a, sw, dtype), ref, quantised, N)
+    _exact_or_close(tn(a, sw, dtype, out=base.clone(), accumulate=True),
+                    tn(a, sw, dtype, out=base.clone(), accumulate=True),
+                    base.double() + ref, quantised, N)
+    after = gemm_cuda.HGEMM_TN_PATHS
+    assert after[want] - before[want] == 4
+    assert sum(after.values()) - sum(before.values()) == 4
+    other = _off_alignment(y) if aligned else y
+    assert torch.equal(tn(a, sw, dtype), tn(other, sw, dtype))
+
+
+@pytest.mark.parametrize("PQ", [(256, 300), (300, 256), (100, 36)],
+                         ids=lambda s: "%dx%d" % s)
+@pytest.mark.parametrize("dtype", HALF, ids=["bf16", "fp16"])
+def test_hgemm_tn_one_hot_rows_name_every_entry(PQ, dtype, device):
+    """P * Q rows in a random order, row (p, q) with one nonzero in y
+    (column p) and one in sw (column q): entry (p, q) of the product is the
+    product of the two.  Once y's entry names p, once sw's names q (exact
+    in the 16-bit type: p % 256 + 1 at bf16), so a wrong offset in the
+    kernel's MN-major layouts or its swizzle shows which entry went
+    where."""
+    P, Q = PQ
+    n = P * Q
+    g = torch.Generator(device).manual_seed(P + Q)
+    rows = torch.randperm(n, device=device, generator=g)
+    idx = torch.arange(n, device=device)
+    p, q = idx // Q, idx % Q
+    cap = 256 if dtype == torch.bfloat16 else n
+    before = gemm_cuda.HGEMM_TN_PATHS["bulk"]
+    for which, name in (("p", (p % cap + 1).float()),
+                        ("q", (q % cap + 1).float())):
+        y = torch.zeros(n, P, device=device)
+        sw = torch.zeros(n, Q, device=device)
+        y[rows, p] = name if which == "p" else 1.0
+        sw[rows, q] = name if which == "q" else 1.0
+        want = torch.zeros(P, Q, device=device)
+        want[p, q] = name
+        got = gemm_cuda.hgemm_tn_splitn_cuda(y, sw, dtype)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), which
+    assert gemm_cuda.HGEMM_TN_PATHS["bulk"] == before + 2
+
+
+@pytest.mark.parametrize("dtype", HALF, ids=["bf16", "fp16"])
+def test_hgemm_tn_cp_async_kernel_rounds_ties_to_even(dtype, device):
+    """As test_hgemm_kernels_round_ties_to_even (whose operands take the
+    bulk-copy kernel), through the cp.async kernel."""
+    rng = np.random.default_rng(6)
+    n = 96
+    lo = torch.as_tensor(rng.standard_normal((n, n)).astype(np.float32),
+                         device=device).to(dtype)
+    nxt = (lo.view(torch.int16) + 1).view(dtype)
+    mid = (lo.float() + nxt.float()) / 2
+    want = mid.to(dtype).float()
+    eye = torch.eye(n, device=device)
+    before = gemm_cuda.HGEMM_TN_PATHS["cp_async"]
+    for got in (gemm_cuda.hgemm_tn_splitn_cuda(_off_alignment(eye), mid,
+                                               dtype),
+                gemm_cuda.hgemm_tn_splitn_cuda(
+                    _off_alignment(mid.T.contiguous()), eye, dtype)):
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    assert gemm_cuda.HGEMM_TN_PATHS["cp_async"] == before + 2
+
+
+def test_hgemm_tn_replays_in_a_cuda_graph(device):
+    """The bulk-copy kernel's tensor maps are kernel arguments, captured
+    with the graph: replays on new inputs copied into the captured ones
+    give the bits of eager calls."""
+    rng = np.random.default_rng(3)
+    y, sw = (_gemm_draw(rng, False, device, 4001, k) for k in (256, 300))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        gemm_cuda.hgemm_tn_splitn_cuda(y, sw, torch.bfloat16)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = gemm_cuda.hgemm_tn_splitn_cuda(y, sw, torch.bfloat16)
+    for seed in (1, 2):
+        rng = np.random.default_rng(seed)
+        for t in (y, sw):
+            t.copy_(_gemm_draw(rng, False, device, *t.shape))
+        graph.replay()
+        eager = gemm_cuda.hgemm_tn_splitn_cuda(y, sw, torch.bfloat16)
+        torch.cuda.synchronize()
+        assert torch.equal(captured, eager)
+
+
 @pytest.mark.parametrize("case", CASES, ids=lambda c: f"H{c[2]}K{len(c[5])}")
 @pytest.mark.parametrize("dtype", HALF, ids=["bf16", "fp16"])
 def test_estep_kernel_at_a_16_bit_compute_dtype_matches_plain(case, dtype,

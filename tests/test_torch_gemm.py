@@ -140,3 +140,63 @@ def test_max_estep_staged_equals_fused(magnitude, beta, collect_true):
     for k in ref:
         torch.testing.assert_close(sums[k], ref[k], rtol=1e-6, atol=1e-6,
                                    msg=k)
+
+
+# -- hgemm_tn_splitn's two kernels ---------------------------------------------
+
+@pytest.mark.parametrize("M,K,a_off,b_off,bulk", [
+    (256, 300, 0, 0, True),        # the patches width
+    (300, 256, 0, 0, True),        # the max family's orientation
+    (4, 8, 0, 0, True),
+    (25, 300, 0, 0, False),        # a row of A is no multiple of 16 bytes
+    (256, 10, 0, 0, False),        # nor of B
+    (256, 300, 4, 0, False),       # A 4 bytes past a 16-byte boundary
+    (256, 300, 0, 8, False),       # B 8 bytes past
+    (256, 300, 16, 32, True),      # whole 16-byte steps
+], ids=lambda v: str(v))
+def test_hgemm_tn_dispatch_rule_is_a_function_of_shapes_and_pointers(
+        M, K, a_off, b_off, bulk):
+    """The bulk-copy kernel takes a (N, M) and b (N, K) whose row segments
+    are whole 16-byte pieces on 16-byte boundaries; everything else goes to
+    the cp.async kernel, whatever N is."""
+    base = 1 << 20
+    for N in (1, 1000, 131072):
+        assert gemm_cuda.hgemm_tn_bulk(M, K, base + a_off,
+                                       base + b_off) is bulk, N
+
+
+@pytest.mark.parametrize("N", [1, 31, 32, 255, 256, 999, 4001, 33791, 33792,
+                               131071, 131072, 131073, 10 ** 6])
+def test_split_rows_are_whole_slabs_of_the_bulk_kernel(N):
+    """The splits of N depend on N alone, cover [0, N) once, and each is a
+    whole number of the bulk-copy kernel's slabs (only the last split of N
+    may end inside a slab, where the kernel writes zeros past N)."""
+    rows = gemm_cuda.split_rows(N)
+    assert rows == gemm_cuda.split_rows(N)
+    assert rows % gemm_cuda.HTN_SLAB_ROWS == 0
+    bounds = [(z * rows, min(N, (z + 1) * rows))
+              for z in range(-(-N // rows))]
+    assert bounds[0][0] == 0 and bounds[-1][1] == N
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    assert all(lo < hi for lo, hi in bounds)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "fp16"])
+def test_hgemm_kernels_reject_cpu_tensors_and_bad_shapes(dtype):
+    for fn, b in ((gemm_cuda.hgemm_tn_splitn_cuda, torch.zeros(8, 4)),
+                  (gemm_cuda.hgemm_nn_cuda, torch.zeros(4, 5))):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            fn(torch.zeros(8, 4), b, dtype)
+    tn = gemm_cuda.hgemm_tn_splitn
+    assert tn(torch.zeros(8, 4), torch.zeros(8, 5), dtype).shape == (4, 5)
+    with pytest.raises(ValueError):                 # rows that do not match
+        tn(torch.zeros(8, 4), torch.zeros(7, 5), dtype)
+    with pytest.raises(ValueError):                 # not float32
+        tn(torch.zeros(8, 4).double(), torch.zeros(8, 5).double(), dtype)
+    with pytest.raises(ValueError):                 # not contiguous
+        tn(torch.zeros(4, 8).T, torch.zeros(8, 5), dtype)
+    with pytest.raises(ValueError):                 # an empty operand
+        tn(torch.zeros(8, 0), torch.zeros(8, 5), dtype)
+    with pytest.raises(ValueError):                 # not a 16-bit type
+        tn(torch.zeros(8, 4), torch.zeros(8, 5), torch.float64)

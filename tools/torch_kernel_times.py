@@ -13,7 +13,11 @@ D=64, H=32, H'=10, gamma=5, s_block=1024; decode of 8192 rows).
         share does not show; one JSON line.
     python3 tools/torch_kernel_times.py compare --parent DIR
         `times` of an unpacked parent commit in DIR and of this checkout, in
-        turns (parent, change, change, parent), one process each.
+        turns (parent, change, change, parent), one process each; then
+        whether the GEMM wrappers' outputs on the same seeded inputs are
+        bit-identical to the parent's: sgemm_nn, sgemm_tn_splitn and
+        hgemm_nn must be (the command fails otherwise), hgemm_tn_splitn is
+        reported.
     python3 tools/torch_kernel_times.py profile [--only NAMES]
         torch.profiler over EM iterations of BSC, MCA, big-S TSC and GSC
         (D=256, H=300, H'=6, gamma=3 in chunks of 8192 rows, and of 32768:
@@ -33,14 +37,19 @@ D=64, H=32, H'=10, gamma=5, s_block=1024; decode of 8192 rows).
         before it (a synchronise, `gc.collect()`, `empty_cache()`), in turns
         (as it is, with, with, as it is), a fresh EM each; and the device
         memory reserved afterwards.
-    python3 tools/torch_kernel_times.py ablate [--only TEXT]
-        Builds edited copies of the sources with one part of the linear
-        rows kernel, of the max kernel or of the big-S kernel switched off
-        (the results are then wrong; only the time is read) and prints what
-        each part saves; then variants that keep the results right: the
-        GEMM kernels with other numbers of stages, the TF32 split by cvt,
-        every depth of sgemm_nn summed one k8 step at a time, and the big-S
-        kernel at its largest block.
+    python3 tools/torch_kernel_times.py ablate [--only TEXT] [--repo DIR]
+        Builds edited copies of the sources of the package in DIR (default:
+        this checkout) with one part of the linear rows kernel, of the max
+        kernel, of the big-S kernel or of a GEMM kernel switched off (the
+        results are then wrong; only the time is read) and prints what each
+        part saves; then variants that keep the results right: the GEMM
+        kernels with other numbers of stages, the TF32 split by cvt, every
+        depth of sgemm_nn summed one k8 step at a time, and the big-S kernel
+        at its largest block.  Where DIR is another tree, an edit whose
+        text is not in its sources (a kernel it does not have) is reported
+        and skipped; in this checkout every edit must find its text.  The
+        "gemm tn" edits take the 16-bit tn kernel of an unpacked parent
+        apart (`--repo`), the "hgemm tn" edits this tree's.
 
 Every line of output ends with the card's name and power limit.
 """
@@ -57,7 +66,15 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 N, N_DECODE = 131072, 8192
 
-#: (name, file, text to replace, replacement): parts switched off by `ablate`
+#: hgemm_tn_splitn's bulk-copy kernel issues a slab's two tensor copies;
+#: without them the stage's mbarrier expects no bytes and completes at once
+HTN_COPIES = ("      mbar_expect(bar, RAW);        // both boxes, zero-filled "
+              "past the edges\n"
+              "      tma_box(st, &mx, p0, r_begin + t * BK, bar);\n"
+              "      tma_box(st + RAW_A, &my, q0, r_begin + t * BK, bar);\n")
+HTN_NO_COPIES = "      mbar_expect(bar, 0);\n"
+#: (name, file, text to replace, replacement), or (name, file, [(text,
+#: replacement), ...]): parts switched off by `ablate`
 ABLATIONS = [
     ("rows: candidate selection (also the max kernel's)",
      "linear_et_frontend.cuh",
@@ -98,11 +115,51 @@ ABLATIONS = [
     ("gemm tn: the split and transposition of the B slab", "sgemm.cuh",
      "  auto split_b = [&](int s, int b, int j0, int j1) {",
      "  auto split_b = [&](int s, int b, int j0, int j1) {\n    return;"),
+    ("gemm tn: the strided reads and rounding of the register operand",
+     "sgemm.cuh",
+     "ahi[ks][e] = pack16<T>(xs[k * XS + p], xs[(k + 1) * XS + p]);",
+     "ahi[ks][e] = 0x3f803f80u;"),
+    ("gemm tn: the 16-bit MMAs (hgemm_nn's too)", "sgemm.cuh",
+     "      wgmma_16<T>(part, ahi[k], desc_sw128(bh + 32 * (K0 + k)), k > 0);",
+     "      ;"),
+    ("gemm tn: the waits for the MMAs (the nn kernels' too)", "sgemm.cuh",
+     "float (&part)[NACC]) {\n  wgmma_wait0();", "float (&part)[NACC]) {"),
+    ("hgemm tn: the tensor copies", "hgemm_tn.cuh", HTN_COPIES,
+     HTN_NO_COPIES),
+    ("hgemm tn: the rounding", "hgemm_tn.cuh",
+     "      round_rows<T, BM>(in, out, rows, ct);\n"
+     "      round_rows<T, BN>(in + BK * BM, out + RND_A, rows, ct);\n", ""),
+    ("hgemm tn: the MMAs", "hgemm_tn.cuh",
+     "      wgmma_mn<T>(part, desc_mn(ta), desc_mn(tb), 0);\n"
+     "      wgmma_mn<T>(part, desc_mn(ta + 2 * ATOM), desc_mn(tb + 2 * ATOM), "
+     "1);\n", ""),
+    ("hgemm tn: the wait for the MMAs", "hgemm_tn.cuh",
+     "      sg::wgmma_wait0();\n", ""),
+    ("hgemm tn: all but the tensor copies (the consumers' loop, the "
+     "rounding and the converters' wait for a free rounded slab)",
+     "hgemm_tn.cuh", [
+         ("    for (int t = 0; t < nt; ++t) {\n      mbar_wait(full_rnd(b), pb);",
+          "    for (int t = 0; t < 0; ++t) {\n      mbar_wait(full_rnd(b), pb);"),
+         ("      mbar_wait(free_rnd(b), pb ^ 1);\n", ""),
+         ("      round_rows<T, BM>(in, out, rows, ct);\n"
+          "      round_rows<T, BN>(in + BK * BM, out + RND_A, rows, ct);\n",
+          "")]),
+    ("hgemm tn: the tensor copies and the rounding (what is left: the MMAs "
+     "and the hand-over of slabs)", "hgemm_tn.cuh", [
+         (HTN_COPIES, HTN_NO_COPIES),
+         ("      round_rows<T, BM>(in, out, rows, ct);\n"
+          "      round_rows<T, BN>(in + BK * BM, out + RND_A, rows, ct);\n",
+          "")]),
 ]
 #: the calls `ablate` times for every edited copy
 ABLATED = ("linear_et_estep", "linear_et_decode", "max_et_estep",
            "bigs_multi_annealed", "bigs_multi_saturated",
-           "bigs_multi_annealed_16k_rows", "sgemm_nn", "sgemm_tn_splitn")
+           "bigs_multi_annealed_16k_rows", "sgemm_nn", "sgemm_tn_splitn",
+           "hgemm_tn_splitn_bf16")
+#: the GEMM wrappers `compare` holds to the parent's outputs, bit for bit
+SAME_BITS = ("sgemm_nn", "sgemm_tn_splitn", "hgemm_nn_bf16", "hgemm_nn_fp16")
+#: and those whose bits it reports
+REPORTED_BITS = ("hgemm_tn_splitn_bf16", "hgemm_tn_splitn_fp16")
 #: variants of the kernels (right results, other choices)
 VARIANTS = [
     ("nothing, but sgemm_nn with 3 stages of slabs in flight", "sgemm.cuh",
@@ -116,7 +173,19 @@ VARIANTS = [
     ("nothing, but sgemm_nn summing every depth one k8 step at a time",
      "sgemm.cuh", "one = n_slabs == 1;", "one = true;"),
     ("nothing, but the big-S kernel at its largest block whatever the rows",
-     "bigs_multi.cu", "while (nw > 1 &&", "while (false &&")]
+     "bigs_multi.cu", "while (nw > 1 &&", "while (false &&"),
+    ("nothing, but hgemm tn with 5 raw and 2 rounded stages (its first "
+     "design)", "hgemm_tn.cuh",
+     "constexpr int RAW_STAGES = 3;\nconstexpr int RND_STAGES = 3;",
+     "constexpr int RAW_STAGES = 5;\nconstexpr int RND_STAGES = 2;"),
+    ("nothing, but hgemm tn with 2 raw and 2 rounded stages", "hgemm_tn.cuh",
+     "constexpr int RAW_STAGES = 3;\nconstexpr int RND_STAGES = 3;",
+     "constexpr int RAW_STAGES = 2;\nconstexpr int RND_STAGES = 2;"),
+    ("nothing, but hgemm tn with 4 raw stages", "hgemm_tn.cuh",
+     "constexpr int RAW_STAGES = 3;", "constexpr int RAW_STAGES = 4;"),
+    ("nothing, but hgemm tn's tensor maps without L2 promotion",
+     "hgemm_tn.cuh", "CU_TENSOR_MAP_L2_PROMOTION_L2_256B",
+     "CU_TENSOR_MAP_L2_PROMOTION_NONE")]
 
 
 def smi() -> str:
@@ -199,7 +268,8 @@ def kernel_calls(torch, np):
     calls["linear_et_estep"] = lambda: linear_cuda.linear_et_estep_cuda(
         y, w, p["W"], s2, lo, sa, 8, False, 1.0, 1.0)
     if hasattr(linear_cuda, "sgemm_nn_cuda"):      # the GEMMs, where present
-        sw = torch.randn(N, 300, device=dev)
+        sw = torch.randn(N, 300, device=dev,
+                         generator=torch.Generator(dev).manual_seed(14))
         calls["sgemm_nn"] = lambda: linear_cuda.sgemm_nn_cuda(y, p["W"])
         calls["sgemm_tn_splitn"] = (
             lambda: linear_cuda.sgemm_tn_splitn_cuda(y, sw))
@@ -247,28 +317,57 @@ def cmd_times(args):
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     calls = kernel_calls(torch, np)
-    out = {k: cuda_ms(torch, fn) for k, fn in calls.items()}
+    # the GEMMs take a tenth of a millisecond: more launches a timing
+    out = {k: cuda_ms(torch, fn, 50 if "gemm" in k else 5)
+           for k, fn in calls.items()}
     out["linear_et_decode_queued"] = queued_ms(torch,
                                                calls["linear_et_decode"])
+    if args.save:
+        for k in SAME_BITS + REPORTED_BITS:
+            if k in calls:
+                np.save(Path(args.save) / f"{k}.npy", calls[k]().cpu().numpy())
     print(json.dumps({"repo": str(args.repo), "ms": out, "card": smi()}),
           flush=True)
 
 
 def cmd_compare(args):
+    import numpy as np
     rows = []
-    for repo in (args.parent, ROOT, ROOT, args.parent):
-        r = subprocess.run([sys.executable, __file__, "times", "--repo",
-                            str(repo)], capture_output=True, text=True)
-        if r.returncode != 0:
-            sys.exit(f"times failed in {repo}:\n{r.stdout}\n{r.stderr}")
-        rows.append(json.loads(r.stdout.strip().splitlines()[-1]))
-        print(json.dumps(rows[-1]), flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        saved = {}
+        for i, repo in enumerate((args.parent, ROOT, ROOT, args.parent)):
+            out = Path(tmp) / f"run{i}"
+            out.mkdir()
+            r = subprocess.run([sys.executable, __file__, "times", "--repo",
+                                str(repo), "--save", str(out)],
+                               capture_output=True, text=True)
+            if r.returncode != 0:
+                sys.exit(f"times failed in {repo}:\n{r.stdout}\n{r.stderr}")
+            rows.append(json.loads(r.stdout.strip().splitlines()[-1]))
+            print(json.dumps(rows[-1]), flush=True)
+            saved[i] = {f.stem: np.load(f) for f in out.glob("*.npy")}
     for k in rows[0]["ms"]:
+        if k not in rows[1]["ms"]:
+            continue
         par = (rows[0]["ms"][k] + rows[3]["ms"][k]) / 2
         new = (rows[1]["ms"][k] + rows[2]["ms"][k]) / 2
         print(f"{k}: parent {rows[0]['ms'][k]:.3f} / {rows[3]['ms'][k]:.3f} "
               f"ms, change {rows[1]['ms'][k]:.3f} / {rows[2]['ms'][k]:.3f} ms"
               f", parent / change = {par / new:.3f}  [{rows[0]['card']}]")
+    differ = []
+    for k in SAME_BITS + REPORTED_BITS:
+        if k not in saved[0] or k not in saved[1]:
+            continue
+        runs = [saved[i][k] for i in range(4)]
+        same = all(np.array_equal(runs[0], x) for x in runs[1:])
+        print(f"[bits] {k}: change's output {'bit-identical to' if same else 'DIFFERS from'} "
+              f"the parent's (two runs each, max abs difference "
+              f"{float(np.abs(runs[1] - runs[0]).max()):.3g})  "
+              f"[{rows[0]['card']}]")
+        if not same and k in SAME_BITS:
+            differ.append(k)
+    if differ:
+        sys.exit(f"outputs differ from the parent's: {differ}")
 
 
 def _device_profile(torch, tag, card, run, n):
@@ -402,7 +501,7 @@ def cmd_capture(args):
 
 
 def cmd_ablate(args):
-    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(Path(args.repo).resolve()))
     import numpy as np
     import torch
     from prosper_tpu_torch.ops import cuda_lib
@@ -411,23 +510,34 @@ def cmd_ablate(args):
     src = cuda_lib.CSRC
     base = None
     with tempfile.TemporaryDirectory() as tmp:
-        for i, (name, fname, old, new) in enumerate(
+        for i, (name, fname, old, *new) in enumerate(
                 [("nothing", None, "", "")]
                 + [a for a in ABLATIONS + VARIANTS if args.only in a[0]]):
+            new = new[0] if new else None
             d = Path(tmp) / f"v{i}"
             shutil.copytree(src, d)
             if fname:
-                text = (d / fname).read_text()
-                if text.count(old) < 1:
-                    sys.exit(f"{fname}: {old!r} not found")
-                (d / fname).write_text(text.replace(old, new))
+                text = (d / fname).read_text() if (d / fname).exists() else ""
+                pairs = old if isinstance(old, list) else [(old, new)]
+                if any(text.count(o) < 1 for o, _ in pairs):
+                    # another tree may lack a kernel; this checkout may not
+                    if Path(args.repo).resolve() == ROOT:
+                        sys.exit(f"{fname}: the text of {name!r} not found")
+                    print(f"[ablate] without {name}: not in {args.repo}'s "
+                          f"{fname}, skipped  [{card}]", flush=True)
+                    continue
+                for o, n in pairs:
+                    text = text.replace(o, n)
+                (d / fname).write_text(text)
             cuda_lib.CSRC, cuda_lib._lib = d, None
             calls = kernel_calls(torch, np) if i == 0 else calls
-            ms = {k: cuda_ms(torch, calls[k]) for k in ABLATED}
+            # the GEMMs take a tenth of a millisecond: more launches a timing
+            ms = {k: cuda_ms(torch, calls[k], 50 if "gemm" in k else 5)
+                  for k in ABLATED if k in calls}
             base = base or ms
             print(f"[ablate] without {name}: " + ", ".join(
                 f"{k} {ms[k]:.3f} ms (saves {base[k] - ms[k]:.3f})"
-                for k in ABLATED) + f"  [{card}]", flush=True)
+                for k in ms) + f"  [{card}]", flush=True)
 
 
 def main():
@@ -435,6 +545,8 @@ def main():
     sub = ap.add_subparsers(dest="cmd", required=True)
     t = sub.add_parser("times")
     t.add_argument("--repo", default=str(ROOT))
+    t.add_argument("--save", default="",
+                   help="a directory for the GEMM wrappers' outputs (.npy)")
     t.set_defaults(fn=cmd_times)
     c = sub.add_parser("compare")
     c.add_argument("--parent", required=True)
@@ -447,6 +559,9 @@ def main():
     a = sub.add_parser("ablate")
     a.add_argument("--only", default="",
                    help="only the parts whose name contains this text")
+    a.add_argument("--repo", default=str(ROOT),
+                   help="the tree whose sources are edited (default: this "
+                        "checkout)")
     a.set_defaults(fn=cmd_ablate)
     args = ap.parse_args()
     os.chdir(ROOT)
