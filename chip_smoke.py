@@ -1405,7 +1405,7 @@ def cli_path(torch, np, dev, smi, N=131072):
     --resume``, which ends bit-identical to the ``--scan`` run; ``infer``
     (one decode); ``diagnose --json``; one ``python -m
     prosper_tpu_torch.cli train`` in a subprocess (bit-identical again); a
-    ``traced_region`` around one step in a profiler trace beside
+    step's spans (``io/tracing.py`` switched on) in a profiler trace beside
     ``rows_kernel``.  Returns the numbers."""
     import contextlib
     import io
@@ -1415,7 +1415,7 @@ def cli_path(torch, np, dev, smi, N=131072):
     from prosper_tpu_torch import EM, cli
     from prosper_tpu_torch.data.bars import planted_dictionary
     from prosper_tpu_torch.io import hdf5
-    from prosper_tpu_torch.io.tracing import profile_trace, traced_region
+    from prosper_tpu_torch.io import tracing
     from prosper_tpu_torch.ops import cuda_lib
 
     iters = 6
@@ -1528,16 +1528,19 @@ def cli_path(torch, np, dev, smi, N=131072):
             y = np.asarray(f["patches"])
         em = EM(c["model"], c["anneal"], {"y": y}, seed=4, device=dev)
         em.step_once()
-        with profile_trace(os.path.join(tmp, "prof")) as prof:
-            with traced_region("em step"):
+        tracing.enable(True)
+        try:
+            with tracing.profile_trace(os.path.join(tmp, "prof")) as prof:
                 em.step_once()
-            torch.cuda.synchronize()
+                torch.cuda.synchronize()
+        finally:
+            tracing.enable(False)
         names = [e.name for e in prof.events()]
         cuda_names = [e.name for e in prof.events()
                       if e.device_type == torch.autograd.DeviceType.CUDA]
-        if "em step" not in names or not any("rows_kernel" in n
-                                             for n in cuda_names):
-            raise AssertionError("[cli] the traced region or rows_kernel is "
+        if not ({"prosper::estep", "prosper::mstep"} <= set(names)
+                and any("rows_kernel" in n for n in cuda_names)):
+            raise AssertionError("[cli] the step's spans or rows_kernel are "
                                  "missing from the profiler trace")
         if not os.path.exists(os.path.join(tmp, "prof", "trace.0.json")):
             raise AssertionError("[cli] profile_trace wrote no trace")
@@ -1547,7 +1550,7 @@ def cli_path(torch, np, dev, smi, N=131072):
         f"bit-identical to --scan), infer (launches {inferred}), diagnose "
         f"--json ({out['diagnose']}), python -m prosper_tpu_torch.cli train "
         f"in a subprocess ({out['subprocess_train_s']:.1f} s, bit-identical "
-        f"to --scan), a traced_region beside rows_kernel in the profiler "
+        f"to --scan), the step's spans beside rows_kernel in the profiler "
         f"trace; train --scan took {out['train_scan_s']:.1f} s  [{smi}]")
     return out
 

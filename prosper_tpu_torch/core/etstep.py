@@ -28,6 +28,7 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 
 from prosper_tpu_torch.core.select import top_hprime_candidates, top_l_argmax
+from prosper_tpu_torch.io.tracing import traced_region
 from prosper_tpu_torch.parallel.mesh import (maybe_pmax, maybe_psum,
                                              state_rank, state_sharded)
 
@@ -828,12 +829,15 @@ def posterior_outputs(W, F, s_mean, top_q, top_u, cand,
     """The inference dict from a top-L decode: top states (dense or
     compact, plus ``cand``), ``s_mean``, ``recon = s_mean @ W.T``
     (``recon_rows``) and F."""
-    out = top_states_from_topk(top_q, top_u, W.shape[1],
-                               sa.values.shape[0], sa.values, sa.states,
-                               cand, dense_states)
+    with traced_region("top_states"):
+        out = top_states_from_topk(top_q, top_u, W.shape[1],
+                                   sa.values.shape[0], sa.values, sa.states,
+                                   cand, dense_states)
     if not dense_states:
         out["cand"] = cand
-    out.update({"s_mean": s_mean, "recon": recon_rows(s_mean, W), "F": F})
+    with traced_region("recon_rows"):
+        recon = recon_rows(s_mean, W)
+    out.update({"s_mean": s_mean, "recon": recon, "F": F})
     return out
 
 
@@ -845,9 +849,10 @@ def linear_et_posterior(y: torch.Tensor, W: torch.Tensor, sigma2,
     """Chunked posterior decode for held-out data (plain version): per
     datapoint the top-L truncated states by posterior probability, their
     probabilities, the posterior mean, the reconstruction and F."""
-    F, s_mean, top_q, top_u, cand = linear_et_decode(
-        y, W, sigma2, log_odds, sa, Hp, signed_select, top_L, beta,
-        prior_beta, chunk)
+    with traced_region("decode"):
+        F, s_mean, top_q, top_u, cand = linear_et_decode(
+            y, W, sigma2, log_odds, sa, Hp, signed_select, top_L, beta,
+            prior_beta, chunk)
     return posterior_outputs(W, F, s_mean, top_q, top_u, cand, sa,
                              dense_states)
 
@@ -862,9 +867,10 @@ def linear_et_posterior_kernel(y: torch.Tensor, W: torch.Tensor, sigma2,
     (``ops/linear_cuda.py``; its plain version on a CPU tensor).  Same
     output contract as ``linear_et_posterior``."""
     from prosper_tpu_torch.ops.linear_cuda import linear_et_decode as fused
-    F, s_mean, top_q, top_u, cand = fused(
-        y, W, sigma2, log_odds, sa, Hp, signed_select, top_L, beta,
-        prior_beta)
+    with traced_region("decode"):
+        F, s_mean, top_q, top_u, cand = fused(
+            y, W, sigma2, log_odds, sa, Hp, signed_select, top_L, beta,
+            prior_beta)
     return posterior_outputs(W, F, s_mean, top_q, top_u, cand, sa,
                              dense_states)
 

@@ -46,6 +46,8 @@ import torch
 
 from prosper_tpu_torch.data.diagnosis import dictionary_stats
 from prosper_tpu_torch.io import checkpoint
+from prosper_tpu_torch.io.tracing import (enabled as tracing_enabled,
+                                           timed_regions, traced_region)
 from prosper_tpu_torch.io.weights import params_from_numpy
 from prosper_tpu_torch.models.base import (SCHED_KEYS, StepPattern,
                                            device_sched, make_blank_data,
@@ -187,7 +189,8 @@ class _Scan:
         self.scalars: Optional[torch.Tensor] = None
         self.phist: Optional[Dict[str, torch.Tensor]] = None
         #: (pattern, collect_params) -> (graph, the kernels one replay holds
-        #: by launch name, the all-reduces one replay holds)
+        #: by launch name, the all-reduces one replay holds, the timing
+        #: events of its regions)
         self.graphs: Dict[Tuple[StepPattern, bool], tuple] = {}
         self.pool = None
 
@@ -301,42 +304,45 @@ class EM:
         self._last_ckpt = anneal.position
         self._last_revive = anneal.position
 
-        # weight-0 padding so that the chunked E-step's sizes divide the
-        # chunk (the JAX package's rule); a no-op when N already fits.  Under
-        # a runtime every rank pads to the longest shard's length, so that
-        # the ranks' steps take the same shapes and draws
-        N = data["y"].shape[0]
-        self._n_local = N
-        if runtime is not None:
-            # the rows of each data shard; the ranks of a state group hold
-            # the same rows
-            self._n_locals = runtime.n_locals(N)
-            self._row_offset = int(
-                self._n_locals[:runtime.data_index].sum())
-        else:
-            self._n_locals, self._row_offset = np.asarray([N]), 0
-        self.N_global = int(self._n_locals.sum())
-        n_max = int(self._n_locals.max())
-        c = (model.chunk if (getattr(model, "requires_chunk_multiple", False)
-                             and n_max > model.chunk) else 1)
-        N_pad = -(-n_max // c) * c
-        blank = make_blank_data(data["y"], data.get("valid"),
-                                device=self.device)
-        if "F_prev" in data:
-            blank["F_prev"] = torch.as_tensor(
-                to_numpy(data["F_prev"]), dtype=torch.float32,
-                device=self.device)
-        pad = N_pad - N
-        self.data = {k: torch.nn.functional.pad(
-            v, (0, 0, 0, pad) if v.dim() == 2 else (0, pad))
-            for k, v in blank.items()}
-        if params is None:
-            params = model.standard_init({"y": self._init_rows()},
-                                         device=self.device)
-        self.params = params_from_numpy(
-            {k: to_numpy(v) for k, v in params.items()}, self.device)
-        if runtime is not None:
-            self.params = runtime.replicate(self.params)
+        with traced_region("em.build"):
+            # weight-0 padding so that the chunked E-step's sizes divide
+            # the chunk (the JAX package's rule); a no-op when N already
+            # fits.  Under a runtime every rank pads to the longest shard's
+            # length, so that the ranks' steps take the same shapes and
+            # draws
+            N = data["y"].shape[0]
+            self._n_local = N
+            if runtime is not None:
+                # the rows of each data shard; the ranks of a state group
+                # hold the same rows
+                self._n_locals = runtime.n_locals(N)
+                self._row_offset = int(
+                    self._n_locals[:runtime.data_index].sum())
+            else:
+                self._n_locals, self._row_offset = np.asarray([N]), 0
+            self.N_global = int(self._n_locals.sum())
+            n_max = int(self._n_locals.max())
+            c = (model.chunk
+                 if (getattr(model, "requires_chunk_multiple", False)
+                     and n_max > model.chunk) else 1)
+            N_pad = -(-n_max // c) * c
+            blank = make_blank_data(data["y"], data.get("valid"),
+                                    device=self.device)
+            if "F_prev" in data:
+                blank["F_prev"] = torch.as_tensor(
+                    to_numpy(data["F_prev"]), dtype=torch.float32,
+                    device=self.device)
+            pad = N_pad - N
+            self.data = {k: torch.nn.functional.pad(
+                v, (0, 0, 0, pad) if v.dim() == 2 else (0, pad))
+                for k, v in blank.items()}
+            if params is None:
+                params = model.standard_init({"y": self._init_rows()},
+                                             device=self.device)
+            self.params = params_from_numpy(
+                {k: to_numpy(v) for k, v in params.items()}, self.device)
+            if runtime is not None:
+                self.params = runtime.replicate(self.params)
         #: the model's step, with the runtime's group bound where there is one
         self._step = (runtime.shard_step(model.step_fn) if runtime is not None
                       else model.step_fn)
@@ -346,10 +352,19 @@ class EM:
         #: eagerly, the kernels the replays held by launch name (replays
         #: times what each capture recorded: ``LAUNCHES`` counts launch
         #: sites, and a replay passes none), and the all-reduces they held
-        #: (``parallel.mesh.COLLECTIVES``, under a runtime)
+        #: (``parallel.mesh.COLLECTIVES``, under a runtime).  A graph
+        #: captured with the spans on (``io.tracing.enable``) holds a timing
+        #: event pair for each of its ``estep``, ``ncut`` and ``mstep``
+        #: regions; whether a pattern is timed is fixed when it is captured.
+        #: Once a window, after its transfer and while the spans are on,
+        #: ``layer_ms`` gains each region's device ms in the graph's last
+        #: replay times the iterations of its pattern in the window (its
+        #: eager step too): a sample of one replay scaled, not a sum of
+        #: every replay.  ``timed_iterations`` counts those iterations
         self.scan_stats = {"graphs": 0, "capture_s": 0.0, "replays": 0,
                            "eager_steps": 0, "replayed_launches": {},
-                           "replayed_all_reduces": 0}
+                           "replayed_all_reduces": 0, "layer_ms": {},
+                           "timed_iterations": 0}
         self._scan: Optional[_Scan] = None
 
     def run(self, verbose: bool = False) -> Dict[str, torch.Tensor]:
@@ -472,28 +487,54 @@ class EM:
         scan.sched[:k].copy_(torch.tensor([sched_row(s) for s in scheds],
                                           dtype=torch.float32))
         scan.i.zero_()
+        runs: Dict[Tuple[StepPattern, bool], int] = {}
         for lo, hi, pattern in uniform_runs(scheds):
             self._run_uniform(scan, pattern, hi - lo, collect_params)
-        rows = scan.scalars[:k].tolist()          # the scalars: one transfer
-        total_dt = time.perf_counter() - t0
+            key = (pattern, collect_params)
+            runs[key] = runs.get(key, 0) + hi - lo
+        with traced_region("em.window_end"):
+            rows = scan.scalars[:k].tolist()      # the scalars: one transfer
+            total_dt = time.perf_counter() - t0
+            self._add_layer_ms(scan, runs)
 
-        self.params = {name: v.clone() for name, v in scan.params.items()}
-        self.data = dict(self.data, F_prev=scan.F_prev.clone())
-        logged = (self._collected(scan, k)
-                  if collect_params and self.dlog is not None else {})
-        for j, row in enumerate(rows):
-            rec = dict(zip(scan.names, row))
-            rec["iteration"] = self.anneal.position
-            rec["T"] = float(self.anneal["T"])
-            rec["dt"] = total_dt / k
-            self.history.append(rec)
-            if self.dlog is not None:
-                self.dlog.append_all(dict(rec, **{
-                    name: rows_[j] for name, rows_ in logged.items()
-                    if j in rows_}))
-            self.anneal.next()
+            self.params = {name: v.clone() for name, v in scan.params.items()}
+            self.data = dict(self.data, F_prev=scan.F_prev.clone())
+            logged = (self._collected(scan, k)
+                      if collect_params and self.dlog is not None else {})
+            for j, row in enumerate(rows):
+                rec = dict(zip(scan.names, row))
+                rec["iteration"] = self.anneal.position
+                rec["T"] = float(self.anneal["T"])
+                rec["dt"] = total_dt / k
+                self.history.append(rec)
+                if self.dlog is not None:
+                    self.dlog.append_all(dict(rec, **{
+                        name: rows_[j] for name, rows_ in logged.items()
+                        if j in rows_}))
+                self.anneal.next()
         self._maybe_revive_duplicates()
         self._maybe_checkpoint()
+
+    def _add_layer_ms(self, scan: _Scan,
+                      runs: Dict[Tuple[StepPattern, bool], int]) -> None:
+        """``scan_stats["layer_ms"]`` gains each timed region's device ms
+        in its graph's last replay times the iterations of the graph's
+        pattern in the window (``runs``), once the window's transfer has
+        synchronised the device; nothing while the spans are off, so a
+        graph captured with them on adds nothing after ``enable(False)``.
+        A replay runs no host code, and the eager step of a pattern waits
+        on the host between its launches: the replay's time stands for
+        both."""
+        if not tracing_enabled():
+            return
+        layer_ms = self.scan_stats["layer_ms"]
+        for key, n in runs.items():
+            pairs = scan.graphs[key][3] if key in scan.graphs else ()
+            for name, start, end in pairs:
+                layer_ms[name] = (layer_ms.get(name, 0.0)
+                                  + n * start.elapsed_time(end))
+            if pairs:
+                self.scan_stats["timed_iterations"] += n
 
     def _collected(self, scan: _Scan, k: int) -> Dict[str, Dict[int, np.ndarray]]:
         """The parameters the dlog takes from the last k iterations: name ->
@@ -549,31 +590,36 @@ class EM:
         key = (pattern, collect_params)
         done = 0
         if key not in scan.graphs:
-            self._scan_step(scan, pattern, collect_params)
+            with traced_region("em.eager_step"):
+                self._scan_step(scan, pattern, collect_params)
             self.scan_stats["eager_steps"] += 1
             done = 1
             if n == 1:
                 return
             t0 = time.perf_counter()
-            scan.graphs[key] = self._capture(scan, pattern, collect_params)
+            with traced_region("em.capture"):
+                scan.graphs[key] = self._capture(scan, pattern,
+                                                 collect_params)
             self.scan_stats["capture_s"] += time.perf_counter() - t0
-        graph, launches, reduces = scan.graphs[key]
+        graph, launches, reduces, _ = scan.graphs[key]
         replayed = self.scan_stats["replayed_launches"]
-        for _ in range(n - done):
-            graph.replay()
-            self.scan_stats["replays"] += 1
-            self.scan_stats["replayed_all_reduces"] += reduces
-            for name, count in launches.items():
-                replayed[name] = replayed.get(name, 0) + count
+        with traced_region("em.replay"):
+            for _ in range(n - done):
+                graph.replay()
+                self.scan_stats["replays"] += 1
+                self.scan_stats["replayed_all_reduces"] += reduces
+                for name, count in launches.items():
+                    replayed[name] = replayed.get(name, 0) + count
 
     def _capture(self, scan: _Scan, pattern: StepPattern,
                  collect_params: bool) -> tuple:
         """The step of ``pattern`` as a CUDA graph over the carry's buffers:
         (graph, the kernels one replay holds, by the name of their launch
-        count, the all-reduces it holds).  The wrappers pass their launch
-        sites once while the step is captured, which ``LAUNCHES`` counts as
-        it counts an eager step; a replay passes none, so ``LAUNCHES`` does
-        not see it.  A step that cannot be captured raises: ``run`` steps it
+        count, the all-reduces it holds, the timing events of its regions
+        with the spans on).  The wrappers pass their launch sites once
+        while the step is captured, which ``LAUNCHES`` counts as it counts
+        an eager step; a replay passes none, so ``LAUNCHES`` does not see
+        it.  A step that cannot be captured raises: ``run`` steps it
         eagerly."""
         if scan.pool is None:
             scan.pool = torch.cuda.graph_pool_handle()
@@ -584,7 +630,7 @@ class EM:
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         try:
-            with torch.cuda.stream(side):
+            with torch.cuda.stream(side), timed_regions() as pairs:
                 graph.capture_begin(pool=scan.pool)
                 try:
                     self._scan_step(scan, pattern, collect_params)
@@ -596,9 +642,9 @@ class EM:
                 "captured into a CUDA graph; EM.run steps it eagerly") from e
         torch.cuda.current_stream(self.device).wait_stream(side)
         self.scan_stats["graphs"] += 1
-        return graph, {k: LAUNCHES[k] - before[k] for k in LAUNCHES
-                       if LAUNCHES[k] != before[k]}, (COLLECTIVES["all_reduce"]
-                                                      - reduces)
+        return (graph, {k: LAUNCHES[k] - before[k] for k in LAUNCHES
+                        if LAUNCHES[k] != before[k]},
+                COLLECTIVES["all_reduce"] - reduces, pairs)
 
     # -- checkpoints -------------------------------------------------------------
 

@@ -1,61 +1,115 @@
-"""Named tracepoints and ``torch.profiler`` integration.
+"""Spans at the port's layer boundaries, and ``torch.profiler`` output.
 
-Counterpart of ``prosper_tpu/io/tracing.py``: host-side named tracepoints
-with timestamps per process, written to a trace file; ``traced_region``
-also annotates the profiler's timeline (``torch.profiler.record_function``)
-and, on a CUDA device, opens an NVTX range; ``profile_trace`` captures a
-device trace around any region and writes it as a Chrome trace.
+Counterpart of ``prosper_tpu/io/tracing.py``.  One switch, ``enable``, off
+by default.  Off, ``traced_region`` returns one shared no-op context: a
+span then costs one flag check.  On, a region opens an NVTX range named
+``prosper::<name>`` where a CUDA device is present and, while a
+``torch.profiler`` session runs, ``torch.profiler.record_function`` of the
+same name: the profiler's own host event, on the clock of its device
+records, kept in its buffer until the session ends.  Regions nest on the
+host thread.  Inside ``timed_regions`` each region also records a pair of
+timing events on the current CUDA stream, which a CUDA graph captured
+there records again at every replay: ``EM.run_scanned`` reads them into
+``scan_stats["layer_ms"]``.  ``profile_trace`` captures a device trace
+around any region and writes it as a Chrome trace.
+
+The spans: ``em.build``, ``em.eager_step``, ``em.capture``, ``em.replay``,
+``em.window_end`` (``engine/em.py``); ``estep``, ``ncut``, ``mstep`` (a
+model's ``step_fn``); ``inference`` (the linear family's decode call) and
+inside it ``decode``, ``top_states``, ``recon_rows`` (``core/etstep.py``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
-from typing import Optional
+from typing import List, Optional
 
 import torch
 
 from prosper_tpu_torch.utils import process_index
 
-_tracefile = None
-_t0 = None
+#: the prefix of every span's name in a profiler trace
+PREFIX = "prosper::"
+
+_on = False
+_nvtx = False
+#: where the regions record their timing events (``timed_regions``)
+_pairs: Optional[List] = None
+_OFF = contextlib.nullcontext()
 
 
-def set_tracefile(path: Optional[str]) -> None:
-    """Enable (path) or disable (None) host-side tracepoint logging.
-
-    The %d in the path, if present, is replaced by the process index (the
-    reference writes one trace file per MPI rank)."""
-    global _tracefile, _t0
-    if _tracefile is not None:
-        _tracefile.close()
-        _tracefile = None
-    if path is not None:
-        if "%d" in path:
-            path = path % process_index()
-        _tracefile = open(path, "a")
-        _t0 = time.perf_counter()
+def enable(on: bool = True) -> None:
+    """Turn the spans on or off (process-wide)."""
+    global _on, _nvtx
+    _on = bool(on)
+    _nvtx = _on and torch.cuda.is_available()
 
 
-def tracepoint(name: str) -> None:
-    """Record a named timestamped event (no-op unless set_tracefile called)."""
-    if _tracefile is not None:
-        dt = time.perf_counter() - _t0
-        _tracefile.write(f"{dt:12.6f} p{process_index()} {name}\n")
-        _tracefile.flush()
+def enabled() -> bool:
+    return _on
+
+
+class _Span:
+    __slots__ = ("name", "_fn", "_pair", "_pairs")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        # a record_function outside a profiler session records nothing, and
+        # its dispatcher calls cost several microseconds
+        self._fn = None
+        if torch.autograd._profiler_enabled():
+            self._fn = torch.profiler.record_function(PREFIX + self.name)
+            self._fn.__enter__()
+        if _nvtx:
+            torch.cuda.nvtx.range_push(PREFIX + self.name)
+        self._pairs = _pairs
+        if self._pairs is not None:
+            self._pair = (torch.cuda.Event(enable_timing=True, external=True),
+                          torch.cuda.Event(enable_timing=True, external=True))
+            self._pair[0].record()
+        return self
+
+    def __exit__(self, *exc):
+        if self._pairs is not None:
+            self._pair[1].record()
+            self._pairs.append((self.name, *self._pair))
+        if _nvtx:
+            torch.cuda.nvtx.range_pop()
+        if self._fn is not None:
+            self._fn.__exit__(*exc)
+        return False
+
+
+def traced_region(name: str):
+    """A span around a region: with the spans off a shared no-op context,
+    on an NVTX range and, under the profiler, a profiler event named
+    ``prosper::<name>``."""
+    if not _on:
+        return _OFF
+    return _Span(name)
 
 
 @contextlib.contextmanager
-def traced_region(name: str):
-    """Tracepoint pair and a profiler annotation around a region, and an
-    NVTX range where a CUDA device is present."""
-    nvtx = (torch.cuda.nvtx.range(name) if torch.cuda.is_available()
-            else contextlib.nullcontext())
-    tracepoint(f"{name} begin")
-    with torch.profiler.record_function(name), nvtx:
-        yield
-    tracepoint(f"{name} end")
+def timed_regions():
+    """Yields a list.  Within the block, with the spans on, each
+    ``traced_region`` also records a pair of
+    ``torch.cuda.Event(enable_timing=True, external=True)`` around itself
+    on the current CUDA stream and appends ``(name, start, end)`` to the
+    list; under stream capture the pair becomes two event-record nodes of
+    the graph.  The list stays empty with the spans off."""
+    global _pairs
+    pairs: List = []
+    if not _on:
+        yield pairs
+        return
+    outer, _pairs = _pairs, pairs
+    try:
+        yield pairs
+    finally:
+        _pairs = outer
 
 
 @contextlib.contextmanager

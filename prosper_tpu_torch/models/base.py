@@ -33,6 +33,7 @@ from prosper_tpu_torch.core.etstep import (LinearStateArrays,
 from prosper_tpu_torch.core.select import (exact_count_mask,
                                            global_quantile_threshold,
                                            ncut_keep_count)
+from prosper_tpu_torch.io.tracing import traced_region
 from prosper_tpu_torch.parallel.mesh import maybe_psum
 
 
@@ -269,10 +270,12 @@ class ETModel:
         (sum of ``pmask``, over every rank), not to all valid rows: with
         ``partial`` < 1 the two differ, and a keep count above the subset
         would make the cut a no-op."""
-        n_sel = maybe_psum(pmask.sum(), group)
-        keep = ncut_keep_count(n_sel, sched["Ncut_factor"], logA)
-        thresh = global_quantile_threshold(F_rank, pmask, keep, group=group)
-        return pmask * (F_rank >= thresh).float()
+        with traced_region("ncut"):
+            n_sel = maybe_psum(pmask.sum(), group)
+            keep = ncut_keep_count(n_sel, sched["Ncut_factor"], logA)
+            thresh = global_quantile_threshold(F_rank, pmask, keep,
+                                               group=group)
+            return pmask * (F_rank >= thresh).float()
 
     def run_estep_with_ncut(self, estep, log_pi_active, data, sched,
                             generator, group=None):

@@ -36,6 +36,7 @@ from prosper_tpu_torch.core.etstep import (LinearStateArrays,
                                            linear_et_posterior_kernel,
                                            traced_state_arrays,
                                            truncated_prior_logmass)
+from prosper_tpu_torch.io.tracing import traced_region
 from prosper_tpu_torch.models.base import (ETModel, device_sched,
                                            pattern_of, resolve_backend,
                                            sched_floats, to_numpy)
@@ -251,13 +252,15 @@ class LinearETModel(ETModel):
         params = self.noisify(params, sched, generator)
 
         def estep(weight):
-            return self.estep_sums(params, y, weight, sched, state_axis,
-                                   n_state_shards)
+            with traced_region("estep"):
+                return self.estep_sums(params, y, weight, sched, state_axis,
+                                       n_state_shards)
 
         F, sums, logA, logB, N_total = self.run_estep_with_ncut(
             estep, self.log_pi_active(params), data, sched, generator, group)
-        new_params, scalars = self.finalize_mstep(
-            params, sums, N_total, group, state_axis, n_state_shards)
+        with traced_region("mstep"):
+            new_params, scalars = self.finalize_mstep(
+                params, sums, N_total, group, state_axis, n_state_shards)
         return new_params, F, scalars
 
     def m_step(self, params, sums, logA, logB):
@@ -304,23 +307,25 @@ class LinearETModel(ETModel):
             return check_runtime(runtime).shard_decode(
                 lambda y, p: self.inference(p, {"y": y}, top_L, anneal,
                                             dense_states))(data["y"], params)
-        sched = sched_floats(anneal) if anneal is not None else None
-        beta = sched["beta"] if sched else 1.0
-        prior_beta = sched["prior_beta"] if sched else 1.0
-        W = params["W"]
-        y = data["y"]
-        y = rows_to_device(y, W.device)
-        dense_states = self.resolve_dense_states(y.shape[0], top_L,
-                                                 dense_states)
-        self._check_phi_backend(W.device)
-        decode = (linear_et_posterior
-                  if (self.s_block > 0 or self.backend == "plain"
-                      or self.learn_phi)
-                  else linear_et_posterior_kernel)
-        return decode(
-            y.contiguous(), W, params["sigma"] ** 2, self.log_odds(params),
-            self._sa_for(params), self.Hprime, self.signed_select,
-            top_L, beta, prior_beta, dense_states=dense_states)
+        with traced_region("inference"):
+            sched = sched_floats(anneal) if anneal is not None else None
+            beta = sched["beta"] if sched else 1.0
+            prior_beta = sched["prior_beta"] if sched else 1.0
+            W = params["W"]
+            y = data["y"]
+            y = rows_to_device(y, W.device)
+            dense_states = self.resolve_dense_states(y.shape[0], top_L,
+                                                     dense_states)
+            self._check_phi_backend(W.device)
+            decode = (linear_et_posterior
+                      if (self.s_block > 0 or self.backend == "plain"
+                          or self.learn_phi)
+                      else linear_et_posterior_kernel)
+            return decode(
+                y.contiguous(), W, params["sigma"] ** 2,
+                self.log_odds(params), self._sa_for(params), self.Hprime,
+                self.signed_select, top_L, beta, prior_beta,
+                dense_states=dense_states)
 
 
 class BSC(LinearETModel):

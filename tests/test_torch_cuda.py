@@ -710,6 +710,66 @@ def test_replays_run_the_kernels_of_eager_steps(device):
     _assert_same_run(scanned, eager)
 
 
+@pytest.mark.parametrize("name", ["bsc", "mca"])
+def test_layer_timers_of_run_scanned(name, device):
+    """With the spans on, each graph holds a timing event pair a region and
+    ``scan_stats`` sums the E-step's, the cut's and the M-step's device ms
+    over the iterations of the captured patterns (7 of 8: iteration 3, a
+    pattern of one iteration, runs eagerly and is not captured); the run,
+    its graphs and what the replays held equal a run with the spans off,
+    which times nothing.  The layers fit in the window's time."""
+    from prosper_tpu_torch.io import tracing
+    off, on = _scan_pair(name, 4096, device)
+    off.run_scanned()
+    tracing.enable(True)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        on.run_scanned()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        tracing.enable(False)
+    _assert_same_run(on, off)
+    a, b = dict(on.scan_stats), dict(off.scan_stats)
+    for k in ("capture_s", "layer_ms", "timed_iterations"):
+        a.pop(k), b.pop(k)
+    assert a == b
+    assert off.scan_stats["layer_ms"] == {}
+    assert off.scan_stats["timed_iterations"] == 0
+    layer_ms = on.scan_stats["layer_ms"]
+    assert set(layer_ms) == {"estep", "ncut", "mstep"}
+    assert all(v > 0 for v in layer_ms.values())
+    assert on.scan_stats["timed_iterations"] == 7
+    assert sum(layer_ms.values()) < wall_ms
+
+
+@pytest.mark.parametrize("name", ["bsc", "mca"])
+def test_layer_timers_stop_with_the_switch(name, device):
+    """A graph captured with the spans on keeps its timing events, but
+    once the spans are off its replays add nothing to ``layer_ms``: the
+    first window (iterations 0-1, before the cut starts: an eager step and
+    one replay of the pattern captured with the events) is timed, the rest
+    (iteration 2 replays that graph) is not, and the run equals one never
+    timed."""
+    from prosper_tpu_torch.io import tracing
+    off, on = _scan_pair(name, 4096, device)
+    off.run_scanned()
+    tracing.enable(True)
+    try:
+        on.run_scanned(2)
+    finally:
+        tracing.enable(False)
+    timed = {k: on.scan_stats[k] for k in ("layer_ms", "timed_iterations")}
+    assert timed["timed_iterations"] == 2
+    assert set(timed["layer_ms"]) == {"estep", "mstep"}
+    timed["layer_ms"] = dict(timed["layer_ms"])
+    on.run_scanned()
+    assert on.scan_stats["timed_iterations"] == 2
+    assert on.scan_stats["layer_ms"] == timed["layer_ms"]
+    _assert_same_run(on, off)
+
+
 def _assert_close_run(a, b, rtol):
     for k in a.params:
         torch.testing.assert_close(a.params[k], b.params[k], rtol=rtol,

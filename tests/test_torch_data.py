@@ -2,7 +2,9 @@
 (``dictionary_stats``, ``diagnose_recovery``, ``split_blend_sweep``,
 ``format_report``) on synthetic dictionaries and on the converged seed-2
 patches dictionary ``tools/patches_seed2_diag.npz``; the patch pipeline;
-and the port's tracing (tracepoints, profiler annotation, Chrome trace)."""
+and the port's tracing (the switch, spans in a profile and a Chrome trace,
+the timing events of ``timed_regions``, the spans of a training run and a
+decode)."""
 
 import json
 import os
@@ -151,23 +153,137 @@ def test_patch_pipeline_equals_jax(tmp_path):
         jpatches.synthetic_patches(200, patch_size=16, seed=3))
 
 
-def test_tracing(tmp_path):
-    """Tracepoints land in the trace file (%d -> process index); a traced
-    region shows as a profiler event; ``profile_trace`` writes a Chrome
-    trace."""
-    path = str(tmp_path / "trace.%d.txt")
-    tracing.set_tracefile(path)
+class _CountedEvent:
+    """Stands in for ``torch.cuda.Event``: counts its constructions and
+    records."""
+    made = 0
+
+    def __init__(self, **kw):
+        type(self).made += 1
+        self.kw, self.records = kw, 0
+
+    def record(self):
+        self.records += 1
+
+
+@pytest.fixture
+def counted_events(monkeypatch):
+    _CountedEvent.made = 0
+    monkeypatch.setattr(torch.cuda, "Event", _CountedEvent)
+    return _CountedEvent
+
+
+@pytest.fixture
+def spans_on():
+    tracing.enable(True)
     try:
-        tracing.tracepoint("start")
-        with tracing.profile_trace(str(tmp_path / "prof")) as prof:
-            with tracing.traced_region("em step"):
-                torch.ones(64, 64) @ torch.ones(64, 64)
+        yield
     finally:
-        tracing.set_tracefile(None)
-    lines = open(tmp_path / "trace.0.txt").read().splitlines()
-    assert [line.split(None, 2)[1:] for line in lines] == [
-        ["p0", "start"], ["p0", "em step begin"], ["p0", "em step end"]]
-    assert any(e.name == "em step" for e in prof.events())
+        tracing.enable(False)
+
+
+def _spans(prof):
+    """(name, start ns, end ns) of the ``prosper::`` events of a profile."""
+    return [(e.name(), e.start_ns(), e.end_ns())
+            for e in prof.profiler.kineto_results.events()
+            if e.name().startswith(tracing.PREFIX)]
+
+
+def test_tracing(tmp_path, counted_events):
+    """Off (the default) a region is one shared no-op context: no profiler
+    event, no timing event, nothing appended.  On, nested regions are
+    nested ``prosper::`` events of the profile and of ``profile_trace``'s
+    Chrome trace, and inside ``timed_regions`` each region records a pair
+    of timing events, innermost first."""
+    from torch.profiler import ProfilerActivity, profile
+    assert not tracing.enabled()
+    assert tracing.traced_region("a") is tracing.traced_region("b")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with tracing.timed_regions() as pairs:
+            with tracing.traced_region("outer"):
+                with tracing.traced_region("inner"):
+                    torch.ones(64, 64) @ torch.ones(64, 64)
+    assert _spans(prof) == [] and pairs == []
+    assert counted_events.made == 0
+
+    tracing.enable(True)
+    try:
+        assert tracing.enabled()
+        with tracing.profile_trace(str(tmp_path / "prof")) as prof:
+            with tracing.traced_region("outer"):
+                with tracing.traced_region("inner"):
+                    torch.ones(64, 64) @ torch.ones(64, 64)
+        assert counted_events.made == 0
+        with tracing.timed_regions() as pairs:
+            with tracing.traced_region("outer"):
+                with tracing.traced_region("inner"):
+                    pass
+        with tracing.traced_region("after"):
+            pass
+    finally:
+        tracing.enable(False)
+    spans = {name: (s, e) for name, s, e in _spans(prof)}
+    assert set(spans) == {"prosper::outer", "prosper::inner"}
+    (os_, oe), (is_, ie) = spans["prosper::outer"], spans["prosper::inner"]
+    assert os_ <= is_ <= ie <= oe
     trace = json.load(open(tmp_path / "prof" / "trace.0.json"))
-    assert any(e.get("name") == "em step" for e in trace["traceEvents"])
-    tracing.tracepoint("off")            # disabled: no file, no error
+    names = {e.get("name") for e in trace["traceEvents"]}
+    assert {"prosper::outer", "prosper::inner"} <= names
+    assert [p[0] for p in pairs] == ["inner", "outer"]
+    assert counted_events.made == 4
+    for _, start, end in pairs:
+        assert start.kw == end.kw == {"enable_timing": True,
+                                      "external": True}
+        assert start.records == end.records == 1
+
+
+@pytest.mark.parametrize("name", ["bsc", "mca"])
+def test_spans_of_a_training_run_and_a_decode(name, spans_on,
+                                              counted_events):
+    """With the spans on, a training run on the CPU shows its driver and
+    step spans and a decode its call and the three pieces inside it; the
+    run is bit-identical to one with the spans off, and on the CPU no
+    timing event is made and no layer is timed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from prosper_tpu_torch import EM, LinearAnnealing
+    from prosper_tpu_torch.models import BSC, MCA
+
+    def run():
+        a = LinearAnnealing(6)
+        a["T"] = [(0.0, 2.0), (0.5, 1.0)]
+        a["Ncut_factor"] = [(0.4, 0.0), (1.0, 1.0)]
+        model = (BSC if name == "bsc" else MCA)(16, 8, 5, 3, chunk=64)
+        y = np.abs(np.random.default_rng(3).standard_normal((150, 16))
+                   ).astype(np.float32)
+        em = EM(model, a, {"y": y}, seed=7, device="cpu")
+        em.run_scanned(4)
+        em.run_scanned()
+        return em
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        em = run()
+    names = [n for n, _, _ in _spans(prof)]
+    assert names.count("prosper::em.build") == 1
+    assert names.count("prosper::em.window_end") == 2
+    assert names.count("prosper::estep") == names.count("prosper::mstep") == 6
+    assert names.count("prosper::ncut") >= 1
+    tracing.enable(False)
+    off = run()
+    for k in em.params:
+        assert torch.equal(em.params[k], off.params[k]), k
+    assert em.scan_stats == off.scan_stats
+    assert em.scan_stats["layer_ms"] == {}
+    assert em.scan_stats["timed_iterations"] == 0
+    assert counted_events.made == 0
+    if name != "bsc":
+        return
+    tracing.enable(True)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        em.model.inference(em.params, {"y": np.ones((40, 16), np.float32)},
+                           top_L=3)
+    spans = _spans(prof)
+    assert sorted(n for n, _, _ in spans) == [
+        "prosper::decode", "prosper::inference", "prosper::recon_rows",
+        "prosper::top_states"]
+    _, root_s, root_e = next(s for s in spans if s[0] == "prosper::inference")
+    assert all(root_s <= s <= e <= root_e for _, s, e in spans)
