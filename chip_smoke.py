@@ -86,7 +86,8 @@ the decodes'), its first E-step against float64 sums over the rounded
 operands and its end beside phase 6's float32 run; (c) one bf16 E-step of
 phase 12's big-S TSC and of phase 23's BSC on two state ranks against
 their plain versions.  ``python3 chip_smoke.py --phase 24`` runs the
-build, phases 6 and 12 and phase 24 alone.
+build, phases 6 and 12 and phase 24 alone.  ``python3 chip_smoke.py
+--phase max`` runs the build and phases 7-10 (the max family) alone.
 
 Each path's launch counts are set to 0 just before it and checked just
 after.  Every phase raises on failure.  Prints one JSON line of the
@@ -3425,8 +3426,10 @@ def main() -> int:
              lib.linear_et_rows_smem_bytes(300, 8, 154, 1)),
             ("linear decode kernel (H=300, H'=8, S=154, K=1)",
              lib.linear_et_decode_smem_bytes(300, 8, 154, 1)),
-            ("max E-step kernel (D=256, H=300, H'=6, S=35)",
+            ("max E-step rows kernel (D=256, H=300, H'=6, S=35)",
              lib.max_et_smem_bytes(256, 300, 6, 35)),
+            ("max E-step routing kernel (H=300, H'=6)",
+             lib.max_et_route_smem_bytes(6, 300)),
             (f"big-S kernel (H'=10, K=2: 65 logit and 69 moment columns, "
              f"{lib.bigs_multi_warps(65, 69)} warps a block)",
              lib.bigs_multi_smem_bytes(65, 69)),
@@ -3910,6 +3913,45 @@ def phase23_alone() -> int:
     return 0
 
 
+def max_alone() -> int:
+    """``python3 chip_smoke.py --phase max``: the build (with the max
+    kernels' registers and spills, and the blocks an SM holds at the
+    patches width) and phases 7-10 alone."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from prosper_tpu_torch.ops import cuda_lib, max_cuda
+    dev, smi = alone_setup(torch)
+    func = None
+    for line in cuda_lib.BUILD_LOG.splitlines():
+        if "Compiling entry function" in line:
+            func = line.split("'")[1]
+        elif func and "max_estep" in func and ("registers" in line
+                                               or "spill" in line):
+            log("[build]", func, line.strip())
+    lib = cuda_lib.load_library()
+    hcols, _ = max_cuda.route_units(300, 6)
+    for magnitude in (False, True):
+        rows, route = max_cuda.blocks_per_sm(lib, 256, 300, 6, 35, hcols,
+                                             magnitude)
+        log(f"[build] max E-step kernels (D=256, H=300, H'=6, gamma=3, "
+            f"magnitude={magnitude}): rows kernel "
+            f"{max_cuda.smem_bytes(256, 300, 6, 35)} bytes of shared memory "
+            f"a block, {rows} blocks an SM; routing kernel "
+            f"{max_cuda.route_smem_bytes(6, hcols)} bytes, {route} blocks")
+    err = {"max_estep": 0.0}
+    mx = max_family(torch, np, dev, smi, err, patches_anneal)
+    stamp("phases 7-10")
+    log(json.dumps({"max": {"ms": mx["ms"], "plain_ms": mx["plain_ms"],
+                            "bound_ms": mx["bound_ms"],
+                            "max_abs_err": err["max_estep"],
+                            "scanned": mx["scanned"], "card": smi}}))
+    return 0
+
+
 def phase24_alone() -> int:
     """``python3 chip_smoke.py --phase 24``: the build, phase 6's and phase
     12's runs again, and phase 24, without the other phases."""
@@ -3944,4 +3986,6 @@ if __name__ == "__main__":
         sys.exit(phase23_alone())
     if sys.argv[1:3] == ["--phase", "24"]:
         sys.exit(phase24_alone())
+    if sys.argv[1:3] == ["--phase", "max"]:
+        sys.exit(max_alone())
     sys.exit(main())

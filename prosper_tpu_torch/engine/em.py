@@ -171,6 +171,20 @@ def uniform_runs(scheds: List[Dict[str, float]]
     return runs
 
 
+def release_dead_pools(device) -> None:
+    """Release the memory PyTorch keeps cached on the card when less than
+    a quarter of the card is free, before an ``EM``'s first capture.  The
+    graph pools of ``EM`` objects already gone stay cached, each run's
+    several GB at 10^6 rows, and an allocation inside a capture does not
+    release them when the card runs short, so fresh runs back to back would
+    fill the card; releasing costs the next allocations their cudaMalloc,
+    so it waits until the card runs short."""
+    free, total = torch.cuda.mem_get_info(device)
+    if free < total // 4:
+        with torch.cuda.device(device):
+            torch.cuda.empty_cache()
+
+
 class _Scan:
     """What ``run_scanned`` keeps between calls: the carry in buffers of
     fixed address (params, F_prev; y and valid are the EM's own), the device
@@ -622,6 +636,7 @@ class EM:
         it.  A step that cannot be captured raises: ``run`` steps it
         eagerly."""
         if scan.pool is None:
+            release_dead_pools(self.device)
             scan.pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self.generator)

@@ -37,9 +37,10 @@ LAUNCHES: Dict[str, int] = {"estep": 0, "decode": 0, "max_estep": 0,
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 SOURCES = ("sgemm.cu", "hgemm_bf16.cu", "hgemm_f16.cu", "linear_et_estep.cu",
-           "linear_et_decode.cu", "max_et_estep.cu", "bigs_multi.cu")
+           "linear_et_decode.cu", "max_et_estep.cu", "max_et_estep_hp2_5.cu",
+           "max_et_estep_hp7.cu", "max_et_estep_hp8.cu", "bigs_multi.cu")
 HEADERS = ("sgemm.cuh", "hgemm_tn.cuh", "linear_et_frontend.cuh",
-           "cp_async.cuh", "launch_once.cuh")
+           "max_et_estep.cuh", "cp_async.cuh", "launch_once.cuh")
 #: -fno-gnu-unique: the launchers' function-local statics (a kernel's
 #: shared-memory attribute, set once) stay private to each library, so
 #: that two builds loaded in one process (edited copies of the sources, as
@@ -127,9 +128,12 @@ def load_library() -> ctypes.CDLL:
             ("linear_et_estep_ws_stride", [i, i], z),
             ("linear_et_rows_smem_bytes", [i] * 4, z),
             ("linear_et_decode_smem_bytes", [i] * 4, z),
-            ("max_et_estep", [p] * 14 + [i] * 8 + [p], i),
-            ("max_et_estep_ws_stride", [i, i], z),
+            ("max_et_estep", [p] * 16 + [i] * 10 + [p], i),
+            ("max_et_ws_a_stride", [i], z),
+            ("max_et_ws_b_stride", [i, i], z),
             ("max_et_smem_bytes", [i] * 4, z),
+            ("max_et_route_smem_bytes", [i, i], z),
+            ("max_et_blocks_per_sm", [i] * 6 + [p], i),
             ("bigs_multi", [p] * 7 + [i] * 7 + [p], i),
             ("bigs_multi_cols", [i], i),
             ("bigs_multi_warps", [i, i], i),

@@ -350,7 +350,17 @@ MAX_CASES = [  # (N, D, H, Hp, gamma): bars, mca_small, patches
     (1000, 16, 8, 6, 3),
     (4096, 64, 100, 6, 3),
     (16384, 256, 300, 6, 3),
+] + [  # every H' the kernel is compiled for, at gamma = 2 and at the largest
+    # gamma with S <= 128; a ragged N and a D that is no multiple of 32
+    (999, 40, 20, Hp, gamma) for Hp, top in ((2, 2), (3, 3), (4, 4), (5, 5),
+                                            (6, 6), (7, 7), (8, 3))
+    for gamma in sorted({2, top})] + [
+    (999, 40, 1000, 6, 3),    # the routing kernel's units in two groups
 ]
+
+
+def _max_case_id(c):
+    return f"D{c[1]}H{c[2]}" + ("" if c[3:] == (6, 3) else f"Hp{c[3]}g{c[4]}")
 
 
 def _max_inputs(case, magnitude, device, seed=0):
@@ -370,7 +380,7 @@ def _max_inputs(case, magnitude, device, seed=0):
     return t(y), t(w), t(W), lo, sa, Hp
 
 
-@pytest.mark.parametrize("case", MAX_CASES, ids=lambda c: f"D{c[1]}H{c[2]}")
+@pytest.mark.parametrize("case", MAX_CASES, ids=_max_case_id)
 @pytest.mark.parametrize("magnitude", [False, True], ids=["mca", "mmca"])
 @pytest.mark.parametrize("beta", [0.6, 1.0])
 def test_max_estep_kernel_matches_plain(case, magnitude, beta, device):
@@ -404,6 +414,23 @@ def test_max_wrapper_repeats_bit_identical_and_chunks_rows(device,
         assert torch.equal(one[k], two[k]), k
         torch.testing.assert_close(cut[k], one[k], rtol=1e-4, atol=1e-4,
                                    msg=k)
+
+
+def test_max_kernel_shared_memory_and_blocks_match_the_host(device):
+    """The source's shared memory a block of each kernel is the wrapper's,
+    and every instantiation fits at least one block of each an SM."""
+    lib = cuda_lib.load_library()
+    for N, D, H, Hp, gamma in MAX_CASES:
+        S = binary_state_space(Hp, gamma).S
+        assert lib.max_et_smem_bytes(D, H, Hp, S) == max_cuda.smem_bytes(
+            D, H, Hp, S)
+        hcols, _ = max_cuda.route_units(H, Hp)
+        for h in (hcols, 7):
+            assert lib.max_et_route_smem_bytes(Hp, h) == \
+                max_cuda.route_smem_bytes(Hp, h)
+        for magnitude in (False, True):
+            assert min(max_cuda.blocks_per_sm(lib, D, H, Hp, S, hcols,
+                                              magnitude)) >= 1
 
 
 def test_max_wrapper_rejects_cpu_tensors_bad_shapes_and_limits(device):

@@ -34,7 +34,7 @@ from prosper_tpu_torch.io.weights import params_from_numpy, params_to_numpy
 from prosper_tpu_torch.models import MCA, MMCA
 from prosper_tpu_torch.models.base import (device_sched, make_blank_data,
                                            sched_floats)
-from prosper_tpu_torch.ops import max_cuda
+from prosper_tpu_torch.ops import cuda_lib, max_cuda
 
 KEYS = ("numer", "denom", "s", "abs", "resid", "y2", "n", "F", "F_true")
 FAMILY = {"mca": (jmca.MCA, MCA), "mmca": (jmca.MMCA, MMCA)}
@@ -328,6 +328,70 @@ def test_dp_plan_flat_matches_levels():
         parent = ({par[s]} if par[s] < Hp else
                   set(np.flatnonzero(space.states[par[s] - Hp]).tolist()))
         assert parent | {add[s]} == sup and add[s] == max(sup)
+
+
+@pytest.mark.parametrize("Hp", range(2, 9))
+def test_state_spaces_are_prefixes_of_the_whole_lattice(Hp):
+    """The CUDA kernel compiles each H' lattice in and cuts it at S: for
+    every gamma the states of binary_state_space(H', gamma) are the first S
+    of binary_state_space(H', H')'s, with the same DP parents and added
+    slots; the wrapper picks gamma from (H', S) and from the table, and
+    refuses what no instantiation holds."""
+    whole = binary_state_space(Hp, Hp)
+    flat = maxstep.dp_plan(torch.tensor(whole.states)).flat.tolist()
+    for gamma in range(2, Hp + 1):
+        space = binary_state_space(Hp, gamma)
+        S = space.S
+        np.testing.assert_array_equal(space.states, whole.states[:S])
+        plan = maxstep.dp_plan(torch.tensor(space.states)).flat.tolist()
+        assert plan[:S] == flat[:S]                          # parents
+        assert plan[S:] == flat[whole.S:whole.S + S]         # added slots
+        if S > max_cuda.S_MAX:
+            with pytest.raises(ValueError, match="kernel limits"):
+                max_cuda.kernel_gamma(Hp, S)
+            continue
+        assert max_cuda.kernel_gamma(Hp, S) == gamma
+        assert max_cuda.table_gamma(torch.tensor(space.states)) == gamma
+    with pytest.raises(ValueError):          # not a whole number of sizes
+        max_cuda.kernel_gamma(Hp, binary_state_space(Hp, 2).S - 1)
+    if Hp > 2:                               # a table in another order
+        with pytest.raises(ValueError, match="in their order"):
+            max_cuda.table_gamma(torch.tensor(
+                binary_state_space(Hp, 2).states[::-1].copy()))
+
+
+@pytest.mark.parametrize("shape,rows,route", [
+    ((256, 300, 6, 3), (63064, 3), (106496, 300, 1)),   # mca_patches
+    ((16, 8, 6, 3), (5656, 8), (31744, 8, 1)),          # bars
+    ((256, 300, 8, 3), (67992, 3), (114944, 300, 1)),   # the most states
+    ((256, 300, 7, 7), (69080, 3), (110720, 300, 1)),   # H' = 7, all sizes
+    ((256, 1000, 6, 3), (163864, 1), (157696, 500, 2)),  # units in 2 groups
+], ids=["patches", "bars", "hp8", "hp7", "h1000"])
+def test_max_kernel_host_choices(shape, rows, route):
+    """The wrapper's choices from the shape alone: the state space's gamma;
+    the rows kernel's shared memory (rows, scores, posteriors of a tile, as
+    the source carves it) and the blocks that leaves an SM; the routing
+    kernel's shared memory, with the units a block sums (all H where two
+    blocks an SM hold them, else groups one block holds), and its chunks
+    of rows, which fill the card's blocks once; past the limits it raises
+    and names backend="plain"."""
+    D, H, Hp, gamma = shape
+    S = binary_state_space(Hp, gamma).S
+    assert max_cuda.kernel_gamma(Hp, S) == gamma
+    smem = max_cuda.smem_bytes(D, H, Hp, S)
+    assert (smem, cuda_lib.blocks_per_sm(smem)) == rows
+    hcols, groups = max_cuda.route_units(H, Hp)
+    assert (max_cuda.route_smem_bytes(Hp, hcols), hcols, groups) == route
+    assert max_cuda.route_smem_bytes(Hp, hcols) <= cuda_lib.SMEM_LIMIT
+    slots = 132 * cuda_lib.blocks_per_sm(route[0])      # an H100's SMs
+    for N in (1000, 131072, 10 ** 6):
+        rows_per = max_cuda.route_chunks(N, D, groups, slots)
+        chunks = -(-N // rows_per)
+        assert chunks * -(-D // 32) * groups <= slots
+        assert rows_per >= 8 and (chunks - 1) * rows_per < N
+    for Hp_, gamma_ in ((8, 4), (9, 2)):
+        with pytest.raises(ValueError, match='backend="plain"'):
+            max_cuda.kernel_gamma(Hp_, binary_state_space(Hp_, gamma_).S)
 
 
 def test_wrapper_takes_the_plain_version_on_cpu_and_checks_limits():

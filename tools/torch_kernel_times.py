@@ -87,12 +87,22 @@ ABLATIONS = [
     ("rows: ss scatter", "linear_et_estep.cu",
      "if (w != 0.f) {\n        const int* cr", "if (w > 3e38f) {\n"
      "        const int* cr"),
-    ("max: phase 0 (strip DP, y.ybar, ||ybar||^2)", "max_et_estep.cu",
-     "for (int d0 = 0; d0 < D; d0 += 32) {",
-     "for (int d0 = 0; d0 < 0; d0 += 32) {"),
-    ("max: phase 1 (routing)", "max_et_estep.cu",
-     "for (int dd = tid; dd < D; dd += THREADS) {",
-     "for (int dd = tid; dd < 0; dd += THREADS) {"),
+    ("max: phase 0 (the lattice in registers, ybar (2y - ybar))",
+     "max_et_estep.cuh", "for (int dd = lane; dd < D; dd += 32) {",
+     "for (int dd = lane; dd < 0; dd += 32) {"),
+    ("max: phase 0's sums over the warp", "max_et_estep.cuh",
+     "  pass_sums<LO, HI>(acc, L, lane,\n", "  L[LO / 32] += acc[0];\n"
+     "  if (false) pass_sums<LO, HI>(acc, L, lane,\n"),
+    ("max: the routing tables", "max_et_estep.cuh",
+     "        route_table<HP>(p.T + (size_t)n * HP * E, sm.sidx, qm, w, lane);",
+     ""),
+    ("max: phase 1 (routing)",
+     "max_et_estep.cuh", "for (int n0 = r_begin; n0 < r_end; n0 += RB) {",
+     "for (int n0 = r_begin; n0 < 0; n0 += RB) {"),
+    ("max: the routing kernel's sums (its ranks and masses kept)",
+     "max_et_estep.cuh",
+     "    const unsigned mine = own[lane * WARPS + warp];\n",
+     "    const unsigned mine = 0u;\n"),
     ("bigs: logits product", "bigs_multi.cu",
      "for (int k = 0; k < nL; ++k) {", "for (int k = 0; k < 0; ++k) {"),
     ("bigs: expf (an add in its place)", "bigs_multi.cu", "expf(",
