@@ -49,6 +49,7 @@ from prosper_tpu_torch.core.etstep import (LinearStateArrays, _candidates,
                                            slot_sum_ss, top_states_from_topk,
                                            union_softmax)
 from prosper_tpu_torch.core.select import top_l_argmax
+from prosper_tpu_torch.io.tracing import traced_region
 from prosper_tpu_torch.ops.cuda_lib import cached_for
 from prosper_tpu_torch.parallel.mesh import state_rank, state_sharded
 
@@ -349,20 +350,21 @@ def _chunk_gsc_estats(y, w, W, gram, gram_diag, sigma2, pi, mu, psi,
     # (rows, states of that size)
     levels = gsc_levels(sa)
     logdet_parts, bMb_parts, solved = [], [], []
-    for lv in levels:
-        G = Gf[:, lv.gram_cols].view(C, len(lv.pairs), lv.S) * inv_s2
-        bb = bsrc[:, lv.slot_cols].view(C, lv.m, lv.S)
-        Mbl = [[None] * lv.m for _ in range(lv.m)]
-        for p, (i, j) in enumerate(lv.pairs):
-            Mbl[i][j] = G[:, p] + inv_psi if i == j else G[:, p]
-        b = [bb[:, i] for i in range(lv.m)]
-        L = chol_bl(Mbl)
-        logdet_parts.append(logdet_bl(L))
-        kap = solve_bl(L, b)
-        bMb_parts.append(sum(b[i] * kap[i] for i in range(lv.m)))
-        solved.append((kap, inverse_bl(L)))
-    logdet = torch.cat(logdet_parts, dim=1)                        # (C, S)
-    bMb = torch.cat(bMb_parts, dim=1)
+    with traced_region("slab_solve"):
+        for lv in levels:
+            G = Gf[:, lv.gram_cols].view(C, len(lv.pairs), lv.S) * inv_s2
+            bb = bsrc[:, lv.slot_cols].view(C, lv.m, lv.S)
+            Mbl = [[None] * lv.m for _ in range(lv.m)]
+            for p, (i, j) in enumerate(lv.pairs):
+                Mbl[i][j] = G[:, p] + inv_psi if i == j else G[:, p]
+            b = [bb[:, i] for i in range(lv.m)]
+            L = chol_bl(Mbl)
+            logdet_parts.append(logdet_bl(L))
+            kap = solve_bl(L, b)
+            bMb_parts.append(sum(b[i] * kap[i] for i in range(lv.m)))
+            solved.append((kap, inverse_bl(L)))
+        logdet = torch.cat(logdet_parts, dim=1)                    # (C, S)
+        bMb = torch.cat(bMb_parts, dim=1)
 
     k_s = sa.abs_states
     lik_multi = (-0.5 * k_s[None, :] * torch.log(psi) - 0.5 * logdet
@@ -393,22 +395,26 @@ def _chunk_gsc_estats(y, w, W, gram, gram_diag, sigma2, pi, mu, psi,
 
     # <sz> and <sz sz^T> in the Hp candidate frame: per level one product
     # of the (rows, states) values with the constant per-slot tables
-    sz_cand = torch.zeros((C, Hp), dtype=torch.float32, device=y.device)
-    szsz = torch.zeros((C, Hp * Hp), dtype=torch.float32, device=y.device)
-    for lv, (kap, Sig) in zip(levels, solved):
-        q_m = q_multi[:, lv.off:lv.off + lv.S]                     # (C, S_m)
-        qk = torch.stack([q_m * kap[i] for i in range(lv.m)], dim=1)
-        sz_cand = sz_cand + qk.reshape(C, -1) @ lv.E.reshape(-1, Hp)
-        vals = torch.stack([q_m * (Sig[i][j] + kap[i] * kap[j])
-                            for i, j in lv.pairs], dim=1)
-        szsz = szsz + vals.reshape(C, -1) @ lv.EE.reshape(-1, Hp * Hp)
-
     wv = w.to(torch.float32)
-    sz_full = (q_single * kappa1).scatter_add(1, cand, sz_cand)    # (C, H)
-    sw = sz_full * wv[:, None]
-    Sig1 = 1.0 / M1
-    ss_diag = (q_single * (Sig1[None, :] + kappa1 ** 2) * wv[:, None]).sum(0)
-    sum_ss = slot_sum_ss(szsz * wv[:, None], cand, H) + torch.diag(ss_diag)
+    with traced_region("slab_moments"):
+        sz_cand = torch.zeros((C, Hp), dtype=torch.float32, device=y.device)
+        szsz = torch.zeros((C, Hp * Hp), dtype=torch.float32,
+                           device=y.device)
+        for lv, (kap, Sig) in zip(levels, solved):
+            q_m = q_multi[:, lv.off:lv.off + lv.S]                 # (C, S_m)
+            qk = torch.stack([q_m * kap[i] for i in range(lv.m)], dim=1)
+            sz_cand = sz_cand + qk.reshape(C, -1) @ lv.E.reshape(-1, Hp)
+            vals = torch.stack([q_m * (Sig[i][j] + kap[i] * kap[j])
+                                for i, j in lv.pairs], dim=1)
+            szsz = szsz + vals.reshape(C, -1) @ lv.EE.reshape(-1, Hp * Hp)
+
+        sz_full = (q_single * kappa1).scatter_add(1, cand, sz_cand)  # (C, H)
+        sw = sz_full * wv[:, None]
+        Sig1 = 1.0 / M1
+        ss_diag = (q_single * (Sig1[None, :] + kappa1 ** 2)
+                   * wv[:, None]).sum(0)
+        sum_ss = (slot_sum_ss(szsz * wv[:, None], cand, H)
+                  + torch.diag(ss_diag))
     abs_n = q_single.sum(dim=1) + q_multi @ k_s
     sums = dict(xs=y.T @ sw, ss=sum_ss, s=sw.sum(dim=0),
                 abs=(abs_n * wv).sum(), y2=(y2 * wv).sum(), n=wv.sum(),

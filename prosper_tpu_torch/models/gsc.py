@@ -22,6 +22,7 @@ import torch
 from prosper_tpu_torch.core.etstep import truncated_prior_logmass
 from prosper_tpu_torch.core.gscstep import gsc_et_estep, gsc_posterior
 from prosper_tpu_torch.core.states import binary_state_space
+from prosper_tpu_torch.io.tracing import traced_region
 from prosper_tpu_torch.models.base import (ETModel, device_sched, pattern_of,
                                            sched_floats, to_numpy)
 from prosper_tpu_torch.models.linear import reduce_sums, solve
@@ -75,13 +76,15 @@ class GSC(ETModel):
         params = self.noisify(params, sched, generator)
 
         def estep(weight):
-            return self.estep_sums(params, y, weight, sched, state_axis,
-                                   n_state_shards)
+            with traced_region("estep"):
+                return self.estep_sums(params, y, weight, sched, state_axis,
+                                       n_state_shards)
 
         F, sums, _, _, N_total = self.run_estep_with_ncut(
             estep, self.log_pi_active(params), data, sched, generator, group)
-        new, scalars = self.finalize_mstep(params, sums, N_total, group,
-                                           state_axis, n_state_shards)
+        with traced_region("mstep"):
+            new, scalars = self.finalize_mstep(params, sums, N_total, group,
+                                               state_axis, n_state_shards)
         return new, F, scalars
 
     def finalize_mstep(self, params, sums, N_total, group=None,
