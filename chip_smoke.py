@@ -32,14 +32,18 @@ One DSC step with a learned value set (``backend="plain"``) and a big-S
 E-step cut into two chunks of rows are held against the CPU and against
 one chunk.
 
-GSC and the mixtures have no kernel (plain PyTorch on the card; no launch
-count may move while they run):
+GSC's E-step runs its kernel (``ops/gsc_cuda.py``: one ``gsc_estep``
+launch and its two GEMMs a step); its decode and the mixtures are plain
+PyTorch (no launch count may move while they run):
 
 * GSC bars (the tuned configuration of examples/barstest/param_bars_gsc.py)
   through ``EM.run`` on CUDA, 8/8 bars; GSC at the patches width of
   bench.py:652 (D=256, H=300, H'=6, gamma=3, 35 multi states) on 131072
   planted-dictionary rows with a slab, through ``run`` and ``run_scanned``,
-  one E-step against the CPU, a decode of 8192 rows;
+  one E-step against the CPU, the E-step kernel against the plain version
+  on the card (bit-identical twice, within rtol 1e-4 of the plain version,
+  both timed beside the least time of its operations and bytes), a
+  decode of 8192 rows;
 * MoG and MoP at bench.py:714-727 (D=256, K=300) on 131072 rows through
   ``run`` and ``run_scanned``, an inference of 8192 rows, one step against
   the CPU.
@@ -49,8 +53,8 @@ N = 10^6 host rows in 8 segments of 131072 rows, the rolling tier from the
 ndarray (page-locked in place) and from an np.memmap (pinned staging
 buffers), the cached tier and the in-memory ``EM.run``, bit-identical
 among the streamed runs and within the tolerance of the in-memory one with
-the same kept counts, a resumed run, MCA and big-S TSC on 262144 rows in 2
-segments, and a profiled rolling iteration that shows how much of the
+the same kept counts, a resumed run, MCA, big-S TSC and GSC on 262144 rows
+in 2 segments, and a profiled rolling iteration that shows how much of the
 uploads lies under the compute (the ``stream`` line).
 
 Then queue 3's open check: the first E-step of that run in both row cuts
@@ -58,8 +62,8 @@ of the in-memory E-step against float64 sums of the same step, and the W
 drift of the two cuts after 6 M-steps.  Phase 22 drives the data-parallel
 runtime (``prosper_tpu_torch/parallel/mesh.py``): (a) a one-rank NCCL
 group, under which phase 6's run through ``run`` and ``run_scanned`` (the
-all-reduces captured in the graphs), its decode, a ``StreamingEM`` and MCA
-and big-S TSC runs are bit-identical to the runs without a runtime; (b) two
+all-reduces captured in the graphs), its decode, a ``StreamingEM`` and MCA,
+big-S TSC and GSC runs are bit-identical to the runs without a runtime; (b) two
 gloo ranks on the one card (this script started twice, ``--rank22``), whose
 run equals phase 6's run with its rows cut as the ranks hold them, bit for
 bit, and whose decodes, concatenated, equal phase 6's.  ``python3
@@ -87,7 +91,8 @@ operands and its end beside phase 6's float32 run; (c) one bf16 E-step of
 phase 12's big-S TSC and of phase 23's BSC on two state ranks against
 their plain versions.  ``python3 chip_smoke.py --phase 24`` runs the
 build, phases 6 and 12 and phase 24 alone.  ``python3 chip_smoke.py
---phase max`` runs the build and phases 7-10 (the max family) alone.
+--phase max`` runs the build and phases 7-10 (the max family) alone, and
+``--phase gsc`` the build and phases 15-16 (GSC).
 
 Each path's launch counts are set to 0 just before it and checked just
 after.  Every phase raises on failure.  Prints one JSON line of the
@@ -230,6 +235,7 @@ def same_run(torch, tag, ref, em, first=0):
 #: paths' (``traced_kernels`` counts it apart, as ``hgemm_tn_bulk``)
 KERNEL_FUNCS = {"estep": ("rows_kernel",), "decode": ("decode_kernel",),
                 "max_estep": ("max_estep_kernel",), "bigs": ("bigs_kernel",),
+                "gsc_estep": ("gsc_estep_kernel",),
                 "sgemm_nn": ("nn_kernel",), "sgemm_tn": ("tn_kernel",),
                 "hgemm_nn": ("nn_kernel",),
                 "hgemm_tn": ("tn_kernel", "htn_bulk_kernel")}
@@ -944,6 +950,24 @@ def bigs_path(torch, np, dev, smi, err, patches_anneal):
             **bigs_bound(N, S, Hp, K)}
 
 
+def gsc_estep_bound(N, D, H, Hp, gamma):
+    """``bound`` of GSC's E-step over N rows: the two D x H products; per
+    row the H singletons in closed form (5 multiply-adds a unit), each
+    support of m units among the H' candidates (its Cholesky factor m^3/3,
+    the solve 2 m^2, the inverse m^3, log det and b^T kappa 2 m, the
+    moments m + m (m + 1)), the softmax over the 1 + H + S columns and the
+    candidate frame's H' + H'^2 moments into H and H x H.  Reads y, the
+    weights and W; writes F, xs, <sz sz^T> and <sz>."""
+    from math import comb
+    supports = sum(comb(Hp, m) * (m ** 3 / 3.0 + 2 * m * m + m ** 3 + 3 * m
+                                  + m * (m + 1))
+                   for m in range(2, gamma + 1))
+    S = sum(comb(Hp, m) for m in range(2, gamma + 1))
+    per_row = 2 * D * H + 5 * H + supports + (1 + H + S) + Hp + Hp * Hp
+    return bound(2.0 * N * per_row,
+                 4.0 * (N * D + 2 * N + 2 * D * H + H * H + H))
+
+
 def bigs_bound(N, S, Hp, K):
     """The big-S function's bound over N rows and S states: nL + nM
     multiply-adds per (row, state); its inputs (proj, Gf, the state
@@ -1061,17 +1085,24 @@ def against_cpu(torch, tag, got, ref, rtol):
 def gsc_path(torch, np, dev, smi, patches_anneal, N=131072):
     """Phases 15-16: GSC bars on the card, and GSC at the patches width of
     bench.py:652 (D=256, H=300, H'=6, gamma=3, 35 multi states) through
-    ``run`` and ``run_scanned``, one E-step against the CPU and a decode.
-    GSC is plain PyTorch: no kernel of the port may launch.  Returns the
-    ``scanned`` entry and the decode's rows/s."""
+    ``run`` and ``run_scanned``, one E-step against the CPU, the E-step
+    kernel against the plain version on the card at N rows (time, bound,
+    agreement) and a decode.  Every E-step on the card runs the kernel of
+    ``ops/gsc_cuda.py`` (one ``gsc_estep`` launch and its two GEMMs); the
+    decode is plain PyTorch.  Returns the ``scanned`` entry, the decode's
+    rows/s and the kernel's entry of the ``kernels`` line."""
     from prosper_tpu_torch import EM, LinearAnnealing
+    from prosper_tpu_torch.core import gscstep
     from prosper_tpu_torch.data.bars import (bars_gt_params,
                                              count_recovered_bars,
                                              planted_dictionary)
     from prosper_tpu_torch.io.weights import params_from_numpy
     from prosper_tpu_torch.models import GSC
     from prosper_tpu_torch.models.base import sched_floats
-    from prosper_tpu_torch.ops import cuda_lib
+    from prosper_tpu_torch.ops import cuda_lib, gsc_cuda
+
+    def kernel_path(n):
+        return {k: n for k in ("gsc_estep", "sgemm_nn", "sgemm_tn")}
 
     # ---- 15. GSC bars on the card ---------------------------------------------
     # the tuned configuration of examples/barstest/param_bars_gsc.py
@@ -1093,7 +1124,7 @@ def gsc_path(torch, np, dev, smi, patches_anneal, N=131072):
         f"mu {mu:.4f}, psi {psi:.4f}")
     if n_rec != 8 or abs(sig - 1.0) >= 0.4:
         raise AssertionError("GSC bars not recovered on the card")
-    expect_launches(cuda_lib, "[gsc bars]")
+    expect_launches(cuda_lib, "[gsc bars]", **kernel_path(70))
     stamp("phase 15")
 
     # ---- 16. GSC at patches width ---------------------------------------------
@@ -1116,16 +1147,16 @@ def gsc_path(torch, np, dev, smi, patches_anneal, N=131072):
                                     dense_states=dense)
              for dense in (False, True)}
     torch.cuda.synchronize()
-    expect_launches(cuda_lib, tag)
+    launches = expect_launches(cuda_lib, tag, **kernel_path(iters))
     check_path(torch, np, tag, em, serve, H)
     log(f"{tag} mu {float(params['mu']):.4f}, psi {float(params['psi']):.4f}"
         f", sigma {float(params['sigma']):.4f} after {iters} iterations "
         "(planted: 1, 0.25, 1)")
-    scanned, _ = scanned_path(
+    scanned, scanned_launches = scanned_path(
         torch, np, cuda_lib, tag, em,
         lambda: EM(model, patches_anneal(iters), {"y": y_dev}, params=init,
                    seed=4, device=dev),
-        init, 4, smi)
+        init, 4, smi, **kernel_path(iters))
     stamp(f"{tag} run and run_scanned")
 
     # one annealed E-step on 4096 rows against the CPU; y in quarters and W
@@ -1139,11 +1170,13 @@ def gsc_path(torch, np, dev, smi, patches_anneal, N=131072):
     a = LinearAnnealing(4)
     a["T"] = 1.5
     out = {}
+    reset_launches(cuda_lib)
     for d in (dev, torch.device("cpu")):
         p = params_from_numpy(p_q, d)
         out[d.type] = model.estep_sums(p, torch.tensor(y_q, device=d),
                                        torch.tensor(w_q, device=d),
                                        sched_floats(a))
+    expect_launches(cuda_lib, f"{tag} E-step", **kernel_path(1))
     err = max(against_cpu(torch, f"{tag} E-step F", out[dev.type][0],
                           out["cpu"][0], 1e-4),
               against_cpu(torch, f"{tag} E-step", out[dev.type][1],
@@ -1151,8 +1184,47 @@ def gsc_path(torch, np, dev, smi, patches_anneal, N=131072):
     log(f"{tag} one annealed E-step on 4096 rows on the card agrees with the "
         f"CPU within rtol 1e-4 (largest difference {err:.3e})")
 
+    # the kernel against the plain version on the card, all N rows (in
+    # quarters, W in 1/64ths: the same candidates), timed in turns
+    p = params_from_numpy(p_q, dev)
+    y_n = torch.tensor(quantised(np, data["y"], 0.25), device=dev)
+    w_n = torch.tensor((np.arange(N) % 7 > 0).astype(np.float32),
+                       device=dev)
+    sa = model.state_arrays(dev)
+    args = (y_n, w_n, p["W"], p["sigma"] ** 2, p["pi"], p["mu"], p["psi"],
+            sa, Hp, 0.7, 1.0)
+    ref = gscstep.gsc_et_estep(*args, chunk=8192)
+    got = gsc_cuda.gsc_et_estep_cuda(*args)
+    again = gsc_cuda.gsc_et_estep_cuda(*args)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], again[0])
+            and all(torch.equal(got[1][k], again[1][k]) for k in got[1])):
+        raise AssertionError(f"{tag} two runs of the GSC E-step kernel "
+                             "differ")
+    k_err = max(against_cpu(torch, f"{tag} kernel F", got[0], ref[0].cpu(),
+                            1e-4),
+                against_cpu(torch, f"{tag} kernel", got[1],
+                            {k: v.cpu() for k, v in ref[1].items()}, 1e-4))
+    ms, plain_ms = interleaved_ms(
+        torch, lambda: gscstep.gsc_et_estep(*args, chunk=8192),
+        lambda: gsc_cuda.gsc_et_estep_cuda(*args), 5)
+    est_bound = gsc_estep_bound(N, D, H, Hp, gamma)
+    smem, bps = gsc_cuda.kernel_occupancy(H, sa, Hp)
+    log(f"{tag} E-step kernel {ms:.3f} ms vs plain {plain_ms:.3f} ms (N={N}, "
+        f"{plain_ms / ms:.1f} x), bound {est_bound['bound_ms']:.4f} ms by "
+        f"{est_bound['bound_by']} "
+        f"({100 * est_bound['bound_ms'] / ms:.2f} % of it); agrees within "
+        f"rtol 1e-4 (largest difference {k_err:.3e}), two runs "
+        f"bit-identical; {smem} bytes of shared memory a block, {bps} "
+        f"blocks an SM  [{smi}]")
+    kernel = {"launches": launches["gsc_estep"],
+              "scanned_launches": scanned_launches["gsc_estep"],
+              "ms": ms, "plain_ms": plain_ms, **est_bound,
+              "max_abs_err": max(err, k_err)}
+
     # the decode: 8192 rows from the card, compact and dense
     y_ho = torch.tensor(held_out["y"], device=dev)
+    reset_launches(cuda_lib)
     dec = {dense: cuda_ms(torch, lambda d=dense: model.inference(
         params, {"y": y_ho}, top_L=10, dense_states=d), 3)
         for dense in (False, True)}
@@ -1161,7 +1233,7 @@ def gsc_path(torch, np, dev, smi, patches_anneal, N=131072):
         f"{8192 / dec[False] * 1e3:.0f} rows/s, dense {dec[True]:.3f} ms = "
         f"{8192 / dec[True] * 1e3:.0f} rows/s  [{smi}]")
     return scanned, {"compact_ms": dec[False], "dense_ms": dec[True],
-                     "rows_per_s": 8192 / dec[False] * 1e3}
+                     "rows_per_s": 8192 / dec[False] * 1e3}, kernel
 
 
 def mixture_path(torch, np, dev, smi, patches_anneal, N=131072):
@@ -1788,10 +1860,10 @@ class forbid_plain:
     streamed run on the card goes through the kernels alone."""
 
     def __enter__(self):
-        from prosper_tpu_torch.core import etstep, maxstep
+        from prosper_tpu_torch.core import etstep, gscstep, maxstep
         self.saved = [(m, n, getattr(m, n)) for m, n in (
             (etstep, "linear_et_estep"), (etstep, "bigs_multi"),
-            (maxstep, "max_et_estep"))]
+            (maxstep, "max_et_estep"), (gscstep, "gsc_et_estep"))]
 
         def make(name):
             def boom(*a, **k):
@@ -1818,18 +1890,19 @@ def stream_path(torch, np, dev, smi, y_host, patches_anneal):
     parameters within rtol 5e-4 / atol 1e-4 of (d)'s; each kernel launched
     once a segment and no plain version run; a run checkpointed at
     iteration 3 and resumed in a fresh StreamingEM bit-identical to (a).
-    Then MCA (D=256, H=300, H'=6, gamma=3) and big-S TSC (D=64, H=32,
-    H'=10, gamma=5, s_block=1024) on 262144 rows in 2 segments, 3
-    iterations each, against their in-memory runs.  One profiled rolling
-    iteration of (a) and of (b) gives the overlap of the uploads with the
-    compute.  Returns the ``stream`` line's numbers and the streamed
-    launches by kernel (BSC's run (a), MCA's and TSC's)."""
+    Then MCA (D=256, H=300, H'=6, gamma=3), big-S TSC (D=64, H=32,
+    H'=10, gamma=5, s_block=1024) and GSC (D=256, H=300, H'=6, gamma=3)
+    on 262144 rows in 2 segments, 3 iterations each, against their
+    in-memory runs.  One profiled rolling iteration of (a) and of (b)
+    gives the overlap of the uploads with the compute.  Returns the
+    ``stream`` line's numbers and the streamed launches by kernel (BSC's
+    run (a), MCA's, TSC's and GSC's)."""
     import os
     import tempfile
 
     from prosper_tpu_torch import EM, StreamingEM
     from prosper_tpu_torch.data.bars import planted_dictionary
-    from prosper_tpu_torch.models import BSC, MCA, TSC
+    from prosper_tpu_torch.models import BSC, GSC, MCA, TSC
     from prosper_tpu_torch.ops import cuda_lib
 
     bad = []
@@ -1938,17 +2011,21 @@ def stream_path(torch, np, dev, smi, y_host, patches_anneal):
                 f"iteration {fig['iteration_ms']:.3f} ms  [{smi}]")
         del y_mm, runs
 
-    # MCA and big-S TSC: 262144 rows in 2 segments, 3 iterations
+    # MCA, big-S TSC and GSC: 262144 rows in 2 segments, 3 iterations
     W_gt = planted_dictionary(256, 300, seed=0)
     for tag, fam, kern in (
             ("mca", MCA(256, 300, 6, 3),
              {"max_estep": 6, "sgemm_nn": 6, "sgemm_tn": 6}),
             ("tsc_bigs", TSC(64, 32, 10, 5, chunk=8192, s_block=1024),
-             {"bigs": 6})):
-        gt = {"W": W_gt if tag == "mca" else planted_dictionary(64, 32,
-                                                                 seed=0),
-              "pi": np.float32(2.0 / 300 if tag == "mca" else 0.1),
+             {"bigs": 6}),
+            ("gsc", GSC(256, 300, 6, 3, chunk=8192),
+             {"gsc_estep": 6, "sgemm_nn": 6, "sgemm_tn": 6})):
+        gt = {"W": W_gt if tag != "tsc_bigs" else planted_dictionary(
+                  64, 32, seed=0),
+              "pi": np.float32(2.0 / 300 if tag != "tsc_bigs" else 0.1),
               "sigma": np.float32(1.0)}
+        if tag == "gsc":
+            gt.update(mu=np.float32(1.0), psi=np.float32(0.25))
         data = fam.generate_data(gt, 2 * seg, seed=1)
         p0 = fam.standard_init(data, seed=3, device=dev)
         reset_launches(cuda_lib)
@@ -2251,7 +2328,7 @@ def distributed_path(torch, np, dev, smi, ref, patches_anneal,
     from prosper_tpu_torch import EM, StreamingEM
     from prosper_tpu_torch.data.bars import planted_dictionary
     from prosper_tpu_torch.engine.em import schedule_window, uniform_runs
-    from prosper_tpu_torch.models import MCA, TSC
+    from prosper_tpu_torch.models import GSC, MCA, TSC
     from prosper_tpu_torch.models.base import device_sched, sched_floats
     from prosper_tpu_torch.ops import cuda_lib, gemm_cuda
     from prosper_tpu_torch.parallel.mesh import (COLLECTIVES, MeshRuntime,
@@ -2350,7 +2427,7 @@ def distributed_path(torch, np, dev, smi, ref, patches_anneal,
         launches[k] += v
     bad += same_stream(torch, "[22a] StreamingEM under NCCL", streams[0],
                        streams[1])
-    # the max family's and the big-S kernels under the runtime
+    # the max family's, the big-S and the GSC kernels under the runtime
     W_mca = planted_dictionary(256, 300, seed=0)
     for tag, fam, gt, kern in (
             ("mca", MCA(256, 300, 6, 3),
@@ -2359,7 +2436,12 @@ def distributed_path(torch, np, dev, smi, ref, patches_anneal,
              {"max_estep": 3, "sgemm_nn": 3, "sgemm_tn": 3}),
             ("tsc_bigs", TSC(64, 32, 10, 5, chunk=8192, s_block=1024),
              {"W": planted_dictionary(64, 32, seed=0), "pi": np.float32(0.1),
-              "sigma": np.float32(1.0)}, {"bigs": 3})):
+              "sigma": np.float32(1.0)}, {"bigs": 3}),
+            ("gsc", GSC(256, 300, 6, 3, chunk=8192),
+             {"W": W_mca, "pi": np.float32(2.0 / 300),
+              "sigma": np.float32(1.0), "mu": np.float32(1.0),
+              "psi": np.float32(0.25)},
+             {"gsc_estep": 3, "sgemm_nn": 3, "sgemm_tn": 3})):
         data = fam.generate_data(gt, 32768, seed=1)
         p0 = fam.standard_init(data, seed=3, device=dev)
         y_fam = torch.as_tensor(data["y"], device=dev)
@@ -2404,8 +2486,8 @@ def distributed_path(torch, np, dev, smi, ref, patches_anneal,
         f"to the runs without a runtime; all-reduces per iteration {want}, "
         f"issued by run {issued}, held by {em_s.scan_stats['replays']} "
         f"replays {replayed}; NCCL kernels traced: run {n_eager}, replays "
-        f"{n_replay} ({sorted(set(eager_names + replay_names))}); MCA and "
-        f"big-S TSC (32768 rows, 3 iterations) bit-identical too; launches "
+        f"{n_replay} ({sorted(set(eager_names + replay_names))}); MCA, "
+        f"big-S TSC and GSC (32768 rows, 3 iterations) bit-identical too; launches "
         f"under the runtime {launches}; host ms per iteration "
         f"{out['host_ms_per_iteration']}  [{smi}]")
 
@@ -3620,9 +3702,9 @@ def main() -> int:
     learned_phi_step(torch, np, dev, cuda_lib)
     stamp("phase 14")
 
-    # ---- 15.-17. GSC and the mixtures (plain PyTorch, no kernel) --------------
-    scanned["gsc_patches"], gsc_decode = gsc_path(torch, np, dev, smi,
-                                                  patches_anneal)
+    # ---- 15.-17. GSC (its E-step kernel) and the mixtures (plain PyTorch) ----
+    scanned["gsc_patches"], gsc_decode, gk = gsc_path(torch, np, dev, smi,
+                                                      patches_anneal)
     stamp("phases 15-16")
     scanned.update(mixture_path(torch, np, dev, smi, patches_anneal))
     stamp("phase 17")
@@ -3778,6 +3860,15 @@ def main() -> int:
          "replaces": "prosper_tpu/ops/linear_pallas.py:179; "
                      "prosper_tpu/core/etstep.py:331,596",
          "max_abs_err": err["hgemm_tn"], **hk["hgemm_tn"]},
+        # GSC's E-step: no TPU kernel (plain XLA in the JAX package);
+        # launches: phase 16's run and its run_scanned, phase 21's and
+        # phase 22a's GSC runs
+        {"name": "gsc_et_estep", "route": "cuda",
+         "source": "prosper_tpu_torch/csrc/gsc_et_estep.cu",
+         "replaces": "none (prosper_tpu/core/gscstep.py, plain XLA)",
+         "stream_launches": stream_launches.get("gsc_estep", 0),
+         "distributed_launches": dl["gsc_estep"],
+         **gk, "library_ms": None},
     ]
     for k in kernels:
         # the 16-bit GEMMs' path is phase 24's: no stream or runtime phase
@@ -3952,6 +4043,31 @@ def max_alone() -> int:
     return 0
 
 
+def gsc_alone() -> int:
+    """``python3 chip_smoke.py --phase gsc``: the build (with the GSC
+    E-step kernel's registers and spills) and phases 15-16 alone."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from prosper_tpu_torch.ops import cuda_lib
+    dev, smi = alone_setup(torch)
+    func = None
+    for line in cuda_lib.BUILD_LOG.splitlines():
+        if "Compiling entry function" in line:
+            func = line.split("'")[1]
+        elif func and "gsc_estep" in func and ("registers" in line
+                                               or "spill" in line):
+            log("[build]", func, line.strip())
+    scanned, decode, kernel = gsc_path(torch, np, dev, smi, patches_anneal)
+    stamp("phases 15-16")
+    log(json.dumps({"gsc": dict(kernel, scanned=scanned, decode=decode,
+                                card=smi)}))
+    return 0
+
+
 def phase24_alone() -> int:
     """``python3 chip_smoke.py --phase 24``: the build, phase 6's and phase
     12's runs again, and phase 24, without the other phases."""
@@ -3988,4 +4104,6 @@ if __name__ == "__main__":
         sys.exit(phase24_alone())
     if sys.argv[1:3] == ["--phase", "max"]:
         sys.exit(max_alone())
+    if sys.argv[1:3] == ["--phase", "gsc"]:
+        sys.exit(gsc_alone())
     sys.exit(main())

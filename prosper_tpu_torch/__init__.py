@@ -23,8 +23,10 @@ E-steps (and the linear family's decode) run in hand-written CUDA kernels
 on a CUDA device (``ops/linear_cuda.py``, ``ops/max_cuda.py``, built with
 nvcc at first use by ``ops/cuda_lib.py``) and in their plain PyTorch
 versions on the CPU; ``backend="plain"`` runs the plain versions on any
-device.  GSC and the mixtures are plain PyTorch on any device (the JAX
-package builds them from XLA ops, with no Pallas kernel).  The JAX package
+device.  GSC's E-step has its own kernel, chosen the same way
+(``ops/gsc_cuda.py``; the JAX package builds it from XLA ops, with no
+Pallas kernel); the mixtures and GSC's
+decode are plain PyTorch on any device.  The JAX package
 ``prosper_tpu`` is the reference
 this port is held to; the port imports neither it nor JAX.
 """

@@ -406,9 +406,9 @@ def main(argv=None) -> int:
                     help="run the iterations through EM.run_scanned (CUDA "
                          "graph replays of the step)")
     pt.add_argument("--backend", choices=backends, default=None,
-                    help="E-step backend (linear + max families): cuda / "
-                         "pallas = the kernels, plain / xla = the plain "
-                         "PyTorch version")
+                    help="E-step backend (linear, max and GSC families): "
+                         "cuda / pallas = the kernels, plain / xla = the "
+                         "plain PyTorch version")
     pt.add_argument("--mesh", default=None, metavar="data=N",
                     help="data-parallel over N ranks (torchrun "
                          "--nproc-per-node N); fails on another count")

@@ -1,5 +1,6 @@
 """The ET E-step for spike-and-slab / Gaussian sparse coding (GSC), in
-plain PyTorch.
+plain PyTorch: the version the CPU, a state axis and models past the
+kernel's limits run, and the one ``ops/gsc_cuda.py``'s kernel is held to.
 
 Counterpart of ``prosper_tpu/core/gscstep.py``.  Latents s_h = b_h z_h with
 b ~ Bernoulli(pi) and z ~ N(mu, psi); the binary supports are enumerated

@@ -16,9 +16,11 @@ around any region and writes it as a Chrome trace.
 The spans: ``em.build``, ``em.eager_step``, ``em.capture``, ``em.replay``,
 ``em.window_end`` (``engine/em.py``); ``estep``, ``ncut``, ``mstep`` (a
 model's ``step_fn``: the linear family's, the max family's and GSC's), and
-inside GSC's ``estep``, once per chunk of rows, ``slab_solve`` (the small
-Cholesky solves of every support) and ``slab_moments`` (<sz>, <sz sz^T>
-and their scatter to H) (``core/gscstep.py``); ``inference`` (the linear
+inside GSC's ``estep`` on the card ``gsc_rows`` (its E-step kernel,
+``ops/gsc_cuda.py``) or, in the plain version, once per chunk of rows,
+``slab_solve`` (the small Cholesky solves of every support) and
+``slab_moments`` (<sz>, <sz sz^T> and their scatter to H)
+(``core/gscstep.py``); ``inference`` (the linear
 family's decode call) and inside it ``decode``, ``top_states``,
 ``recon_rows`` (``core/etstep.py``).
 """

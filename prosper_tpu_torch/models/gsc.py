@@ -2,9 +2,14 @@
 
 Counterpart of ``prosper_tpu/models/gsc.py``.  s_h = b_h z_h with
 b ~ Bernoulli(pi) and z ~ N(mu, psi); the E-step enumerates the binary
-supports with the slab integrated out per support (``core/gscstep.py``,
-plain PyTorch on whatever device the tensors lie on: the JAX package has no
-Pallas kernel for this family, and neither has the port).  The M-step
+supports with the slab integrated out per support.  With
+``backend="cuda"`` (the default) it runs the kernel of ``ops/gsc_cuda.py``
+on a CUDA tensor (the JAX package has no Pallas kernel for this family; the
+port's was written for the card) and the plain PyTorch version
+(``core/gscstep.py``) on a CPU tensor; a model past the kernel's limits
+and a state axis raise on a CUDA tensor.  ``backend="plain"`` runs the
+plain version on whatever device the tensors lie on, which is how such a
+model trains on the card.  The M-step
 updates W, pi and sigma and the slab's mean and variance:
 
   W      <- (sum_n y <sz>^T)(sum_n <sz sz^T>)^-1      (least squares)
@@ -20,12 +25,15 @@ import numpy as np
 import torch
 
 from prosper_tpu_torch.core.etstep import truncated_prior_logmass
-from prosper_tpu_torch.core.gscstep import gsc_et_estep, gsc_posterior
+from prosper_tpu_torch.core import gscstep
+from prosper_tpu_torch.core.gscstep import gsc_posterior
 from prosper_tpu_torch.core.states import binary_state_space
 from prosper_tpu_torch.io.tracing import traced_region
 from prosper_tpu_torch.models.base import (ETModel, device_sched, pattern_of,
-                                           sched_floats, to_numpy)
+                                           resolve_backend, sched_floats,
+                                           to_numpy)
 from prosper_tpu_torch.models.linear import reduce_sums, solve
+from prosper_tpu_torch.ops.gsc_cuda import gsc_et_estep
 from prosper_tpu_torch.parallel.mesh import check_runtime
 from prosper_tpu_torch.utils.staging import rows_to_device
 
@@ -35,8 +43,12 @@ class GSC(ETModel):
     param_names = ("W", "pi", "sigma", "mu", "psi")
 
     def __init__(self, D, H, Hprime, gamma, to_learn=None, chunk=4096,
-                 ncut_current: bool = False):
+                 ncut_current: bool = False, backend: str = "cuda"):
         super().__init__(D, H, Hprime, gamma, to_learn, chunk)
+        #: "cuda": the hand-written kernel on a CUDA tensor; "plain": the
+        #: plain PyTorch version on any device.  A switch the caller sets,
+        #: not a fallback.
+        self.backend = resolve_backend(backend)
         self.space = binary_state_space(Hprime, gamma)
         #: rank the Ncut data cut by the current iteration's F with a
         #: second E-step pass while the cut is active (as the linear family)
@@ -54,11 +66,17 @@ class GSC(ETModel):
                    n_state_shards: int = 1):
         """E-step over one block of data: (F (N,), sums).  ``params`` are
         already noisified; the caller owns the weight mask.  A saturated
-        step skips the un-annealed channel (F_true == F there).  Under a
-        state axis (``state_axis``, ``n_state_shards > 1``) this rank's
-        level-aligned share of the supports (``core/gscstep.py``)."""
+        step skips the un-annealed channel (F_true == F there).  With
+        ``backend="cuda"`` the kernel on a CUDA tensor and the plain
+        version on a CPU one (``ops/gsc_cuda.py::gsc_et_estep``); with
+        ``backend="plain"`` the plain version.  Under a state axis
+        (``state_axis``, ``n_state_shards > 1``) the plain version on this
+        rank's level-aligned share of the supports (``core/gscstep.py``);
+        on a CUDA tensor that needs ``backend="plain"``."""
         W = params["W"]
-        return gsc_et_estep(
+        estep = (gscstep.gsc_et_estep if self.backend == "plain"
+                 else gsc_et_estep)
+        return estep(
             y, weight, W, params["sigma"] ** 2, params["pi"], params["mu"],
             params["psi"], self.state_arrays(W.device), self.Hprime,
             sched["beta"], sched["prior_beta"], self.chunk,

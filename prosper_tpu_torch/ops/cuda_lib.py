@@ -7,7 +7,7 @@ named by a hash of the sources and flags, in ``prosper_tpu_torch/build/``.
 This happens at first CUDA use, never at import; the library is loaded
 with ``ctypes``.  The wrappers (``ops/gemm_cuda.py``, ``ops/linear_cuda.py``,
 ``ops/max_cuda.py``, ``ops/bigs_cuda.py``) share the input checks below and
-the launch counts in ``LAUNCHES``.
+the launch counts in ``LAUNCHES`` (``ops/gsc_cuda.py`` too).
 """
 
 from __future__ import annotations
@@ -21,24 +21,26 @@ import subprocess
 import tempfile
 import weakref
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
 #: kernel launches by kernel name; a run resets and reads it to show that
 #: its main path went through the kernels.  An E-step counts once per call
-#: (``estep``, ``max_estep``), and its two GEMMs count beside it: the
+#: (``estep``, ``max_estep``, ``gsc_estep``), and its two GEMMs count
+#: beside it: the
 #: float32 ones (``sgemm_*``), or the 16-bit ones of a linear model's
 #: ``compute_dtype`` (``hgemm_*``).
 LAUNCHES: Dict[str, int] = {"estep": 0, "decode": 0, "max_estep": 0,
-                             "bigs": 0, "sgemm_nn": 0, "sgemm_tn": 0,
-                             "hgemm_nn": 0, "hgemm_tn": 0}
+                             "bigs": 0, "gsc_estep": 0, "sgemm_nn": 0,
+                             "sgemm_tn": 0, "hgemm_nn": 0, "hgemm_tn": 0}
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 SOURCES = ("sgemm.cu", "hgemm_bf16.cu", "hgemm_f16.cu", "linear_et_estep.cu",
            "linear_et_decode.cu", "max_et_estep.cu", "max_et_estep_hp2_5.cu",
-           "max_et_estep_hp7.cu", "max_et_estep_hp8.cu", "bigs_multi.cu")
+           "max_et_estep_hp7.cu", "max_et_estep_hp8.cu", "bigs_multi.cu",
+           "gsc_et_estep.cu")
 HEADERS = ("sgemm.cuh", "hgemm_tn.cuh", "linear_et_frontend.cuh",
            "max_et_estep.cuh", "cp_async.cuh", "launch_once.cuh")
 #: -fno-gnu-unique: the launchers' function-local statics (a kernel's
@@ -138,6 +140,10 @@ def load_library() -> ctypes.CDLL:
             ("bigs_multi_cols", [i], i),
             ("bigs_multi_warps", [i, i], i),
             ("bigs_multi_smem_bytes", [i, i], z),
+            ("gsc_et_estep_rows", [p] * 9 + [i] * 9 + [p], i),
+            ("gsc_et_ws_stride", [i], z),
+            ("gsc_et_smem_bytes", [i] * 5, z),
+            ("gsc_et_blocks_per_sm", [i] * 5 + [p], i),
             ("linear_et_error_string", [i], ctypes.c_char_p)):
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = argtypes, restype
@@ -256,3 +262,25 @@ def raise_on(lib, err: int, name: str):
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: "
                            f"{lib.linear_et_error_string(err).decode()}")
+
+
+#: (kernel name, shape key, device index) -> blocks of each kernel an SM
+#: holds at once
+_OCCUPANCY: Dict[tuple, Tuple[int, ...]] = {}
+
+
+def occupancy(lib, name: str, key: tuple, query, n: int = 1
+              ) -> Tuple[int, ...]:
+    """Blocks of each of ``n`` kernels that one SM of the current device
+    holds at once (registers and shared memory), asked of the runtime once
+    per ``key``: ``query(out)`` calls the library's occupancy function,
+    which fills the ``n`` ints of ``out``.  Raises where a kernel fits no
+    SM."""
+    full = (name, key, torch.cuda.current_device())
+    if full not in _OCCUPANCY:
+        out = (ctypes.c_int * n)()
+        raise_on(lib, query(out), name)
+        if min(out) < 1:
+            raise RuntimeError(f"the {name} kernels fit no SM at {key}")
+        _OCCUPANCY[full] = tuple(out)
+    return _OCCUPANCY[full]

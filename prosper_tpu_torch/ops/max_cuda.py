@@ -20,7 +20,6 @@ kernels or raises.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Dict, Tuple
 
 import numpy as np
@@ -31,8 +30,8 @@ from prosper_tpu_torch.core.etstep import LinearStateArrays
 from prosper_tpu_torch.core.states import binary_state_space, n_multi_states
 from prosper_tpu_torch.ops.cuda_lib import (LAUNCHES, SMEM_LIMIT, cached_for,
                                             check, in_row_chunks,
-                                            load_library, raise_on, scalars,
-                                            sm_count)
+                                            load_library, occupancy, raise_on,
+                                            scalars, sm_count)
 from prosper_tpu_torch.ops.gemm_cuda import (sgemm_nn_cuda,
                                              sgemm_tn_splitn_cuda)
 
@@ -127,27 +126,15 @@ def route_chunks(N: int, D: int, groups: int, slots: int) -> int:
     return -(-N // n)
 
 
-#: (D, H, Hp, S, hcols, magnitude, device index) -> blocks of the rows and
-#: of the routing kernel an SM holds at once
-_BLOCKS_PER_SM: Dict[tuple, Tuple[int, int]] = {}
-
-
 def blocks_per_sm(lib, D: int, H: int, Hp: int, S: int, hcols: int,
                   magnitude: bool) -> Tuple[int, int]:
     """Blocks of the rows kernel and of the routing kernel that one SM of
     the current device holds at once (registers and shared memory), asked
     of the runtime once."""
-    key = (D, H, Hp, S, hcols, bool(magnitude), torch.cuda.current_device())
-    if key not in _BLOCKS_PER_SM:
-        out = (ctypes.c_int * 2)()
-        raise_on(lib, lib.max_et_blocks_per_sm(D, H, Hp, S, hcols,
-                                               int(magnitude), out),
-                 "max_et_estep")
-        if min(out) < 1:
-            raise RuntimeError("the max E-step kernels fit no SM at "
-                               f"{D=} {H=} {Hp=} {S=}")
-        _BLOCKS_PER_SM[key] = (out[0], out[1])
-    return _BLOCKS_PER_SM[key]
+    return occupancy(
+        lib, "max_et_estep", (D, H, Hp, S, hcols, bool(magnitude)),
+        lambda out: lib.max_et_blocks_per_sm(D, H, Hp, S, hcols,
+                                             int(magnitude), out), 2)
 
 
 def _estep_rows(lib, y, weight, W, WT, gdiag, states, lo, scal,

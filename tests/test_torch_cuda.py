@@ -1,6 +1,6 @@
 """The CUDA kernels of the port (the two GEMMs, the linear E-step and
-decode, the max family's E-step, the big-S recurrence) against their plain
-versions, on the card.
+decode, the max family's E-step, the big-S recurrence, GSC's E-step)
+against their plain versions, on the card.
 
 Marked ``cuda``: they skip where no CUDA device is present.  On a machine
 with a card:  python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -16,11 +16,11 @@ import numpy as np
 import pytest
 import torch
 
-from prosper_tpu_torch.core import etstep, maxstep
+from prosper_tpu_torch.core import etstep, gscstep, maxstep
 from prosper_tpu_torch.core.states import (binary_state_space,
                                            discrete_state_space)
-from prosper_tpu_torch.ops import (bigs_cuda, cuda_lib, gemm_cuda, linear_cuda,
-                                   max_cuda)
+from prosper_tpu_torch.ops import (bigs_cuda, cuda_lib, gemm_cuda, gsc_cuda,
+                                   linear_cuda, max_cuda)
 
 pytestmark = pytest.mark.cuda
 
@@ -590,10 +590,11 @@ def test_fused_estep_names_s_block_for_a_big_state_space(device):
 # -- run_scanned: the EM step as a CUDA graph ---------------------------------
 
 def _scan_models():
-    from prosper_tpu_torch.models import BSC, MCA, TSC
+    from prosper_tpu_torch.models import BSC, GSC, MCA, TSC
     return {
         "bsc": lambda **kw: BSC(25, 16, 6, 3, chunk=256, **kw),
         "mca": lambda **kw: MCA(25, 16, 6, 3, chunk=256, **kw),
+        "gsc": lambda **kw: GSC(25, 16, 6, 3, chunk=256, **kw),
         "tsc_bigs": lambda **kw: TSC(25, 12, 6, 4, chunk=256, s_block=64,
                                      **kw),
     }
@@ -661,8 +662,8 @@ def test_run_scanned_replays_are_bit_identical_to_run(name, N, device):
     em.run_scanned()
     torch.cuda.synchronize()
     mine = ({"bigs"} if name == "tsc_bigs" else
-            {"estep" if name == "bsc" else "max_estep", "sgemm_nn",
-             "sgemm_tn"})
+            {{"bsc": "estep", "mca": "max_estep", "gsc": "gsc_estep"}[name],
+             "sgemm_nn", "sgemm_tn"})
     assert eager == {k: 8 if k in mine else 0 for k in eager}
     _assert_same_run(em, ref)
     stats = em.scan_stats
@@ -990,7 +991,180 @@ def test_learned_phi_step_on_the_card_matches_the_cpu(device):
                                rtol=1e-4, atol=1e-4)
 
 
-# -- GSC and the mixtures: plain PyTorch on the card ---------------------------
+# -- GSC's E-step kernel --------------------------------------------------------
+
+GSC_CASES = [  # (N, D, H, Hp, gamma)
+    (4096, 256, 300, 6, 3),          # the patch width
+    (1000, 25, 40, 8, 4),            # the kernel's limits
+    (999, 25, 16, 3, 2),
+    (333, 16, 10, 5, 3),
+]
+
+
+def _gsc_inputs(case, device, seed=0):
+    """Quantised rows and W (P = y W and the Gram matrix exact: the same
+    candidates on both paths), 40 leading rows of weight 0, the slab's
+    scalars as 0-d tensors on the card."""
+    N, D, H, Hp, gamma = case
+    rng = np.random.default_rng(seed)
+    y = np.round(rng.standard_normal((N, D)) * 6) / 4
+    W = np.round(rng.standard_normal((D, H)) * 4) / 4
+    w = (rng.random(N) > 0.2).astype(np.float32)
+    w[:40] = 0.0
+    sa = etstep.state_arrays_from(binary_state_space(Hp, gamma), device)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+    return (t(y), t(w), t(W), t(2.5), t(0.05), t(0.4), t(1.6), sa, Hp)
+
+
+@pytest.mark.parametrize("case", GSC_CASES,
+                         ids=lambda c: "H%dHp%dg%d" % c[2:])
+@pytest.mark.parametrize("beta", [0.6, 1.0])
+def test_gsc_estep_kernel_matches_plain(case, beta, device):
+    """The kernel against the plain version on the card: F and every sum;
+    with the un-annealed channel off the same sums bit for bit, F_true =
+    F; each call counts once in ``LAUNCHES["gsc_estep"]``, its two GEMMs
+    beside it."""
+    args = _gsc_inputs(case, device) + (beta, 1.0)
+    F0, ref = gscstep.gsc_et_estep(*args, chunk=case[0])
+    before = dict(cuda_lib.LAUNCHES)
+    F1, on = gsc_cuda.gsc_et_estep_cuda(*args, collect_true=True)
+    F2, off = gsc_cuda.gsc_et_estep_cuda(*args, collect_true=False)
+    torch.cuda.synchronize()
+    assert {k: cuda_lib.LAUNCHES[k] - before[k] for k in before} == {
+        k: 2 if k in ("gsc_estep", "sgemm_nn", "sgemm_tn") else 0
+        for k in before}
+    assert set(on) == set(ref)
+    torch.testing.assert_close(F1, F0, rtol=1e-4, atol=1e-4)
+    assert torch.equal(F1, F2)
+    for k in ref:
+        scale = max(ref[k].abs().max().item(), 1.0)
+        torch.testing.assert_close(on[k], ref[k], rtol=1e-4,
+                                   atol=1e-5 * scale, msg=k)
+        assert torch.equal(on[k], off[k] if k != "F_true" else on[k]), k
+    assert torch.equal(off["F_true"], off["F"])
+
+
+def test_gsc_estep_kernel_repeats_bit_identical_and_replays_in_a_graph(
+        device, monkeypatch):
+    """Two calls give the same bits; a call captured into a CUDA graph and
+    replayed on new rows copied into the captured ones gives the eager
+    call's bits; a workspace limit that cuts N into chunks of rows changes
+    only the order of the sums."""
+    args = _gsc_inputs(GSC_CASES[0], device) + (
+        torch.tensor(0.7, device=device), torch.tensor(1.0, device=device))
+    y = args[0]
+    one = gsc_cuda.gsc_et_estep_cuda(*args)
+    two = gsc_cuda.gsc_et_estep_cuda(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(one[0], two[0])
+    for k in one[1]:
+        assert torch.equal(one[1][k], two[1][k]), k
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        gsc_cuda.gsc_et_estep_cuda(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        captured = gsc_cuda.gsc_et_estep_cuda(*args)
+    rng = np.random.default_rng(5)
+    y.copy_(torch.as_tensor(np.round(rng.standard_normal(tuple(y.shape)) * 6)
+                            / 4, dtype=torch.float32, device=device))
+    graph.replay()
+    replayed = (captured[0].clone(),
+                {k: v.clone() for k, v in captured[1].items()})
+    eager = gsc_cuda.gsc_et_estep_cuda(*args)
+    torch.cuda.synchronize()
+    assert not torch.equal(replayed[0], one[0])
+    assert torch.equal(replayed[0], eager[0])
+    for k in eager[1]:
+        assert torch.equal(replayed[1][k], eager[1][k]), k
+    monkeypatch.setattr(cuda_lib, "P_LIMIT_BYTES", 1024 * 4 * 300)
+    cut = gsc_cuda.gsc_et_estep_cuda(*args)
+    assert torch.equal(cut[0], eager[0])
+    for k in eager[1]:
+        torch.testing.assert_close(cut[1][k], eager[1][k], rtol=1e-4,
+                                   atol=1e-4, msg=k)
+
+
+def test_gsc_estep_wrapper_rejects_cpu_tensors_bad_shapes_and_wide_models(
+        device):
+    """The kernel's wrapper raises on CPU tensors, mismatched shapes and a
+    model past its limits.  On the card the dispatcher runs nothing else:
+    a model past the limits (H' = 9, supports of 5 units) raises a
+    ValueError naming ``backend="plain"``, with no launch (a state axis:
+    ``test_state_axis_dispatch_rules_on_the_card``); the model's
+    ``backend="plain"`` runs the plain version there, launching nothing,
+    and the default runs the kernel."""
+    from prosper_tpu_torch.models import GSC
+    from prosper_tpu_torch.models.base import (device_sched, pattern_of,
+                                               sched_floats)
+    from prosper_tpu_torch.engine.anneal import LinearAnnealing
+    y, w, W, s2, pi, mu, psi, sa, Hp = _gsc_inputs(GSC_CASES[3], device)
+    rest = (s2, pi, mu, psi, sa, Hp, 1.0, 1.0)
+    with pytest.raises(ValueError):
+        gsc_cuda.gsc_et_estep_cuda(y.cpu(), w.cpu(), W.cpu(), *rest)
+    with pytest.raises(ValueError):
+        gsc_cuda.gsc_et_estep_cuda(y, w[:-1], W, *rest)
+    with pytest.raises(ValueError):
+        gsc_cuda.gsc_et_estep_cuda(y, w, W[:-1], *rest)
+    wide = etstep.state_arrays_from(binary_state_space(9, 3), device)
+    tall = etstep.state_arrays_from(binary_state_space(6, 5), device)
+    before = dict(cuda_lib.LAUNCHES)
+    for sa_x, Hp_x in ((wide, 9), (tall, 6)):
+        for estep in (gsc_cuda.gsc_et_estep_cuda, gsc_cuda.gsc_et_estep):
+            with pytest.raises(ValueError, match='backend="plain"'):
+                estep(y, w, W, s2, pi, mu, psi, sa_x, Hp_x, 1.0, 1.0)
+    assert dict(cuda_lib.LAUNCHES) == before
+    sched = device_sched(sched_floats(LinearAnnealing(2)), device)
+    params = {"W": W, "sigma": torch.sqrt(s2), "pi": pi, "mu": mu,
+              "psi": psi}
+    H, D = W.shape[1], W.shape[0]
+    for Hp_x, gamma in ((9, 3), (6, 5)):
+        with pytest.raises(ValueError, match='backend="plain"'):
+            GSC(D, H, Hp_x, gamma).estep_sums(params, y, w, sched)
+        got = GSC(D, H, Hp_x, gamma, backend="plain").estep_sums(
+            params, y, w, sched)
+        want = gscstep.gsc_et_estep(
+            y, w, W, params["sigma"] ** 2, pi, mu, psi,
+            etstep.state_arrays_from(binary_state_space(Hp_x, gamma),
+                                     device), Hp_x, sched["beta"],
+            sched["prior_beta"], chunk=4096,
+            collect_true=not pattern_of(sched).saturated)
+        assert dict(cuda_lib.LAUNCHES) == before
+        assert torch.equal(got[0], want[0])
+        for k in want[1]:
+            assert torch.equal(got[1][k], want[1][k]), k
+    GSC(D, H, 5, 3).estep_sums(params, y, w, sched)
+    torch.cuda.synchronize()
+    assert {k: cuda_lib.LAUNCHES[k] - before[k] for k in before} == {
+        k: int(k in ("gsc_estep", "sgemm_nn", "sgemm_tn")) for k in before}
+
+
+def test_gsc_rows_span_times_the_kernel(device):
+    """With the spans on, GSC's captured steps time the ``gsc_rows`` region
+    (the kernel) inside the E-step; the plain version's ``slab_solve`` and
+    ``slab_moments`` regions do not run on the card."""
+    from prosper_tpu_torch import EM
+    from prosper_tpu_torch.io import tracing
+    y = _plain_data("gsc", 4096)
+    off, on = (EM(_plain_models()["gsc"](), _scan_anneal(), {"y": y}, seed=7,
+                  device=device) for _ in range(2))
+    off.run_scanned()
+    tracing.enable(True)
+    try:
+        on.run_scanned()
+    finally:
+        tracing.enable(False)
+    _assert_same_run(on, off)
+    layer_ms = on.scan_stats["layer_ms"]
+    assert set(layer_ms) == {"estep", "ncut", "mstep", "gsc_rows"}
+    assert 0 < layer_ms["gsc_rows"] < layer_ms["estep"]
+
+
+# -- GSC and the mixtures on the card: GSC's E-step kernel, the rest plain -----
 
 def _plain_models():
     from prosper_tpu_torch.models import GSC
@@ -1008,8 +1182,9 @@ def _plain_data(name, N, seed=3):
 def test_plain_model_step_on_the_card_matches_the_cpu(name, device):
     """One noise-free annealed step on the card against the CPU: parameters
     and F within rtol 1e-4 (float32 on both, summed in other orders; GSC's
-    small Cholesky factors differ in the last bits); GSC's decode too.  No
-    kernel of the port is launched."""
+    small Cholesky factors differ in the last bits); GSC's decode too.
+    GSC's step launches its E-step kernel and the two GEMMs once each (its
+    decode is plain PyTorch); the mixtures launch no kernel of the port."""
     from prosper_tpu_torch import LinearAnnealing
     from prosper_tpu_torch.io.weights import params_from_numpy
     from prosper_tpu_torch.models.base import make_blank_data, sched_floats
@@ -1041,14 +1216,18 @@ def test_plain_model_step_on_the_card_matches_the_cpu(name, device):
             torch.testing.assert_close(dec[device][k].cpu(), dec["cpu"][k],
                                        rtol=1e-4, atol=1e-5, msg=k)
     torch.cuda.synchronize()
-    assert dict(cuda_lib.LAUNCHES) == before
+    mine = ("gsc_estep", "sgemm_nn", "sgemm_tn") if name == "gsc" else ()
+    assert dict(cuda_lib.LAUNCHES) == {
+        k: v + (k in mine) for k, v in before.items()}
 
 
 @pytest.mark.parametrize("name", ["gsc", "mog", "mop"])
 def test_plain_model_run_scanned_is_bit_identical_to_run(name, device):
     """Graph replays against eager ``run`` for GSC, MoG and MoP: parameters,
     F_prev, every scalar and the generator's next draw; three patterns, two
-    captured; ``LAUNCHES`` stays at zero (no kernel of the port)."""
+    captured; GSC's eager steps and captures pass its E-step's launch sites
+    (the kernel and its two GEMMs) and its replays hold them; the mixtures
+    launch no kernel of the port."""
     from prosper_tpu_torch import EM
     y = _plain_data(name, 777)
     make = _plain_models()[name]
@@ -1063,8 +1242,11 @@ def test_plain_model_run_scanned_is_bit_identical_to_run(name, device):
     stats = em.scan_stats
     assert (stats["graphs"], stats["eager_steps"], stats["replays"]) == (
         2, 3, 5)
-    assert stats["replayed_launches"] == {}
-    assert dict(cuda_lib.LAUNCHES) == before
+    mine = ("gsc_estep", "sgemm_nn", "sgemm_tn") if name == "gsc" else ()
+    assert stats["replayed_launches"] == {k: 5 for k in mine}
+    assert dict(cuda_lib.LAUNCHES) == {
+        k: v + 8 * (k in mine) + (3 + 2) * (k in mine)
+        for k, v in before.items()}
     assert all(torch.isfinite(v).all() for v in em.params.values())
 
 
@@ -1315,10 +1497,10 @@ def test_streaming_rolling_equals_cached_on_the_card(how, device, tmp_path,
     _assert_same_stream(rolling, cached)
 
 
-@pytest.mark.parametrize("name", ["bsc", "mca", "tsc_bigs"])
+@pytest.mark.parametrize("name", ["bsc", "mca", "tsc_bigs", "gsc"])
 def test_streaming_launches_the_kernels_once_a_segment(name, device):
     """Each streamed E-step launches its kernel once a segment (the
-    linear and max ones with their two GEMMs), and the run follows the
+    linear, max and GSC ones with their two GEMMs), and the run follows the
     in-memory EM: the same kept counts, the parameters within the
     tolerance of tests/test_streaming.py."""
     from prosper_tpu_torch import EM
@@ -1329,8 +1511,8 @@ def test_streaming_launches_the_kernels_once_a_segment(name, device):
     torch.cuda.synchronize()
     per_pass = sem.n_seg * 8
     mine = ({"bigs"} if name == "tsc_bigs" else
-            {"estep" if name == "bsc" else "max_estep", "sgemm_nn",
-             "sgemm_tn"})
+            {{"bsc": "estep", "mca": "max_estep", "gsc": "gsc_estep"}[name],
+             "sgemm_nn", "sgemm_tn"})
     assert dict(cuda_lib.LAUNCHES) == {k: per_pass if k in mine else 0
                                        for k in cuda_lib.LAUNCHES}
     em = EM(_scan_models()[name](), _scan_anneal(), {"y": y}, seed=7,
@@ -1415,7 +1597,7 @@ def _runtime_pair(name, rt, N=777, anneal=_scan_anneal, **kw):
                **kw))
 
 
-@pytest.mark.parametrize("name", ["bsc", "mca", "tsc_bigs"])
+@pytest.mark.parametrize("name", ["bsc", "mca", "tsc_bigs", "gsc"])
 def test_one_nccl_rank_run_is_bit_identical_to_run(name, device, nccl_rt):
     from prosper_tpu_torch.parallel.mesh import COLLECTIVES
     ref, em = _runtime_pair(name, nccl_rt)
@@ -1429,7 +1611,7 @@ def test_one_nccl_rank_run_is_bit_identical_to_run(name, device, nccl_rt):
     assert COLLECTIVES["all_reduce"] - before == 8 + 5 * 5
 
 
-@pytest.mark.parametrize("name", ["bsc", "mca", "tsc_bigs"])
+@pytest.mark.parametrize("name", ["bsc", "mca", "tsc_bigs", "gsc"])
 def test_one_nccl_rank_run_scanned_captures_the_collectives(name, device,
                                                             nccl_rt):
     """``run_scanned`` under NCCL: the all-reduces are captured with the
@@ -1535,16 +1717,17 @@ def test_state_slices_through_the_bigs_kernel(case, n, device):
 def test_state_axis_dispatch_rules_on_the_card(device):
     """Under a state axis on the card: MCA and MMCA with ``backend="cuda"``
     raise a ValueError naming ``backend="plain"`` (the kernel needs the
-    whole subset lattice) and run with ``backend="plain"``; a linear model
-    past the big-S kernel's limits (H' = 16: 155 moment columns) raises the
-    kernel's ValueError naming ``backend="plain"``.  Nothing falls back."""
-    from prosper_tpu_torch.models import BSC, MCA, MMCA
+    whole subset lattice) and run with ``backend="plain"``, and so does GSC
+    (its kernel needs every support); a linear model past the big-S
+    kernel's limits (H' = 16: 155 moment columns) raises the kernel's
+    ValueError naming ``backend="plain"``.  Nothing falls back."""
+    from prosper_tpu_torch.models import BSC, GSC, MCA, MMCA
     from prosper_tpu_torch.models.base import device_sched, sched_floats
     from prosper_tpu_torch.engine.anneal import LinearAnnealing
     from state_threads import run_state_shards
     sched = device_sched(sched_floats(LinearAnnealing(2)), device)
     y = torch.randn((64, 16), generator=torch.Generator().manual_seed(0))
-    for cls in (MCA, MMCA):
+    for cls in (MCA, MMCA, GSC):
         model = cls(16, 12, 5, 3)
         p = model.standard_init({"y": y}, device=device)
         with pytest.raises(ValueError, match='backend="plain"'):

@@ -337,8 +337,17 @@ def test_unported_options_raise():
     # sharded serving is ported (tests/test_torch_mesh.py): a MeshRuntime
     with pytest.raises(TypeError, match="MeshRuntime"):
         model.inference(params, {"y": y}, runtime=object())
-    with pytest.raises(TypeError):
-        GSC(16, 8, 5, 3, backend="plain")         # the JAX class has none
+    # the port's GSC selects its E-step as MCA does (the JAX class has no
+    # kernel and no backend): "plain" is the plain version on any device,
+    # the same bits as the default on a CPU tensor; other names raise
+    with pytest.raises(ValueError, match="backend"):
+        GSC(16, 8, 5, 3, backend="triton")
+    plain = GSC(16, 8, 5, 3, backend="xla")
+    assert (model.backend, plain.backend) == ("cuda", "plain")
+    got = plain.step_fn(params, data, sched, torch.Generator())
+    for k in ref[0]:
+        assert torch.equal(got[0][k], ref[0][k]), k
+    assert torch.equal(got[1], ref[1])
 
 
 def test_init_and_generation_follow_jax():

@@ -5,8 +5,8 @@ D=256, H=300, H'=8, gamma=4; MCA D=256, H=300, H'=6, gamma=3; big-S TSC
 D=64, H=32, H'=10, gamma=5, s_block=1024; decode of 8192 rows).
 
     python3 tools/torch_kernel_times.py times [--repo DIR]
-        CUDA-event times of the E-step, decode, max E-step and big-S E-step
-        wrappers, and of the big-S kernel alone (with and without the
+        CUDA-event times of the E-step, decode, max E-step, big-S E-step
+        and GSC E-step wrappers, and of the big-S kernel alone (with and without the
         un-annealed channel), of the package found in DIR (default: this
         checkout), each timing started on an idle card; the decode also
         with its calls queued behind other device work, where the host's
@@ -40,12 +40,14 @@ D=64, H=32, H'=10, gamma=5, s_block=1024; decode of 8192 rows).
     python3 tools/torch_kernel_times.py ablate [--only TEXT] [--repo DIR]
         Builds edited copies of the sources of the package in DIR (default:
         this checkout) with one part of the linear rows kernel, of the max
-        kernel, of the big-S kernel or of a GEMM kernel switched off (the
+        kernel, of the big-S kernel, of the GSC kernel or of a GEMM kernel
+        switched off (the
         results are then wrong; only the time is read) and prints what each
         part saves; then variants that keep the results right: the GEMM
         kernels with other numbers of stages, the TF32 split by cvt, every
         depth of sgemm_nn summed one k8 step at a time, and the big-S kernel
-        at its largest block.  Where DIR is another tree, an edit whose
+        at its largest block, the GSC kernel's lanes walking the supports
+        largest first.  Where DIR is another tree, an edit whose
         text is not in its sources (a kernel it does not have) is reported
         and skipped; in this checkout every edit must find its text.  The
         "gemm tn" edits take the 16-bit tn kernel of an unpacked parent
@@ -76,7 +78,7 @@ HTN_NO_COPIES = "      mbar_expect(bar, 0);\n"
 #: (name, file, text to replace, replacement), or (name, file, [(text,
 #: replacement), ...]): parts switched off by `ablate`
 ABLATIONS = [
-    ("rows: candidate selection (also the max kernel's)",
+    ("rows: candidate selection (also the max and gsc kernels')",
      "linear_et_frontend.cuh",
      "const int bi = row_argmax(sc, H, lane, &b);",
      "const int bi = a; b = 0.f;"),
@@ -87,6 +89,22 @@ ABLATIONS = [
     ("rows: ss scatter", "linear_et_estep.cu",
      "if (w != 0.f) {\n        const int* cr", "if (w > 3e38f) {\n"
      "        const int* cr"),
+    ("gsc: the supports' solves (logits 0, kappa and Sigma unset)",
+     "gsc_et_estep.cu",
+     "support_any<G>(m, code, X, Hp, ks + s, S, log_psi, mm, hip);",
+     "(float)code * 1e-30f;"),
+    ("gsc: the supports' moments", "gsc_et_estep.cu",
+     "        moments_any<G>(m, q, ks + s, S);\n", ""),
+    ("gsc: the gather of the moments into the candidate frame",
+     "gsc_et_estep.cu",
+     "for (int e = istart[k]; e < istart[k + 1]; ++e) acc += ks[ientry[e]];",
+     ""),
+    ("gsc: the ss scatter", "gsc_et_estep.cu",
+     "if (w != 0.f) {\n        const int* cr", "if (w > 3e38f) {\n"
+     "        const int* cr"),
+    ("gsc: the singletons' exponentials (an add in their place)",
+     "gsc_et_estep.cu", "expf((beta * lik + pb * lo) - mx)",
+     "(1.f + (beta * lik + pb * lo) - mx)"),
     ("max: phase 0 (the lattice in registers, ybar (2y - ybar))",
      "max_et_estep.cuh", "for (int dd = lane; dd < D; dd += 32) {",
      "for (int dd = lane; dd < 0; dd += 32) {"),
@@ -165,7 +183,7 @@ ABLATIONS = [
 ABLATED = ("linear_et_estep", "linear_et_decode", "max_et_estep",
            "bigs_multi_annealed", "bigs_multi_saturated",
            "bigs_multi_annealed_16k_rows", "sgemm_nn", "sgemm_tn_splitn",
-           "hgemm_tn_splitn_bf16")
+           "hgemm_tn_splitn_bf16", "gsc_et_estep")
 #: the GEMM wrappers `compare` holds to the parent's outputs, bit for bit
 SAME_BITS = ("sgemm_nn", "sgemm_tn_splitn", "hgemm_nn_bf16", "hgemm_nn_fp16")
 #: and those whose bits it reports
@@ -195,7 +213,10 @@ VARIANTS = [
      "constexpr int RAW_STAGES = 3;", "constexpr int RAW_STAGES = 4;"),
     ("nothing, but hgemm tn's tensor maps without L2 promotion",
      "hgemm_tn.cuh", "CU_TENSOR_MAP_L2_PROMOTION_L2_256B",
-     "CU_TENSOR_MAP_L2_PROMOTION_NONE")]
+     "CU_TENSOR_MAP_L2_PROMOTION_NONE"),
+    ("nothing, but the gsc kernel's lanes walking the supports largest "
+     "first", "gsc_et_estep.cu", "for (int s = lane; s < S; s += 32) {",
+     "for (int s = S - 1 - lane; s >= 0; s -= 32) {")]
 
 
 def smi() -> str:
@@ -268,9 +289,11 @@ def setups(torch, np, which=("bsc", "mca", "tsc")):
 
 def kernel_calls(torch, np):
     """{name: a call of one wrapper at its main-path shape}."""
+    import importlib.util
     from prosper_tpu_torch.ops import linear_cuda, max_cuda
     dev = torch.device("cuda")
-    su = setups(torch, np)
+    gsc = importlib.util.find_spec("prosper_tpu_torch.ops.gsc_cuda")
+    su = setups(torch, np, ("bsc", "mca", "tsc") + (("gsc",) if gsc else ()))
     w = torch.ones(N, device=dev)
     calls = {}
     m, y, p = su["bsc"]
@@ -318,6 +341,12 @@ def kernel_calls(torch, np):
            *margs[2:])
     calls["bigs_multi_annealed_16k_rows"] = (
         lambda: bigs_cuda.bigs_multi_cuda(*few, collect_true=True))
+    if gsc:                                # GSC's E-step, where present
+        from prosper_tpu_torch.ops import gsc_cuda
+        mg, yg, pg = su["gsc"]
+        calls["gsc_et_estep"] = lambda: gsc_cuda.gsc_et_estep_cuda(
+            yg, w, pg["W"], pg["sigma"] ** 2, pg["pi"], pg["mu"], pg["psi"],
+            mg.state_arrays(dev), 6, 0.7, 1.0)
     return calls
 
 
