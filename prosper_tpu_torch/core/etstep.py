@@ -845,32 +845,17 @@ def linear_et_posterior(y: torch.Tensor, W: torch.Tensor, sigma2,
                         log_odds: torch.Tensor, sa: LinearStateArrays,
                         Hp: int, signed_select: bool, top_L: int = 10,
                         beta=1.0, prior_beta=1.0, chunk: int = 4096,
-                        dense_states: bool = True) -> Dict[str, torch.Tensor]:
-    """Chunked posterior decode for held-out data (plain version): per
-    datapoint the top-L truncated states by posterior probability, their
-    probabilities, the posterior mean, the reconstruction and F."""
+                        dense_states: bool = True,
+                        decode=linear_et_decode) -> Dict[str, torch.Tensor]:
+    """Chunked posterior decode for held-out data: per datapoint the top-L
+    truncated states by posterior probability, their probabilities, the
+    posterior mean, the reconstruction and F.  ``decode`` takes
+    ``linear_et_decode``'s arguments and gives its outputs: the plain
+    version (the default), or a route that may run the decode kernel."""
     with traced_region("decode"):
-        F, s_mean, top_q, top_u, cand = linear_et_decode(
+        F, s_mean, top_q, top_u, cand = decode(
             y, W, sigma2, log_odds, sa, Hp, signed_select, top_L, beta,
             prior_beta, chunk)
-    return posterior_outputs(W, F, s_mean, top_q, top_u, cand, sa,
-                             dense_states)
-
-
-def linear_et_posterior_kernel(y: torch.Tensor, W: torch.Tensor, sigma2,
-                               log_odds: torch.Tensor, sa: LinearStateArrays,
-                               Hp: int, signed_select: bool, top_L: int = 10,
-                               beta=1.0, prior_beta=1.0,
-                               dense_states: bool = True
-                               ) -> Dict[str, torch.Tensor]:
-    """Posterior decode through the fused decode kernel on a CUDA tensor
-    (``ops/linear_cuda.py``; its plain version on a CPU tensor).  Same
-    output contract as ``linear_et_posterior``."""
-    from prosper_tpu_torch.ops.linear_cuda import linear_et_decode as fused
-    with traced_region("decode"):
-        F, s_mean, top_q, top_u, cand = fused(
-            y, W, sigma2, log_odds, sa, Hp, signed_select, top_L, beta,
-            prior_beta)
     return posterior_outputs(W, F, s_mean, top_q, top_u, cand, sa,
                              dense_states)
 

@@ -51,8 +51,8 @@ from prosper_tpu_torch.core.etstep import (LinearStateArrays, _candidates,
                                            union_softmax)
 from prosper_tpu_torch.core.select import top_l_argmax
 from prosper_tpu_torch.io.tracing import traced_region
-from prosper_tpu_torch.ops.cuda_lib import cached_for
 from prosper_tpu_torch.parallel.mesh import state_rank, state_sharded
+from prosper_tpu_torch.utils import cached_for
 
 
 # ---- the padded tensor form: (..., n, n) matrices ---------------------------

@@ -3,14 +3,14 @@
 Counterpart of ``prosper_tpu/models/gsc.py``.  s_h = b_h z_h with
 b ~ Bernoulli(pi) and z ~ N(mu, psi); the E-step enumerates the binary
 supports with the slab integrated out per support.  With
-``backend="cuda"`` (the default) it runs the kernel of ``ops/gsc_cuda.py``
-on a CUDA tensor (the JAX package has no Pallas kernel for this family; the
-port's was written for the card) and the plain PyTorch version
-(``core/gscstep.py``) on a CPU tensor; a model past the kernel's limits
-and a state axis raise on a CUDA tensor.  ``backend="plain"`` runs the
-plain version on whatever device the tensors lie on, which is how such a
-model trains on the card.  The M-step
-updates W, pi and sigma and the slab's mean and variance:
+``backend="cuda"`` (the default) it goes through the family's route,
+``ops/gsc_cuda.py::gsc_et_estep``: the kernel on a CUDA tensor (the JAX
+package has no Pallas kernel for this family; the port's was written for
+the card), the plain PyTorch version (``core/gscstep.py``) on a CPU
+tensor, and a refusal for a model past the kernel's limits or a state axis
+on a CUDA tensor.  ``backend="plain"`` runs the plain version on whatever
+device the tensors lie on, which is how such a model trains on the card.
+The M-step updates W, pi and sigma and the slab's mean and variance:
 
   W      <- (sum_n y <sz>^T)(sum_n <sz sz^T>)^-1      (least squares)
   pi     <- ET-corrected mean support size            (as BSC)
@@ -67,12 +67,11 @@ class GSC(ETModel):
         """E-step over one block of data: (F (N,), sums).  ``params`` are
         already noisified; the caller owns the weight mask.  A saturated
         step skips the un-annealed channel (F_true == F there).  With
-        ``backend="cuda"`` the kernel on a CUDA tensor and the plain
-        version on a CPU one (``ops/gsc_cuda.py::gsc_et_estep``); with
+        ``backend="cuda"`` the route ``ops/gsc_cuda.py::gsc_et_estep`` picks
+        the kernel or the plain version, or refuses; with
         ``backend="plain"`` the plain version.  Under a state axis
         (``state_axis``, ``n_state_shards > 1``) the plain version on this
-        rank's level-aligned share of the supports (``core/gscstep.py``);
-        on a CUDA tensor that needs ``backend="plain"``."""
+        rank's level-aligned share of the supports (``core/gscstep.py``)."""
         W = params["W"]
         estep = (gscstep.gsc_et_estep if self.backend == "plain"
                  else gsc_et_estep)

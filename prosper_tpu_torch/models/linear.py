@@ -9,13 +9,12 @@ prior; they differ in the per-unit value set and the prior:
   DSC:  s_h in {0} ∪ Phi,    p(s_h=phi_k) = pi_k              (vector pi)
 
 With ``backend="cuda"`` (the default; the JAX package's name "pallas" is
-taken for it) the E-step runs a CUDA kernel on a CUDA tensor (the fused
-E-step, or with ``s_block > 0`` the big-S one) and its plain version on a
-CPU tensor (``ops/linear_cuda.py``); with ``backend="plain"`` (or "xla") it
-runs the plain version on whatever device the tensors lie on, which is
-also how a model wider than a kernel's limits trains on the card, and DSC
-with a learned value set, whose sums no kernel collects.  The M-step is
-closed form:
+taken for it) the E-step and the decode go through the family's routes in
+``ops/linear_cuda.py``, which pick a kernel or the plain version, or
+refuse; with ``backend="plain"`` (or "xla") they run the plain version on
+whatever device the tensors lie on, which is also how a model wider than a
+kernel's limits trains on the card, and DSC with a learned value set, whose
+sums no kernel collects.  The M-step is closed form:
 
   W     <- (sum_n y <s>^T) (sum_n <s s^T>)^-1
   pi    <- pi * (A_gamma/B_gamma) * mean<|s|>        (ET truncation correction)
@@ -24,6 +23,7 @@ closed form:
 
 from __future__ import annotations
 
+import functools
 from typing import Dict
 
 import numpy as np
@@ -33,14 +33,13 @@ from prosper_tpu_torch.core import etstep
 from prosper_tpu_torch.core import states as states_mod
 from prosper_tpu_torch.core.etstep import (LinearStateArrays,
                                            linear_et_posterior,
-                                           linear_et_posterior_kernel,
                                            traced_state_arrays,
                                            truncated_prior_logmass)
 from prosper_tpu_torch.io.tracing import traced_region
 from prosper_tpu_torch.models.base import (ETModel, device_sched,
                                            pattern_of, resolve_backend,
                                            sched_floats, to_numpy)
-from prosper_tpu_torch.ops.linear_cuda import linear_et_estep
+from prosper_tpu_torch.ops import linear_cuda
 from prosper_tpu_torch.parallel.mesh import (check_runtime, psum_dict,
                                              state_rank, state_sharded)
 from prosper_tpu_torch.utils.staging import rows_to_device
@@ -154,16 +153,6 @@ class LinearETModel(ETModel):
                                        params["phi"])
         return sa
 
-    def _check_phi_backend(self, device) -> None:
-        """Learned Phi needs the value-set sums and state tables that
-        follow ``params["phi"]``; only the plain version has them."""
-        if (self.learn_phi and self.backend == "cuda"
-                and device.type == "cuda"):
-            raise ValueError(
-                "no CUDA kernel collects the value-set sums (phi_c, phi_M) "
-                "of a learned Phi; build the model with backend=\"plain\" "
-                "to train and decode it on the card")
-
     # -- prior hooks (subclass contract) --------------------------------------
 
     def log_odds(self, params) -> torch.Tensor:
@@ -183,37 +172,28 @@ class LinearETModel(ETModel):
                    n_state_shards: int = 1):
         """E-step over one block of data: (F (N,), sums).  ``params`` are
         already noisified; the caller owns the weight mask.  With
-        ``backend="cuda"`` a CUDA tensor always launches a kernel, the fused
-        E-step or the big-S one when ``s_block > 0``, or raises (learned
-        Phi); ``backend="plain"`` runs the plain version on the tensors'
-        device.  Learned Phi tiles no states: ``s_block`` is not read.  A
-        saturated step skips the un-annealed channel (F_true == F there).
-
-        Under a state axis (``state_axis``: the state group,
-        ``n_state_shards > 1``) the rank's slice of the states:
-        ``backend="cuda"`` on a CUDA tensor runs the big-S kernel on it
-        whatever ``s_block`` is (the fused rows kernel needs the whole
-        union, as the JAX package turns its own kernel off there);
-        ``backend="plain"`` and learned Phi run the plain version sliced
-        (``_chunk_estats`` for ``s_block = 0``, ``_chunk_estats_bigs``
-        above).  The sums are then this state rank's part."""
+        ``backend="cuda"`` the route ``ops/linear_cuda.py::linear_et_estep``
+        picks the kernel or the plain version, or refuses;
+        ``backend="plain"`` runs the plain version on the tensors' device.
+        Learned Phi adds the value-set sums and tiles no states: ``s_block``
+        is not read.  A saturated step skips the un-annealed channel
+        (F_true == F there).  Under a state axis (``state_axis``: the state
+        group, ``n_state_shards > 1``) the rank's slice of the states; the
+        sums are then this state rank's part."""
         W = params["W"]
-        shard = dict(state_axis=state_axis, n_state_shards=n_state_shards)
-        saturated = pattern_of(sched).saturated
-        args = (y, weight, W, params["sigma"] ** 2, self.log_odds(params),
-                self._sa_for(params), self.Hprime, self.signed_select,
-                sched["beta"], sched["prior_beta"])
+        kw = dict(chunk=self.chunk,
+                  collect_true=not pattern_of(sched).saturated,
+                  compute_dtype=self.compute_dtype, state_axis=state_axis,
+                  n_state_shards=n_state_shards)
         if self.learn_phi:
-            self._check_phi_backend(W.device)
-            return etstep.linear_et_estep(
-                *args, chunk=self.chunk, collect_true=not saturated,
-                collect_phi=True, slot_onehot=self.slot_onehot(W.device),
-                compute_dtype=self.compute_dtype, **shard)
-        estep = (linear_et_estep if self.backend == "cuda"
+            kw.update(collect_phi=True, slot_onehot=self.slot_onehot(W.device))
+        else:
+            kw.update(s_block=self.s_block)
+        estep = (linear_cuda.linear_et_estep if self.backend == "cuda"
                  else etstep.linear_et_estep)
-        return estep(*args, chunk=self.chunk, collect_true=not saturated,
-                     s_block=self.s_block, compute_dtype=self.compute_dtype,
-                     **shard)
+        return estep(y, weight, W, params["sigma"] ** 2, self.log_odds(params),
+                     self._sa_for(params), self.Hprime, self.signed_select,
+                     sched["beta"], sched["prior_beta"], **kw)
 
     def finalize_mstep(self, params, sums, N_total, group=None,
                        state_axis=None, n_state_shards: int = 1):
@@ -291,12 +271,10 @@ class LinearETModel(ETModel):
                   dense_states=None, runtime=None):
         """Posterior decode on held-out data: top states, probabilities,
         posterior mean, reconstruction and F, on the device of
-        ``params['W']``; on a CUDA device through the fused decode kernel,
-        except for a big-S model (``s_block > 0``) and ``backend="plain"``,
-        which decode through the plain ``linear_et_posterior`` on any
-        device, as the JAX package keeps such models off its fused decode.
-        Learned Phi decodes through the plain version alone (on the card
-        with ``backend="plain"``).
+        ``params['W']``; with ``backend="cuda"`` through the route
+        ``ops/linear_cuda.py::linear_et_decode`` (the decode kernel on a
+        CUDA device, but for a big-S model and learned Phi), with
+        ``backend="plain"`` through the plain version.
         ``dense_states``: True returns ``top_states (N, L, H)``, False the
         compact fields (``core.etstep.densify_top_states`` rebuilds the
         dense tensor), None picks by output size.
@@ -316,16 +294,15 @@ class LinearETModel(ETModel):
             y = rows_to_device(y, W.device)
             dense_states = self.resolve_dense_states(y.shape[0], top_L,
                                                      dense_states)
-            self._check_phi_backend(W.device)
-            decode = (linear_et_posterior
-                      if (self.s_block > 0 or self.backend == "plain"
-                          or self.learn_phi)
-                      else linear_et_posterior_kernel)
-            return decode(
+            decode = (etstep.linear_et_decode if self.backend == "plain"
+                      else functools.partial(linear_cuda.linear_et_decode,
+                                             s_block=self.s_block,
+                                             learned_phi=self.learn_phi))
+            return linear_et_posterior(
                 y.contiguous(), W, params["sigma"] ** 2,
                 self.log_odds(params), self._sa_for(params), self.Hprime,
                 self.signed_select, top_L, beta, prior_beta,
-                dense_states=dense_states)
+                dense_states=dense_states, decode=decode)
 
 
 class BSC(LinearETModel):

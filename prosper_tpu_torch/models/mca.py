@@ -10,18 +10,14 @@ gives each observed dimension to its winning cause (``core/maxstep.py``):
     sigma  <- sqrt( sum <||y - ybar_s||^2> / (N_use * D) )
 
 With ``backend="cuda"`` (the default; the JAX package's "pallas" is taken
-for it) and rho <= 0 (the hard winner) the E-step runs the fused CUDA
-kernel on a CUDA tensor and its plain version on a CPU tensor
-(``ops/max_cuda.py``); the softened max (rho > 0, an annealing window) runs
-the plain version on either device, as the JAX package's ``lax.cond`` sends
-it to XLA.  ``backend="plain"`` (or "xla") runs the plain version on
-whatever device the tensors lie on, which is also how a state space larger
-than the kernel holds (H' > 8 or more than 128 multi states) trains on the
-card.  Under a state axis (``state_axis``, ``n_state_shards > 1``) the
-E-step is the plain loop form on this rank's slice of the states
-(``core/maxstep.py``): the kernel needs the whole subset lattice, so
-``backend="cuda"`` on a CUDA tensor raises there and ``backend="plain"``
-trains such a run on the card.
+for it) the E-step goes through the family's route,
+``ops/max_cuda.py::max_et_estep``, which picks the fused CUDA kernel (the
+hard winner on a CUDA tensor) or the plain version (the softened max, rho >
+0, and a CPU tensor), or refuses (a state axis on a CUDA tensor: the kernel
+needs the whole subset lattice).  ``backend="plain"`` (or "xla") runs the
+plain version on whatever device the tensors lie on, which is also how a
+state space larger than the kernel holds (H' > 8 or more than 128 multi
+states) and a state axis train on the card.
 """
 
 from __future__ import annotations
@@ -38,7 +34,7 @@ from prosper_tpu_torch.models.base import (ETModel, device_sched, pattern_of,
                                            to_numpy)
 from prosper_tpu_torch.models.linear import reduce_sums
 from prosper_tpu_torch.ops import max_cuda
-from prosper_tpu_torch.parallel.mesh import check_runtime, state_sharded
+from prosper_tpu_torch.parallel.mesh import check_runtime
 from prosper_tpu_torch.utils.staging import rows_to_device
 
 
@@ -74,31 +70,23 @@ class MCA(ETModel):
     def estep_sums(self, params, y, weight, sched, state_axis=None,
                    n_state_shards: int = 1):
         """E-step over one block of data: (F (N,), sums).  rho > 0 runs the
-        softened max (plain version); rho <= 0 the hard winner, through the
-        fused kernel on a CUDA tensor unless ``backend="plain"``.  A
-        saturated step skips the un-annealed channel (F_true == F there).
-        Under a state axis the plain loop form on this rank's slice; on a
-        CUDA tensor that needs ``backend="plain"``."""
+        softened max, rho <= 0 the hard winner; with ``backend="cuda"`` the
+        route ``ops/max_cuda.py::max_et_estep`` picks the kernel or the
+        plain version, or refuses, and ``backend="plain"`` runs the plain
+        version.  A saturated step skips the un-annealed channel (F_true ==
+        F there).  Under a state axis the plain loop form on this rank's
+        slice."""
         W = params["W"]
-        sharded = state_sharded(state_axis, n_state_shards)
-        if sharded and self.backend == "cuda" and W.device.type == "cuda":
-            raise ValueError(
-                "under a state axis the max family runs the plain loop form "
-                "on each rank's slice of the states: the CUDA kernel needs "
-                "the whole subset lattice; build the model with "
-                'backend="plain" to train it on the card')
-        args = (y, weight, W, params["sigma"] ** 2, self._log_odds(params),
-                self.state_arrays(W.device), self.Hprime, self.magnitude,
-                sched["beta"], sched["prior_beta"])
         pattern = pattern_of(sched)
-        if pattern.soft or self.backend == "plain" or sharded:
-            return maxstep.max_et_estep(
-                *args, chunk=self.chunk,
-                rho=sched["rho"] if pattern.soft else None,
-                collect_true=not pattern.saturated, state_axis=state_axis,
-                n_state_shards=n_state_shards)
-        return max_cuda.max_et_estep(*args, chunk=self.chunk,
-                                     collect_true=not pattern.saturated)
+        estep = (max_cuda.max_et_estep if self.backend == "cuda"
+                 else maxstep.max_et_estep)
+        return estep(y, weight, W, params["sigma"] ** 2,
+                     self._log_odds(params), self.state_arrays(W.device),
+                     self.Hprime, self.magnitude, sched["beta"],
+                     sched["prior_beta"], chunk=self.chunk,
+                     rho=sched["rho"] if pattern.soft else None,
+                     collect_true=not pattern.saturated,
+                     state_axis=state_axis, n_state_shards=n_state_shards)
 
     def finalize_mstep(self, params, sums, N_total, group=None,
                        state_axis=None, n_state_shards: int = 1):

@@ -10,10 +10,11 @@ outer-product blocks; one dot product for the annealed and the un-annealed
 logit) and the wrapper mirrors the second moments.  The torch code around
 it (front end, the zero and singleton states, the combine and the
 sufficient statistics) is ``core/etstep.py::_chunk_estats_bigs``.  The
-library is built and loaded by ``ops/cuda_lib.py`` at first CUDA use.  On
-a CPU tensor the wrapper runs the plain version (``core.etstep.bigs_multi``);
-on a CUDA tensor it launches the kernel or raises.  The dispatcher between
-the two is the E-step's, ``ops/linear_cuda.py::linear_et_estep``.
+library is built and loaded by ``ops/cuda_lib.py`` at first CUDA use.
+``bigs_multi_cuda`` takes CUDA tensors only.  The route between the kernel
+and its plain version (``core.etstep.bigs_multi``) is the E-step's,
+``ops/linear_cuda.py::linear_et_estep``, and under a state axis
+``_slice_multi``'s.
 """
 
 from __future__ import annotations
@@ -25,13 +26,14 @@ import torch
 
 from prosper_tpu_torch.core import etstep
 from prosper_tpu_torch.core.etstep import LinearStateArrays
-from prosper_tpu_torch.ops.cuda_lib import (LAUNCHES, SMEM_LIMIT, cached_for,
-                                            check, in_row_chunks,
-                                            load_library, raise_on,
-                                            schedule_pair)
+from prosper_tpu_torch.ops.cuda_lib import (LAUNCHES, SMEM_LIMIT, check,
+                                            check_input, in_row_chunks,
+                                            load_library, needs_plain,
+                                            raise_on, schedule_pair)
 from prosper_tpu_torch.ops.gemm_cuda import (hgemm_nn_cuda,
                                              hgemm_tn_splitn_cuda)
 from prosper_tpu_torch.parallel.mesh import state_rank, state_sharded
+from prosper_tpu_torch.utils import cached_for
 
 __all__ = ["LAUNCHES", "bigs_multi_cuda", "empty_moments",
            "linear_et_estep_bigs", "linear_et_estep_bigs_cuda"]
@@ -44,11 +46,10 @@ def check_limits(Hp: int, K: int):
     """Raise ValueError for more moment columns than the kernel holds."""
     nM = Hp + Hp * (Hp + 1) // 2 + K + 2
     if nM > NM_MAX:
-        raise ValueError(
+        raise needs_plain(
             f"kernel limit: {nM} moment columns (Hp + Hp (Hp + 1) / 2 + K "
             f"+ 2) are more than the {NM_MAX} the register tile holds "
-            f"(Hp={Hp}, K={K}); backend=\"plain\" trains such a model on "
-            "the card through the plain PyTorch version")
+            f"(Hp={Hp}, K={K})")
 
 
 def tri_tables(lib, states_p, outer_p, vcounts_p, absst_p):
@@ -65,11 +66,10 @@ def tri_tables(lib, states_p, outer_p, vcounts_p, absst_p):
         raise ValueError(f"the kernel holds no {nM} moment columns "
                          f"(Hp={Hp}, K={K})")
     if lib.bigs_multi_warps(nL, nM) == 0:
-        raise ValueError(
+        raise needs_plain(
             f"a block needs {lib.bigs_multi_smem_bytes(nL, nM)} bytes of "
             f"shared memory, more than the {SMEM_LIMIT} a block may use "
-            f"(Hp={Hp}); backend=\"plain\" trains such a model on the card "
-            "through the plain PyTorch version")
+            f"(Hp={Hp})")
     return etstep.bigs_tables_tri(states_p, outer_p, vcounts_p, absst_p,
                                   LEAD, cols)
 
@@ -100,9 +100,7 @@ def bigs_multi_cuda(proj, Gf, states_p, outer_p, vcounts_p, prior, valid,
     is no launch and the output is ``empty_moments``, as the plain
     version's.  ``tables`` are the ``tri_tables`` of these state tables
     where the caller keeps them; else they are built here."""
-    if proj.device.type != "cuda":
-        raise ValueError(f"the CUDA kernels take CUDA tensors, got "
-                         f"{proj.device}")
+    check_input(proj)
     C, Hp = proj.shape
     S_pad, K = vcounts_p.shape
     dev = proj.device
@@ -114,8 +112,6 @@ def bigs_multi_cuda(proj, Gf, states_p, outer_p, vcounts_p, prior, valid,
     check(prior, "prior", (S_pad,), dev)
     check(valid, "valid", (S_pad,), dev)
     check(absst_p, "abs_states", (S_pad,), dev)
-    if C < 1:
-        raise ValueError("need at least one datapoint")
     n_states = S_pad if n_states is None else int(n_states)
     if not 0 <= n_states <= S_pad:
         raise ValueError(f"n_states={n_states} is outside the table's "
@@ -148,23 +144,23 @@ def linear_et_estep_bigs(y, weight, W, sigma2, log_odds,
                          beta, prior_beta, s_block: int,
                          collect_true: bool = True, multi=etstep.bigs_multi,
                          state_axis=None, n_state_shards: int = 1,
-                         compute_dtype=None
+                         compute_dtype=None, kernels: bool = False
                          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """The big-S E-step around ``multi`` (the plain ``bigs_multi`` or its
-    kernel), any N, on either device: the rows are cut where the larger of
+    """The big-S E-step around ``multi`` (the plain ``bigs_multi``, or its
+    kernel with ``kernels``), any N: the rows are cut where the larger of
     the (rows, H) and the two (rows, H', H) float32 workspaces of
     ``core.etstep._chunk_estats_bigs`` (``slot_sum_ss``) would exceed
     ``cuda_lib.P_LIMIT_BYTES``, F concatenated and the sums added in chunk
     order; where all rows fit it is one call, as without the cut.  Under
     a state axis each chunk runs on this state rank's slice.  With a
     16-bit ``compute_dtype`` P = yW and xs = y^T sw of a chunk come from
-    the 16-bit GEMM kernels on a CUDA tensor (``matmul_as`` on a CPU one);
+    the 16-bit GEMM kernels with ``kernels`` (``matmul_as`` without);
     without it they are float32 torch products.  The Gram matrix stays
     float32 either way, as in the JAX package."""
     N, H = y.shape[0], W.shape[1]
     gram = W.T @ W
     gram_diag = torch.diagonal(gram)
-    kernels = compute_dtype is not None and y.device.type == "cuda"
+    half = kernels and compute_dtype is not None
 
     def chunk(i, j):
         y_c = y[i:j]
@@ -173,9 +169,9 @@ def linear_et_estep_bigs(y, weight, W, sigma2, log_odds,
             signed_select, beta, prior_beta, s_block, collect_true,
             multi=multi, state_axis=state_axis,
             n_state_shards=n_state_shards,
-            P=hgemm_nn_cuda(y_c, W, compute_dtype) if kernels else None,
+            P=hgemm_nn_cuda(y_c, W, compute_dtype) if half else None,
             compute_dtype=compute_dtype)
-        if kernels:                       # the sums hold sw in place of xs
+        if half:                          # the sums hold sw in place of xs
             xs = hgemm_tn_splitn_cuda(y_c, sums.pop("sw"), compute_dtype)
             sums = dict(xs=xs, **sums)
         return F, sums
@@ -184,21 +180,21 @@ def linear_et_estep_bigs(y, weight, W, sigma2, log_odds,
 
 
 def _slice_multi(sa: LinearStateArrays, state_axis, n_state_shards: int):
-    """The recurrence on this state rank's slice as the kernel runs it:
-    the slice of ``ceil(S / n)`` states (a padding unit of 1; the tables
-    ``core.etstep.bigs_front`` cuts) whose ``n_states`` leading rows are
-    real, and on a CUDA tensor its reduced tables, built once per (state
-    space, n, state rank).  On a CPU tensor
-    the plain ``bigs_multi`` over the same slice in one tile."""
+    """(the recurrence on this state rank's slice, whether it is the
+    kernel): the slice of ``ceil(S / n)`` states (a padding unit of 1; the
+    tables ``core.etstep.bigs_front`` cuts) whose ``n_states`` leading rows
+    are real; on a CUDA tensor the kernel with the slice's reduced tables,
+    built once per (state space, n, state rank), on a CPU tensor the plain
+    ``bigs_multi`` over the same slice in one tile."""
     srank = state_rank(state_axis)
     lo, hi, _ = etstep.state_slice(sa.states.shape[0], n_state_shards,
                                    srank)
-    if sa.states.device.type != "cuda":
+    if not sa.states.is_cuda:
         def plain(*args):
             *ops, inv2s2, beta, prior_beta, _, collect_true = args
             return etstep.bigs_multi(*ops, inv2s2, beta, prior_beta,
                                      max(1, ops[2].shape[0]), collect_true)
-        return plain
+        return plain, False
     tables = cached_for(sa.states, ("bigs_tri", n_state_shards, srank),
                         lambda: tri_tables(load_library(), *(
                             etstep.slice_state_shard(
@@ -206,7 +202,7 @@ def _slice_multi(sa: LinearStateArrays, state_axis, n_state_shards: int):
                                 [sa.states, sa.outer, sa.value_counts,
                                  sa.abs_states])[0])))
     return functools.partial(bigs_multi_cuda, tables=tables,
-                             n_states=hi - lo)
+                             n_states=hi - lo), True
 
 
 def linear_et_estep_bigs_cuda(y, weight, W, sigma2, log_odds,
@@ -232,17 +228,17 @@ def linear_et_estep_bigs_cuda(y, weight, W, sigma2, log_odds,
     kernel takes CUDA tensors only.  ``compute_dtype`` as
     ``linear_et_estep_bigs``'s: the kernel itself stays float32."""
     if state_sharded(state_axis, n_state_shards):
-        multi = _slice_multi(sa, state_axis, n_state_shards)
+        multi, kernels = _slice_multi(sa, state_axis, n_state_shards)
         return linear_et_estep_bigs(
             y, weight, W, sigma2, log_odds, sa, Hp, signed_select, beta,
             prior_beta, 1, collect_true, multi=multi, state_axis=state_axis,
-            n_state_shards=n_state_shards, compute_dtype=compute_dtype)
-    if y.device.type != "cuda":
-        raise ValueError(f"the CUDA kernels take CUDA tensors, got {y.device}")
+            n_state_shards=n_state_shards, compute_dtype=compute_dtype,
+            kernels=kernels)
+    check_input(y)
     tables = cached_for(sa.states, "bigs_tri", lambda: tri_tables(
         load_library(), sa.states, sa.outer, sa.value_counts, sa.abs_states))
     return linear_et_estep_bigs(
         y, weight, W, sigma2, log_odds, sa, Hp, signed_select, beta,
         prior_beta, 1, collect_true,
         multi=functools.partial(bigs_multi_cuda, tables=tables),
-        compute_dtype=compute_dtype)
+        compute_dtype=compute_dtype, kernels=True)

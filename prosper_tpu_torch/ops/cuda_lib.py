@@ -5,9 +5,11 @@ object file (one ``nvcc`` process per source, all started together), and
 the objects are linked into one shared library with a plain C interface,
 named by a hash of the sources and flags, in ``prosper_tpu_torch/build/``.
 This happens at first CUDA use, never at import; the library is loaded
-with ``ctypes``.  The wrappers (``ops/gemm_cuda.py``, ``ops/linear_cuda.py``,
-``ops/max_cuda.py``, ``ops/bigs_cuda.py``) share the input checks below and
-the launch counts in ``LAUNCHES`` (``ops/gsc_cuda.py`` too).
+with ``ctypes``.  The kernel wrappers (``ops/gemm_cuda.py``,
+``ops/linear_cuda.py``, ``ops/bigs_cuda.py``, ``ops/max_cuda.py``,
+``ops/gsc_cuda.py``) share the input checks below, the one refusal that
+names ``backend="plain"`` (``needs_plain``) and the launch counts in
+``LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -19,7 +21,6 @@ import os
 import shutil
 import subprocess
 import tempfile
-import weakref
 from pathlib import Path
 from typing import Dict, Tuple
 
@@ -151,6 +152,31 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
+def needs_plain(reason: str) -> ValueError:
+    """The error for a model or a run that no kernel holds: ``reason``, and
+    the way to run it on the card."""
+    return ValueError(f'{reason}; backend="plain" runs such a model on the '
+                      "card through the plain PyTorch version")
+
+
+def check_input(y: torch.Tensor):
+    """Raise ValueError unless ``y``, the rows a kernel reads, is a CUDA
+    tensor with at least one row: the first check of every kernel wrapper,
+    made before the library is loaded."""
+    if y.device.type != "cuda":
+        raise ValueError(f"the CUDA kernels take CUDA tensors, got {y.device}")
+    if y.shape[0] < 1:
+        raise ValueError("need at least one datapoint")
+
+
+def check_smem(smem: int, what: str):
+    """Raise ``needs_plain`` where a block of ``what`` needs more than the
+    ``SMEM_LIMIT`` bytes of shared memory a block may use."""
+    if smem > SMEM_LIMIT:
+        raise needs_plain(f"{what}: a block needs {smem} bytes of shared "
+                          f"memory, more than the {SMEM_LIMIT} it may use")
+
+
 def check(t: torch.Tensor, name: str, shape, device, dtype=torch.float32):
     """Raise ValueError unless ``t`` is a contiguous ``dtype`` tensor of
     ``shape`` on ``device``."""
@@ -199,24 +225,6 @@ def scalars(sigma2, beta, prior_beta, device) -> torch.Tensor:
     s2 = torch.as_tensor(sigma2, dtype=torch.float32, device=device)
     return torch.cat([s2.reshape(1),
                       schedule_pair(beta, prior_beta, device)])
-
-
-_PER_TENSOR: Dict[tuple, tuple] = {}
-
-
-def cached_for(owner: torch.Tensor, name: str, build):
-    """``build()``, made once for the tensor ``owner`` (by identity) and
-    kept for as long as it lives: what a kernel derives from a model's
-    state tables alone (transposed or reduced copies) is not rebuilt on
-    every call."""
-    key = (id(owner), name)
-    hit = _PER_TENSOR.get(key)
-    if hit is not None and hit[0]() is owner:
-        return hit[1]
-    value = build()
-    _PER_TENSOR[key] = (weakref.ref(
-        owner, lambda _, key=key: _PER_TENSOR.pop(key, None)), value)
-    return value
 
 
 def blocks_per_sm(smem: int) -> int:

@@ -10,9 +10,9 @@
 They stand for the products inside the bodies of the TPU kernels
 (``prosper_tpu/ops/linear_pallas.py::_kernel``,
 ``prosper_tpu/ops/max_pallas.py::_kernel``), which is why they are kernels
-of this package and not library calls.  On a CPU tensor a wrapper runs the
-plain version (``torch.matmul``); on a CUDA tensor it launches the kernel or
-raises.  Both run on the tensor cores in split TF32: each operand is cut
+of this package and not library calls.  They take CUDA tensors only: on a
+CPU tensor the E-step routes run the plain versions (``torch.matmul``) in
+their place.  Both run on the tensor cores in split TF32: each operand is cut
 into two TF32 numbers (hi + lo, to 2^-22 relative), a product is the sum
 of three TF32 products (lo x lo dropped), and the tensor cores' sums of
 short runs of depth (a slab of 32, or 8 where the whole depth is one slab)
@@ -43,13 +43,12 @@ from typing import Dict, Optional
 
 import torch
 
-from prosper_tpu_torch.core.etstep import matmul_as
-from prosper_tpu_torch.ops.cuda_lib import (LAUNCHES, check, load_library,
-                                            raise_on)
+from prosper_tpu_torch.ops.cuda_lib import (LAUNCHES, check, check_input,
+                                            load_library, raise_on)
 
-__all__ = ["HGEMM_TN_PATHS", "hgemm_nn", "hgemm_nn_cuda", "hgemm_tn_bulk",
-           "hgemm_tn_splitn", "hgemm_tn_splitn_cuda", "sgemm_nn", "sgemm_nn_cuda",
-           "sgemm_tn_splitn", "sgemm_tn_splitn_cuda", "split_rows"]
+__all__ = ["HGEMM_TN_PATHS", "hgemm_nn_cuda", "hgemm_tn_bulk",
+           "hgemm_tn_splitn_cuda", "sgemm_nn_cuda", "sgemm_tn_splitn_cuda",
+           "split_rows"]
 
 #: ``sgemm_tn_splitn`` cuts its sum over N into about this many splits, of
 #: a multiple of 32 rows and at least ``MIN_SPLIT_ROWS`` each: at the
@@ -115,8 +114,7 @@ def _half_code(dtype) -> str:
 def _nn_cuda(a, b, code: Optional[str]) -> torch.Tensor:
     """``a @ b`` by ``sgemm_nn`` (code None) or ``hgemm_nn`` (the suffix of
     its 16-bit type)."""
-    if a.device.type != "cuda":
-        raise ValueError(f"the CUDA kernels take CUDA tensors, got {a.device}")
+    check_input(a)
     _check_pair(a, b, rows_match=False)
     (N, D), H = a.shape, b.shape[1]
     if N > N_MAX:
@@ -141,8 +139,7 @@ def _tn_cuda(a, b, code: Optional[str], out: Optional[torch.Tensor],
              accumulate: bool) -> torch.Tensor:
     """``a.T @ b`` by ``sgemm_tn_splitn`` (code None) or ``hgemm_tn_splitn``
     (the suffix of its 16-bit type)."""
-    if a.device.type != "cuda":
-        raise ValueError(f"the CUDA kernels take CUDA tensors, got {a.device}")
+    check_input(a)
     _check_pair(a, b, rows_match=True)
     (N, M), K = a.shape, b.shape[1]
     if N > N_MAX:
@@ -200,40 +197,3 @@ def hgemm_tn_splitn_cuda(a: torch.Tensor, b: torch.Tensor, dtype,
     by the ``hgemm_tn_splitn`` kernel; ``out`` and ``accumulate`` as
     ``sgemm_tn_splitn_cuda``'s."""
     return _tn_cuda(a, b, _half_code(dtype), out, accumulate)
-
-
-def sgemm_nn(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b``: the kernel on CUDA tensors, ``torch.matmul`` on CPU ones."""
-    if a.device.type == "cpu":
-        _check_pair(a, b, rows_match=False)
-        return torch.matmul(a, b)
-    return sgemm_nn_cuda(a, b)
-
-
-def sgemm_tn_splitn(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a.T @ b``: the kernel on CUDA tensors, ``torch.matmul`` on CPU
-    ones."""
-    if a.device.type == "cpu":
-        _check_pair(a, b, rows_match=True)
-        return torch.matmul(a.T, b)
-    return sgemm_tn_splitn_cuda(a, b)
-
-
-def hgemm_nn(a: torch.Tensor, b: torch.Tensor, dtype) -> torch.Tensor:
-    """``a @ b`` at ``dtype``: the kernel on CUDA tensors, its plain version
-    (``matmul_as``) on CPU ones."""
-    if a.device.type == "cpu":
-        _half_code(dtype)
-        _check_pair(a, b, rows_match=False)
-        return matmul_as(a, b, dtype)
-    return hgemm_nn_cuda(a, b, dtype)
-
-
-def hgemm_tn_splitn(a: torch.Tensor, b: torch.Tensor, dtype) -> torch.Tensor:
-    """``a.T @ b`` at ``dtype``: the kernel on CUDA tensors, its plain
-    version (``matmul_as``) on CPU ones."""
-    if a.device.type == "cpu":
-        _half_code(dtype)
-        _check_pair(a, b, rows_match=True)
-        return matmul_as(a.T, b, dtype)
-    return hgemm_tn_splitn_cuda(a, b, dtype)

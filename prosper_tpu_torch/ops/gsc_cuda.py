@@ -9,9 +9,8 @@ and the moments; it turns P's rows into ``w <sz>`` in place), and
 once in ``LAUNCHES["gsc_estep"]``, and its two GEMMs beside it.  On a CPU
 tensor it runs the plain version, ``core/gscstep.py::gsc_et_estep``.  On
 a CUDA tensor a model past the kernel's limits (``within_limits``) and a
-state axis raise a ValueError: nothing falls back, and the model's
-``backend="plain"`` runs such a model on the card through the plain
-version.
+state axis raise ``cuda_lib.needs_plain``'s ValueError: nothing falls
+back.
 
 The JAX package has no TPU kernel for GSC (its E-step is plain XLA); this
 one was added because the plain version's ~420 small operations a chunk
@@ -29,13 +28,14 @@ import torch
 from prosper_tpu_torch.core import gscstep
 from prosper_tpu_torch.core.etstep import LinearStateArrays
 from prosper_tpu_torch.io.tracing import traced_region
-from prosper_tpu_torch.ops.cuda_lib import (LAUNCHES, cached_for, check,
+from prosper_tpu_torch.ops.cuda_lib import (LAUNCHES, check, check_input,
                                             in_row_chunks, load_library,
-                                            occupancy, raise_on,
+                                            needs_plain, occupancy, raise_on,
                                             schedule_pair, sm_count)
 from prosper_tpu_torch.ops.gemm_cuda import (sgemm_nn_cuda,
                                              sgemm_tn_splitn_cuda)
 from prosper_tpu_torch.parallel.mesh import state_sharded
+from prosper_tpu_torch.utils import cached_for
 
 __all__ = ["LAUNCHES", "gsc_et_estep", "gsc_et_estep_cuda",
            "kernel_occupancy", "support_tables", "within_limits"]
@@ -153,8 +153,7 @@ def gsc_et_estep_cuda(y, weight, W, sigma2, pi, mu, psi,
     (N, H) workspace for P would exceed ``cuda_lib.P_LIMIT_BYTES``).  The
     Gram matrix W^T W is a plain product, as the linear family's kernels
     take it."""
-    if y.device.type != "cuda":
-        raise ValueError(f"the CUDA kernels take CUDA tensors, got {y.device}")
+    check_input(y)
     N, D = y.shape
     H = W.shape[1]
     S = sa.states.shape[0]
@@ -163,15 +162,12 @@ def gsc_et_estep_cuda(y, weight, W, sigma2, pi, mu, psi,
     check(weight, "weight", (N,), dev)
     check(W, "W", (D, H), dev)
     check(sa.states, "states", (S, Hp), dev)
-    if N < 1:
-        raise ValueError("need at least one datapoint")
     if not within_limits(W, sa, Hp):
-        raise ValueError(
+        raise needs_plain(
             f"kernel limits: 2 <= Hp <= {HP_MAX}, supports of 2 to "
             f"{GAMMA_MAX} units, H <= {H_MAX}; got {Hp=} {H=} and supports "
             f"of up to {_support_table(sa)[1]} units.  The kernel does "
-            'not hold such a model; backend="plain" trains it on the card '
-            "through the plain PyTorch version")
+            "not hold such a model")
     table, gamma = _support_table(sa)
     lib = load_library()
     _, bps = kernel_occupancy(H, sa, Hp)
@@ -197,20 +193,20 @@ def gsc_et_estep(y: torch.Tensor, weight: torch.Tensor, W: torch.Tensor,
                  collect_true: bool = True, state_axis=None,
                  n_state_shards: int = 1
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """GSC's E-step, (F (N,), sums) with ``core.gscstep.gsc_et_estep``'s
-    keys: on a CPU tensor the plain version chunked by ``chunk`` (under a
-    state axis too), on a CUDA tensor the kernels (``chunk`` unused: the
-    kernel takes any N).  On a CUDA tensor a state axis and a model past
-    the kernel's limits raise a ValueError naming ``backend="plain"``."""
-    if y.device.type != "cuda":
+    """The family's E-step route, (F (N,), sums) with
+    ``core.gscstep.gsc_et_estep``'s keys: on a CPU tensor the plain version
+    chunked by ``chunk`` (under a state axis too), on a CUDA tensor the
+    kernels (``chunk`` unused: the kernel takes any N).  On a CUDA tensor a
+    state axis and a model past the kernel's limits raise
+    ``needs_plain``."""
+    if not y.is_cuda:
         return gscstep.gsc_et_estep(y, weight, W, sigma2, pi, mu, psi, sa,
                                     Hp, beta, prior_beta, chunk,
                                     collect_true, state_axis, n_state_shards)
     if state_sharded(state_axis, n_state_shards):
-        raise ValueError(
+        raise needs_plain(
             "under a state axis GSC runs the plain level-aligned E-step on "
             "each rank's share of the supports: the CUDA kernel needs every "
-            'support; build the model with backend="plain" to train it on '
-            "the card")
+            "support")
     return gsc_et_estep_cuda(y, weight, W, sigma2, pi, mu, psi, sa, Hp, beta,
                              prior_beta, collect_true)

@@ -23,10 +23,13 @@ Two per-datapoint kernels share one front end
   ``LAUNCHES["decode"]``.
 
 The library is built and loaded by ``ops/cuda_lib.py`` at first CUDA use
-(never at import).  Each wrapper checks its inputs, allocates outputs and
-scratch with ``torch.empty``, launches on the current stream and adds one
-to ``LAUNCHES``.  On a CPU tensor a wrapper runs the kernel's plain version
-(``core/etstep.py``); on a CUDA tensor it launches the kernel or raises.
+(never at import).  Each wrapper (``*_cuda``) checks its inputs, allocates
+outputs and scratch with ``torch.empty``, launches on the current stream and
+adds one to ``LAUNCHES``.  The family's two routes, ``linear_et_estep`` and
+``linear_et_decode``, are the one place that picks a kernel or the plain
+version (``core/etstep.py``) and that refuses: the plain version on a CPU
+tensor, a kernel on a CUDA tensor, or a ValueError naming
+``backend="plain"`` where no kernel holds the model.
 """
 
 from __future__ import annotations
@@ -38,15 +41,17 @@ import torch
 from prosper_tpu_torch.core import etstep
 from prosper_tpu_torch.core.etstep import LinearStateArrays
 from prosper_tpu_torch.ops.bigs_cuda import linear_et_estep_bigs_cuda
-from prosper_tpu_torch.ops.cuda_lib import (LAUNCHES, SMEM_LIMIT, cached_for,
-                                            check, in_row_chunks,
-                                            load_library, n_blocks, raise_on,
-                                            row_chunks, scalars)
+from prosper_tpu_torch.ops.cuda_lib import (LAUNCHES, check, check_input,
+                                            check_smem, in_row_chunks,
+                                            load_library, n_blocks,
+                                            needs_plain, raise_on, row_chunks,
+                                            scalars)
 from prosper_tpu_torch.ops.gemm_cuda import (hgemm_nn_cuda,
                                              hgemm_tn_splitn_cuda,
                                              sgemm_nn_cuda,
                                              sgemm_tn_splitn_cuda)
 from prosper_tpu_torch.parallel.mesh import state_sharded
+from prosper_tpu_torch.utils import cached_for
 
 __all__ = ["LAUNCHES", "load_library", "linear_et_estep",
            "linear_et_estep_cuda", "linear_et_decode", "linear_et_decode_cuda"]
@@ -58,18 +63,16 @@ ROWS_TILE = 8                # datapoints per tile of the per-datapoint kernels
 def check_limits(Hp: int, K: int, H: int):
     """Raise ValueError for a model wider than the fused kernels hold."""
     if not (Hp <= HP_MAX and K <= K_MAX and H <= H_MAX):
-        raise ValueError(
+        raise needs_plain(
             f"kernel limits: Hp <= {HP_MAX}, K <= {K_MAX}, H <= {H_MAX}; "
             f"got {Hp=} {K=} {H=}.  The fused E-step and decode kernels do "
-            'not hold such a model; backend="plain" trains and serves it on '
-            "the card through the plain PyTorch version")
+            "not hold such a model")
 
 
 def _check_common(y, W, log_odds, sa: LinearStateArrays, Hp: int):
     """Validate the shared inputs, then build/load the kernels.
     Returns (lib, N, D, H, S, K)."""
-    if y.device.type != "cuda":
-        raise ValueError(f"the CUDA kernels take CUDA tensors, got {y.device}")
+    check_input(y)
     N, D = y.shape
     H = W.shape[1]
     S, K = sa.value_counts.shape
@@ -82,20 +85,13 @@ def _check_common(y, W, log_odds, sa: LinearStateArrays, Hp: int):
     check(sa.value_counts, "value_counts", (S, K), dev)
     check(sa.abs_states, "abs_states", (S,), dev)
     check(sa.values, "values", (K,), dev)
-    if N < 1:
-        raise ValueError("need at least one datapoint")
     check_limits(Hp, K, H)
     return load_library(), N, D, H, S, K
 
 
 def _check_smem(smem: int, S: int):
-    if smem > SMEM_LIMIT:
-        raise ValueError(
-            f"the enumerated state space (S={S} multi states) is too large "
-            f"for the fused kernel: a block needs {smem} bytes of shared "
-            f"memory, more than the {SMEM_LIMIT} it may use; train such a "
-            "model with s_block > 0 (the big-S E-step), or with "
-            'backend="plain" (the plain PyTorch version on the card)')
+    check_smem(smem, f"the fused kernel does not hold S={S} multi states "
+               "(s_block > 0 trains them through the big-S E-step)")
 
 
 def _state_minor(sa: LinearStateArrays):
@@ -214,31 +210,41 @@ def linear_et_estep(y, weight, W, sigma2, log_odds, sa: LinearStateArrays,
                     Hp: int, signed_select: bool, beta, prior_beta,
                     chunk: int = 2048, collect_true: bool = True,
                     s_block: int = 0, state_axis=None,
-                    n_state_shards: int = 1, compute_dtype=None):
-    """E-step: kernels on a CUDA tensor, the E-step's three stages or, with
-    ``s_block > 0``, the big-S one (``ops/bigs_cuda.py``); its plain version
-    (``core.etstep.linear_et_estep``, chunked by ``chunk``) on a CPU one.
-    Under a state axis (``state_axis``, ``n_state_shards > 1``) the big-S
-    kernel on this state rank's slice, whatever ``s_block`` is (the fused
-    rows kernel needs the whole union in one block), and on a CPU tensor
-    its plain version over the same slice.  A 16-bit ``compute_dtype``
-    takes the two D x H products of every one of these paths to the 16-bit
-    GEMM kernels on a CUDA tensor (``matmul_as`` on a CPU one)."""
-    if state_sharded(state_axis, n_state_shards):
-        return linear_et_estep_bigs_cuda(
+                    n_state_shards: int = 1, compute_dtype=None,
+                    collect_phi: bool = False, slot_onehot=None):
+    """The family's E-step route, ``core.etstep.linear_et_estep``'s
+    contract.  A learned Phi (``collect_phi``, with ``slot_onehot``) takes
+    the plain version on a CPU tensor, under a state axis too, and raises
+    on a CUDA tensor: no kernel collects its value-set sums.  Else, under a
+    state axis (``state_axis``, ``n_state_shards > 1``), the big-S kernel
+    on this state rank's slice whatever ``s_block`` is (the fused rows
+    kernel needs the whole union in one block), or on a CPU tensor its
+    plain version over the same slice; without one, the plain version on a
+    CPU tensor (chunked by ``chunk``), and on a CUDA tensor the fused
+    E-step's three stages or, with ``s_block > 0``, the big-S kernel
+    (``ops/bigs_cuda.py``).  A 16-bit ``compute_dtype`` takes the two D x H
+    products of these paths to the 16-bit GEMM kernels on a CUDA tensor
+    (``matmul_as`` on a CPU one)."""
+    if collect_phi:
+        if y.is_cuda:
+            raise needs_plain("no CUDA kernel collects the value-set sums "
+                              "(phi_c, phi_M) of a learned Phi")
+        return etstep.linear_et_estep(
             y, weight, W, sigma2, log_odds, sa, Hp, signed_select, beta,
-            prior_beta, s_block, collect_true, state_axis=state_axis,
+            prior_beta, chunk, collect_true, collect_phi=True,
+            slot_onehot=slot_onehot, state_axis=state_axis,
             n_state_shards=n_state_shards, compute_dtype=compute_dtype)
-    if y.device.type == "cpu":
+    sharded = state_sharded(state_axis, n_state_shards)
+    if not (y.is_cuda or sharded):
         return etstep.linear_et_estep(y, weight, W, sigma2, log_odds, sa, Hp,
                                       signed_select, beta, prior_beta, chunk,
                                       collect_true, s_block,
                                       compute_dtype=compute_dtype)
-    if s_block > 0:
-        return linear_et_estep_bigs_cuda(y, weight, W, sigma2, log_odds, sa,
-                                         Hp, signed_select, beta, prior_beta,
-                                         s_block, collect_true,
-                                         compute_dtype=compute_dtype)
+    if sharded or s_block > 0:
+        return linear_et_estep_bigs_cuda(
+            y, weight, W, sigma2, log_odds, sa, Hp, signed_select, beta,
+            prior_beta, s_block, collect_true, state_axis=state_axis,
+            n_state_shards=n_state_shards, compute_dtype=compute_dtype)
     return linear_et_estep_cuda(y, weight, W, sigma2, log_odds, sa, Hp,
                                 signed_select, beta, prior_beta, collect_true,
                                 compute_dtype)
@@ -246,10 +252,17 @@ def linear_et_estep(y, weight, W, sigma2, log_odds, sa: LinearStateArrays,
 
 def linear_et_decode(y, W, sigma2, log_odds, sa: LinearStateArrays, Hp: int,
                      signed_select: bool, top_L: int, beta, prior_beta,
-                     chunk: int = 4096):
-    """Decode: the kernel on a CUDA tensor, its plain version
-    (``core.etstep.linear_et_decode``, chunked by ``chunk``) on a CPU one."""
-    if y.device.type == "cpu":
+                     chunk: int = 4096, s_block: int = 0,
+                     learned_phi: bool = False):
+    """The family's decode route, ``core.etstep.linear_et_decode``'s
+    contract: the kernel on a CUDA tensor, the plain version (chunked by
+    ``chunk``) on a CPU one.  A big-S model (``s_block > 0``) decodes
+    through the plain version on either device, as the JAX package keeps
+    such models off its fused decode; a learned Phi too, and on a CUDA
+    tensor it raises."""
+    if learned_phi and y.is_cuda:
+        raise needs_plain("the decode kernel takes no learned Phi")
+    if s_block > 0 or learned_phi or not y.is_cuda:
         return etstep.linear_et_decode(y, W, sigma2, log_odds, sa, Hp,
                                        signed_select, top_L, beta, prior_beta,
                                        chunk)

@@ -13,9 +13,10 @@ and the singleton part of numer, ``(w q_single)^T y``, by the
 ``LAUNCHES["max_estep"]``.  The kernels are compiled once for each H'
 within the limits, with the whole lattice over the H' slots, which the
 state table must begin (``table_gamma``).  The library is built and loaded
-by ``ops/cuda_lib.py`` at first CUDA use.  On a CPU tensor the wrapper runs
-the plain version (``core/maxstep.py``); on a CUDA tensor it launches the
-kernels or raises.
+by ``ops/cuda_lib.py`` at first CUDA use.  ``max_et_estep_cuda`` takes CUDA
+tensors only; ``max_et_estep`` is the family's route, the one place that
+picks the kernels or the plain version (``core/maxstep.py``) and that
+refuses.
 """
 
 from __future__ import annotations
@@ -28,12 +29,15 @@ import torch
 from prosper_tpu_torch.core import maxstep
 from prosper_tpu_torch.core.etstep import LinearStateArrays
 from prosper_tpu_torch.core.states import binary_state_space, n_multi_states
-from prosper_tpu_torch.ops.cuda_lib import (LAUNCHES, SMEM_LIMIT, cached_for,
-                                            check, in_row_chunks,
-                                            load_library, occupancy, raise_on,
+from prosper_tpu_torch.ops.cuda_lib import (LAUNCHES, SMEM_LIMIT, check,
+                                            check_input, check_smem,
+                                            in_row_chunks, load_library,
+                                            needs_plain, occupancy, raise_on,
                                             scalars, sm_count)
 from prosper_tpu_torch.ops.gemm_cuda import (sgemm_nn_cuda,
                                              sgemm_tn_splitn_cuda)
+from prosper_tpu_torch.parallel.mesh import state_sharded
+from prosper_tpu_torch.utils import cached_for
 
 __all__ = ["LAUNCHES", "max_et_estep", "max_et_estep_cuda"]
 
@@ -49,11 +53,9 @@ KEYS = ("abs", "resid", "y2", "n", "F", "F_true")
 def check_limits(Hp: int, S: int):
     """Raise ValueError for a state space larger than the kernel holds."""
     if not (Hp <= HP_MAX and S <= S_MAX):
-        raise ValueError(
+        raise needs_plain(
             f"kernel limits: Hp <= {HP_MAX}, S <= {S_MAX} multi states; got "
-            f"{Hp=} {S=}.  The max E-step kernel does not hold such a model; "
-            'backend="plain" trains it on the card through the plain '
-            "PyTorch version")
+            f"{Hp=} {S=}.  The max E-step kernel does not hold such a model")
 
 
 def kernel_gamma(Hp: int, S: int) -> int:
@@ -65,9 +67,9 @@ def kernel_gamma(Hp: int, S: int) -> int:
     for gamma in range(2, Hp + 1):
         if n_multi_states(Hp, gamma) == S:
             return gamma
-    raise ValueError(f"{S} multi states over {Hp} slots are no binary state "
-                     "space of 2..gamma active slots, which the max E-step "
-                     'kernel takes; backend="plain" takes any')
+    raise needs_plain(f"{S} multi states over {Hp} slots are no binary "
+                      "state space of 2..gamma active slots, which the max "
+                      "E-step kernel takes")
 
 
 def table_gamma(states: torch.Tensor) -> int:
@@ -79,9 +81,9 @@ def table_gamma(states: torch.Tensor) -> int:
         gamma = kernel_gamma(Hp, S)
         if not np.array_equal(states.detach().cpu().numpy(),
                               binary_state_space(Hp, gamma).states):
-            raise ValueError("the max E-step kernel takes the states of "
-                             f"binary_state_space({Hp}, {gamma}) in their "
-                             'order; another table needs backend="plain"')
+            raise needs_plain("the max E-step kernel takes the states of "
+                              f"binary_state_space({Hp}, {gamma}) in their "
+                              "order")
         return gamma
     return cached_for(states, "max_kernel_gamma", build)
 
@@ -183,8 +185,7 @@ def max_et_estep_cuda(y, weight, W, sigma2, log_odds, sa: LinearStateArrays,
     ``cuda_lib.P_LIMIT_BYTES``).
     Returns (F (N,), sums) with numer, denom (H, D), s (H) and the scalars
     abs, resid, y2, n, F, F_true."""
-    if y.device.type != "cuda":
-        raise ValueError(f"the CUDA kernels take CUDA tensors, got {y.device}")
+    check_input(y)
     N, D = y.shape
     H = W.shape[1]
     S = sa.states.shape[0]
@@ -198,15 +199,9 @@ def max_et_estep_cuda(y, weight, W, sigma2, log_odds, sa: LinearStateArrays,
     check(sa.states, "states", (S, Hp), dev)
     check(sa.abs_states, "abs_states", (S,), dev)
     check(sa.values, "values", (1,), dev)     # binary states: values [1.0]
-    if N < 1:
-        raise ValueError("need at least one datapoint")
     table_gamma(sa.states)
-    smem = smem_bytes(D, H, Hp, S)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"a tile needs {smem} bytes of shared memory, more "
-                         f"than the {SMEM_LIMIT} a block may use; "
-                         'backend="plain" trains such a model on the card '
-                         "through the plain PyTorch version")
+    check_smem(smem_bytes(D, H, Hp, S),
+               f"the max E-step kernel does not hold {D=} {H=} {Hp=} {S=}")
     hcols, groups = route_units(H, Hp)
     lib = load_library()
     bps = blocks_per_sm(lib, D, H, Hp, S, hcols, magnitude)
@@ -229,12 +224,26 @@ def max_et_estep_cuda(y, weight, W, sigma2, log_odds, sa: LinearStateArrays,
 
 def max_et_estep(y, weight, W, sigma2, log_odds, sa: LinearStateArrays,
                  Hp: int, magnitude: bool, beta, prior_beta,
-                 chunk: int = 2048, collect_true: bool = True):
-    """Hard-winner E-step: the kernel on a CUDA tensor, its plain version
-    (``core.maxstep.max_et_estep``, chunked by ``chunk``) on a CPU one."""
-    if y.device.type == "cpu":
+                 chunk: int = 2048, rho=None, collect_true: bool = True,
+                 state_axis=None, n_state_shards: int = 1):
+    """The family's E-step route, ``core.maxstep.max_et_estep``'s contract.
+    On a CUDA tensor a state axis (``state_axis``, ``n_state_shards > 1``)
+    raises: the kernels need the whole subset lattice.  The softened max
+    (``rho``, the schedule's rho > 0) runs the plain version on either
+    device, as the JAX package's ``lax.cond`` sends it to XLA; the hard
+    winner the kernels on a CUDA tensor and the plain version (chunked by
+    ``chunk``; under a state axis the loop form on this rank's slice) on a
+    CPU one."""
+    sharded = state_sharded(state_axis, n_state_shards)
+    if sharded and y.is_cuda:
+        raise needs_plain("under a state axis the max family runs the plain "
+                          "loop form on each rank's slice of the states: the "
+                          "CUDA kernel needs the whole subset lattice")
+    if rho is not None or not y.is_cuda:
         return maxstep.max_et_estep(y, weight, W, sigma2, log_odds, sa, Hp,
                                     magnitude, beta, prior_beta, chunk,
-                                    collect_true=collect_true)
+                                    rho=rho, collect_true=collect_true,
+                                    state_axis=state_axis,
+                                    n_state_shards=n_state_shards)
     return max_et_estep_cuda(y, weight, W, sigma2, log_odds, sa, Hp,
                              magnitude, beta, prior_beta, collect_true)

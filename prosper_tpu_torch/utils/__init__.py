@@ -5,7 +5,8 @@ from __future__ import annotations
 import os
 import sys
 import time
-from typing import Optional
+import weakref
+from typing import Dict, Optional
 
 import torch
 
@@ -45,3 +46,21 @@ def create_output_path(basename: Optional[str] = None,
         final = f"{path}.{suffix:03d}"
     os.makedirs(final, exist_ok=True)
     return final
+
+
+_PER_TENSOR: Dict[tuple, tuple] = {}
+
+
+def cached_for(owner: torch.Tensor, name: str, build):
+    """``build()``, made once for the tensor ``owner`` (by identity) and
+    kept for as long as it lives: what is derived from a model's state
+    tables alone (transposed or reduced copies, level plans) is not rebuilt
+    on every call."""
+    key = (id(owner), name)
+    hit = _PER_TENSOR.get(key)
+    if hit is not None and hit[0]() is owner:
+        return hit[1]
+    value = build()
+    _PER_TENSOR[key] = (weakref.ref(
+        owner, lambda _, key=key: _PER_TENSOR.pop(key, None)), value)
+    return value

@@ -5,8 +5,8 @@ the 16-bit GEMM kernels), one EM step of BSC, TSC, DSC and big-S TSC,
 the rule that a 16-bit cast reaches those two products and nothing else.
 
 Both packages get the same numpy inputs.  The kernels themselves run on
-the card (``tests/test_torch_cuda.py``); here the wrappers take CPU
-tensors and run ``core/etstep.py::matmul_as``.
+the card (``tests/test_torch_cuda.py``); here the routes take CPU tensors
+and run ``core/etstep.py::matmul_as``.
 """
 
 import functools
@@ -53,17 +53,17 @@ def test_the_two_products_match_jaxs_compute_dtype_dots(half):
     W = (rng.standard_normal((256, 300)) * 0.3).astype(np.float32)
     sw = rng.random((512, 300)).astype(np.float32)
     for got, want, exact, depth in (
-            (gemm_cuda.hgemm_nn(torch.tensor(y), torch.tensor(W), tdt),
+            (etstep.matmul_as(torch.tensor(y), torch.tensor(W), tdt),
              _jax_dot(y, W, jdt), y.astype(np.float64) @ W, 256),
-            (gemm_cuda.hgemm_tn_splitn(torch.tensor(y), torch.tensor(sw),
-                                       tdt),
+            (etstep.matmul_as(torch.tensor(y).T, torch.tensor(sw), tdt),
              _jax_dot(y.T, sw, jdt), y.T.astype(np.float64) @ sw, 512)):
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
                                    atol=2e-7 * depth)
         assert (np.abs(got.numpy() - exact).max()
                 > 1e-4 * np.abs(exact).max())
     with pytest.raises(ValueError, match="bfloat16"):
-        gemm_cuda.hgemm_nn(torch.tensor(y), torch.tensor(W), torch.float64)
+        gemm_cuda.hgemm_nn_cuda(torch.tensor(y), torch.tensor(W),
+                                torch.float64)
 
 
 @pytest.mark.parametrize("half", list(HALF))
@@ -71,7 +71,7 @@ def test_ties_round_to_even_as_torch_and_jax_round(half):
     """Operands exactly halfway between two neighbours of the 16-bit type
     (times the identity, which keeps each rounded value): the product
     holds ``x.to(dtype)`` and JAX's ``astype``, ties to even, on both
-    sides of each product."""
+    sides of the product."""
     tdt, jdt = HALF[half]
     rng = np.random.default_rng(3)
     lo = torch.tensor(rng.standard_normal((64, 64)), dtype=tdt)
@@ -83,10 +83,8 @@ def test_ties_round_to_even_as_torch_and_jax_round(half):
         want.numpy(), np.asarray(jnp.asarray(mid.numpy()).astype(jdt)
                                  .astype(jnp.float32)))
     eye = torch.eye(64)
-    for got in (gemm_cuda.hgemm_nn(mid, eye, tdt),
-                gemm_cuda.hgemm_nn(eye, mid.T.contiguous(), tdt).T,
-                gemm_cuda.hgemm_tn_splitn(eye, mid, tdt),
-                gemm_cuda.hgemm_tn_splitn(mid.T.contiguous(), eye, tdt)):
+    for got in (etstep.matmul_as(mid, eye, tdt),
+                etstep.matmul_as(eye, mid, tdt)):
         assert torch.equal(got, want)
 
 

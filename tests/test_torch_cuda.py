@@ -19,6 +19,7 @@ import torch
 from prosper_tpu_torch.core import etstep, gscstep, maxstep
 from prosper_tpu_torch.core.states import (binary_state_space,
                                            discrete_state_space)
+from prosper_tpu_torch import utils
 from prosper_tpu_torch.ops import (bigs_cuda, cuda_lib, gemm_cuda, gsc_cuda,
                                    linear_cuda, max_cuda)
 
@@ -219,8 +220,8 @@ def test_gemm_wrappers_reject_bad_outputs_and_dispatch(device):
     with pytest.raises(ValueError):                  # operands on two devices
         gemm_cuda.sgemm_nn_cuda(a, b.cpu())
     before = dict(gemm_cuda.LAUNCHES)
-    assert gemm_cuda.sgemm_nn(a, b).is_cuda
-    assert gemm_cuda.sgemm_tn_splitn(a, a).is_cuda
+    assert gemm_cuda.sgemm_nn_cuda(a, b).is_cuda
+    assert gemm_cuda.sgemm_tn_splitn_cuda(a, a).is_cuda
     assert gemm_cuda.LAUNCHES["sgemm_nn"] == before["sgemm_nn"] + 1
     assert gemm_cuda.LAUNCHES["sgemm_tn"] == before["sgemm_tn"] + 1
 
@@ -1709,7 +1710,7 @@ def test_state_slices_through_the_bigs_kernel(case, n, device):
     for k in s0:
         torch.testing.assert_close(sum(p[1][k] for p in parts), s0[k],
                                    rtol=1e-3, atol=1e-3, msg=k)
-    keys = {key[1] for key in cuda_lib._PER_TENSOR
+    keys = {key[1] for key in utils._PER_TENSOR
             if key[0] == id(sa.states) and isinstance(key[1], tuple)}
     assert {("bigs_tri", n, r) for r in range(n)} <= keys
 

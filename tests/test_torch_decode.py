@@ -133,7 +133,8 @@ def test_kernel_path_on_cpu_is_the_plain_decode():
     args = (torch.tensor(y), torch.tensor(W), torch.tensor(0.7),
             torch.tensor(lo), sa, Hp, False, 6)
     before = dict(linear_cuda.LAUNCHES)
-    a = tet.linear_et_posterior_kernel(*args, dense_states=False)
+    a = tet.linear_et_posterior(*args, dense_states=False,
+                                decode=linear_cuda.linear_et_decode)
     b = tet.linear_et_posterior(*args, dense_states=False)
     assert set(a) == set(b)
     for k in a:

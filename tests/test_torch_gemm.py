@@ -1,10 +1,7 @@
-"""The two GEMM wrappers of the port (``ops/gemm_cuda.py``) on CPU tensors,
-and the staged form of the E-steps that the CUDA path runs (P = y W, the
-per-datapoint stage, then the last product) against the fused plain
-versions.
-
-The wrappers are held to numpy float64 at rtol 1e-5 (a float32 product
-against a float64 one); the staged form to the fused one at 1e-6: it is the
+"""The GEMM wrappers' input checks (``ops/gemm_cuda.py``), the shared
+refusal of CPU tensors by every kernel wrapper, and the staged form of the
+E-steps that the CUDA path runs (P = y W, the per-datapoint stage, then
+the last product) against the fused plain versions, at 1e-6: it is the
 same arithmetic cut at two products."""
 
 import numpy as np
@@ -14,46 +11,18 @@ import torch
 from prosper_tpu_torch.core import etstep, maxstep
 from prosper_tpu_torch.core.states import (binary_state_space,
                                            discrete_state_space)
-from prosper_tpu_torch.ops import gemm_cuda
-
-SHAPES = [(1000, 25, 10), (1000, 256, 300), (257, 25, 300), (129, 256, 10),
-          (1, 7, 3)]
-ids = [f"N{n}D{d}H{h}" for n, d, h in SHAPES]
+from prosper_tpu_torch.ops import (bigs_cuda, cuda_lib, gemm_cuda, gsc_cuda,
+                                   linear_cuda, max_cuda)
 
 
 def _draw(rng, *shape):
     return rng.standard_normal(shape).astype(np.float32)
 
 
-@pytest.mark.parametrize("shape", SHAPES, ids=ids)
-def test_sgemm_nn_on_cpu_matches_float64(shape):
-    N, D, H = shape
-    rng = np.random.default_rng(N + D + H)
-    a, b = _draw(rng, N, D), _draw(rng, D, H)
-    out = gemm_cuda.sgemm_nn(torch.tensor(a), torch.tensor(b))
-    assert out.shape == (N, H) and out.dtype == torch.float32
-    ref = a.astype(np.float64) @ b.astype(np.float64)
-    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5,
-                               atol=1e-5 * np.sqrt(D))
-
-
-@pytest.mark.parametrize("shape", SHAPES, ids=ids)
-def test_sgemm_tn_splitn_on_cpu_matches_float64(shape):
-    N, M, K = shape
-    rng = np.random.default_rng(N + M + K + 1)
-    a, b = _draw(rng, N, M), _draw(rng, N, K)
-    a[N // 2] = 0.0                                 # a row that adds nothing
-    out = gemm_cuda.sgemm_tn_splitn(torch.tensor(a), torch.tensor(b))
-    assert out.shape == (M, K) and out.dtype == torch.float32
-    ref = a.astype(np.float64).T @ b.astype(np.float64)
-    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5,
-                               atol=1e-5 * np.sqrt(N))
-
-
-@pytest.mark.parametrize("fn,rows_match", [(gemm_cuda.sgemm_nn, False),
-                                           (gemm_cuda.sgemm_tn_splitn, True)],
-                         ids=["nn", "tn"])
-def test_gemm_wrappers_reject_bad_inputs(fn, rows_match):
+@pytest.mark.parametrize("rows_match", [False, True], ids=["nn", "tn"])
+def test_gemm_wrappers_reject_bad_inputs(rows_match):
+    def fn(a, b):
+        gemm_cuda._check_pair(a, b, rows_match)
     a = torch.zeros(8, 4)
     b = torch.zeros(8, 5) if rows_match else torch.zeros(4, 5)
     fn(a, b)                                        # the good pair passes
@@ -69,12 +38,39 @@ def test_gemm_wrappers_reject_bad_inputs(fn, rows_match):
         fn(a[:, :0], b[:0] if not rows_match else b)
 
 
-@pytest.mark.parametrize("fn", [gemm_cuda.sgemm_nn_cuda,
-                                gemm_cuda.sgemm_tn_splitn_cuda],
-                         ids=["nn", "tn"])
-def test_gemm_kernels_reject_cpu_tensors(fn):
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        fn(torch.zeros(8, 4), torch.zeros(8, 4))
+_SA = etstep.state_arrays_from(discrete_state_space(5, 3, (1.0,)), "cpu")
+_S = _SA.states.shape[0]
+_Y, _WEIGHT, _W = torch.zeros(8, 4), torch.ones(8), torch.zeros(4, 6)
+_LINEAR = (_Y, _WEIGHT, _W, 1.0, torch.zeros(1), _SA, 5, False, 1.0, 1.0)
+#: every kernel wrapper, called on CPU tensors
+KERNEL_CALLS = {
+    "sgemm_nn": lambda: gemm_cuda.sgemm_nn_cuda(_Y, _W),
+    "sgemm_tn": lambda: gemm_cuda.sgemm_tn_splitn_cuda(_Y, _Y),
+    "linear_estep": lambda: linear_cuda.linear_et_estep_cuda(*_LINEAR),
+    "linear_decode": lambda: linear_cuda.linear_et_decode_cuda(
+        _Y, _W, 1.0, torch.zeros(1), _SA, 5, False, 4, 1.0, 1.0),
+    "bigs_estep": lambda: bigs_cuda.linear_et_estep_bigs_cuda(*_LINEAR, 16),
+    "bigs_multi": lambda: bigs_cuda.bigs_multi_cuda(
+        torch.zeros(8, 5), torch.zeros(8, 25), _SA.states, _SA.outer,
+        _SA.value_counts, torch.zeros(_S), torch.ones(_S), _SA.abs_states,
+        0.5, 1.0, 1.0, 16),
+    "max_estep": lambda: max_cuda.max_et_estep_cuda(
+        _Y, _WEIGHT, _W, 1.0, torch.tensor(-1.0), _SA, 5, False, 1.0, 1.0),
+    "gsc_estep": lambda: gsc_cuda.gsc_et_estep_cuda(
+        _Y, _WEIGHT, _W, 1.0, 0.1, 0.0, 1.0, _SA, 5, 1.0, 1.0),
+}
+
+
+@pytest.mark.parametrize("kernel", list(KERNEL_CALLS))
+def test_gemm_kernels_reject_cpu_tensors(kernel, monkeypatch):
+    """Every kernel wrapper refuses CPU tensors through the shared check
+    (``cuda_lib.check_input``), before the library is built or loaded."""
+    def no_build():
+        raise AssertionError("the library was built for a CPU tensor")
+    monkeypatch.setattr(cuda_lib, "_build", no_build)
+    monkeypatch.setattr(cuda_lib, "_lib", None)
+    with pytest.raises(ValueError, match="the CUDA kernels take CUDA tensors"):
+        KERNEL_CALLS[kernel]()
 
 
 def _weights(rng, N):
@@ -102,10 +98,10 @@ def test_linear_estep_staged_equals_fused(values, signed, beta, collect_true):
     args = (W, torch.tensor(1.3), lo, sa, Hp, signed, beta, 1.0)
     F0, ref = etstep.linear_et_estep(y, w, *args, chunk=N,
                                      collect_true=collect_true)
-    P = gemm_cuda.sgemm_nn(y, W)
+    P = torch.matmul(y, W)
     F1, sw, sums = etstep.linear_et_estep_rows(y, w, P, *args,
                                                collect_true=collect_true)
-    sums["xs"] = gemm_cuda.sgemm_tn_splitn(y, sw)
+    sums["xs"] = torch.matmul(y.T, sw)
     assert sw.shape == (N, H) and (sw[:5] == 0).all()
     torch.testing.assert_close(F1, F0, rtol=1e-6, atol=1e-6)
     assert set(sums) == set(ref)
@@ -130,10 +126,10 @@ def test_max_estep_staged_equals_fused(magnitude, beta, collect_true):
     args = (W, torch.tensor(1.3), lo, sa, Hp, magnitude, beta, 1.0)
     F0, ref = maxstep.max_et_estep(y, w, *args, chunk=N,
                                    collect_true=collect_true)
-    P = gemm_cuda.sgemm_nn(y, W)
+    P = torch.matmul(y, W)
     F1, qsw, sums = maxstep.max_et_estep_rows(y, w, P, *args,
                                               collect_true=collect_true)
-    sums["numer"] = sums["numer"] + gemm_cuda.sgemm_tn_splitn(qsw, y)
+    sums["numer"] = sums["numer"] + torch.matmul(qsw.T, y)
     assert qsw.shape == (N, H) and (qsw[:5] == 0).all()
     torch.testing.assert_close(F1, F0, rtol=1e-6, atol=1e-6)
     assert set(sums) == set(ref)
@@ -188,15 +184,15 @@ def test_hgemm_kernels_reject_cpu_tensors_and_bad_shapes(dtype):
                   (gemm_cuda.hgemm_nn_cuda, torch.zeros(4, 5))):
         with pytest.raises(ValueError, match="CUDA tensors"):
             fn(torch.zeros(8, 4), b, dtype)
-    tn = gemm_cuda.hgemm_tn_splitn
-    assert tn(torch.zeros(8, 4), torch.zeros(8, 5), dtype).shape == (4, 5)
+        with pytest.raises(ValueError, match="bfloat16"):   # not 16-bit
+            fn(torch.zeros(8, 4), b, torch.float64)
+    tn = gemm_cuda._check_pair                      # their shape checks
+    tn(torch.zeros(8, 4), torch.zeros(8, 5), True)
     with pytest.raises(ValueError):                 # rows that do not match
-        tn(torch.zeros(8, 4), torch.zeros(7, 5), dtype)
+        tn(torch.zeros(8, 4), torch.zeros(7, 5), True)
     with pytest.raises(ValueError):                 # not float32
-        tn(torch.zeros(8, 4).double(), torch.zeros(8, 5).double(), dtype)
+        tn(torch.zeros(8, 4).to(dtype), torch.zeros(8, 5).to(dtype), True)
     with pytest.raises(ValueError):                 # not contiguous
-        tn(torch.zeros(4, 8).T, torch.zeros(8, 5), dtype)
+        tn(torch.zeros(4, 8).T, torch.zeros(8, 5), True)
     with pytest.raises(ValueError):                 # an empty operand
-        tn(torch.zeros(8, 0), torch.zeros(8, 5), dtype)
-    with pytest.raises(ValueError):                 # not a 16-bit type
-        tn(torch.zeros(8, 4), torch.zeros(8, 5), torch.float64)
+        tn(torch.zeros(8, 0), torch.zeros(8, 5), True)

@@ -7,6 +7,8 @@ EM step against ``jit_step``, and a short recovery run.  Tolerances: rtol
 small integers or one matrix product of them are involved.
 """
 
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,6 +27,7 @@ from prosper_tpu_torch.core import states as tstates
 from prosper_tpu_torch.io.weights import params_from_numpy, params_to_numpy
 from prosper_tpu_torch.models import DSC
 from prosper_tpu_torch.models.base import make_blank_data, sched_floats
+from prosper_tpu_torch.ops import linear_cuda
 
 PHI = (-1.0, 1.0, 2.0)
 LEARN = ("W", "pi", "sigma", "phi")
@@ -236,7 +239,8 @@ def test_learned_phi_runs_scanned_like_run_and_serves():
     backend; ``run_scanned`` follows ``run`` bit for bit, and ``inference``
     decodes with the learned values.  On the card the default backend
     refuses it and names ``backend="plain"``: no kernel collects the
-    value-set sums (the check is reached here with the device's name)."""
+    value-set sums (the routes' checks are reached here with a stand-in
+    for a CUDA tensor: they read nothing else before they raise)."""
     D, H, Hp, gamma = 16, 8, 5, 3
     rng = np.random.default_rng(2)
     y = (rng.standard_normal((200, D)) * 2.0).astype(np.float32)
@@ -255,13 +259,18 @@ def test_learned_phi_runs_scanned_like_run_and_serves():
         assert torch.equal(ref.params[k], got.params[k]), k
     assert not torch.equal(got.params["phi"], torch.tensor(PHI))
     out = model.inference(got.params, {"y": y[:32]}, top_L=4)
+    routed = ref.model.inference(got.params, {"y": y[:32]}, top_L=4)
+    assert set(routed) == set(out)
+    for k in out:                        # the route on a CPU tensor: plain
+        assert torch.equal(routed[k], out[k]), k
     values = set(np.unique(out["top_states"].numpy()).round(5))
     assert values <= {0.0, *np.float32(got.params["phi"].numpy()).round(5)}
     assert torch.isfinite(out["F"]).all()
-    model._check_phi_backend(torch.device("cuda"))       # "plain": any device
-    ref.model._check_phi_backend(torch.device("cpu"))
+    card = SimpleNamespace(is_cuda=True)
     with pytest.raises(ValueError, match='backend="plain"'):
-        ref.model._check_phi_backend(torch.device("cuda"))
+        linear_cuda.linear_et_estep(card, *[None] * 9, collect_phi=True)
+    with pytest.raises(ValueError, match='backend="plain"'):
+        linear_cuda.linear_et_decode(card, *[None] * 9, learned_phi=True)
 
 
 def test_dsc_phi_recovery():

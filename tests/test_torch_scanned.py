@@ -27,7 +27,8 @@ from prosper_tpu.models.base import sched_floats as j_sched_floats
 from prosper_tpu.models.base import sched_from_anneal
 from prosper_tpu_torch import EM, LinearAnnealing
 from prosper_tpu_torch.core import etstep
-from prosper_tpu_torch.core.states import discrete_state_space
+from prosper_tpu_torch.core.states import (binary_state_space,
+                                           discrete_state_space)
 from prosper_tpu_torch.data.bars import bars_gt_params
 from prosper_tpu_torch.engine.em import schedule_window, uniform_runs
 from prosper_tpu_torch.io.weights import params_from_numpy, params_to_numpy
@@ -38,7 +39,8 @@ from prosper_tpu_torch.models.base import (SCHED_KEYS, ETModel, StepPattern,
                                            step_pattern)
 from prosper_tpu_torch.models.linear import LinearETModel
 from prosper_tpu_torch.models.mixtures import MoG, MoP
-from prosper_tpu_torch.ops import bigs_cuda, cuda_lib, linear_cuda, max_cuda
+from prosper_tpu_torch.ops import (bigs_cuda, cuda_lib, gsc_cuda, linear_cuda,
+                                   max_cuda)
 
 MODELS = {
     "bsc": lambda **kw: BSC(16, 10, 5, 3, chunk=128, **kw),
@@ -339,23 +341,50 @@ def test_mca_past_the_kernel_limit_steps_like_jax(backend):
         np.testing.assert_allclose(float(s_t[k]), float(s_j[k]), rtol=1e-4)
 
 
-def test_limit_messages_name_the_plain_backend():
-    """What a model past a kernel's limit is told on the card (the checks
-    are plain Python, reachable without one)."""
-    with pytest.raises(ValueError, match=r'S <= 128.*backend="plain"'):
-        max_cuda.check_limits(8, 154)
-    with pytest.raises(ValueError, match=r'Hp <= 8.*backend="plain"'):
-        max_cuda.check_limits(9, 100)
-    max_cuda.check_limits(8, 128)
-    for bad in ((33, 1, 300), (8, 9, 300), (8, 1, 1025)):
-        with pytest.raises(ValueError, match=r'H <= 1024.*backend="plain"'):
-            linear_cuda.check_limits(*bad)
-    linear_cuda.check_limits(32, 8, 1024)
-    with pytest.raises(ValueError, match=r'152.*backend="plain"'):
-        bigs_cuda.check_limits(16, 2)             # 16 + 136 + 4 = 156
-    bigs_cuda.check_limits(15, 2)                 # 15 + 120 + 4 = 139
-    with pytest.raises(ValueError, match=r's_block > 0.*backend="plain"'):
-        linear_cuda._check_smem(cuda_lib.SMEM_LIMIT + 1, 99999)
+@pytest.mark.parametrize("family", ["linear", "bigs", "max", "gsc"])
+def test_limit_messages_name_the_plain_backend(family, monkeypatch):
+    """What a model past a kernel's limit is told on the card, for each
+    family: the limit checks, and the kernel wrappers' refusals.  Both are
+    plain Python, reached here on CPU tensors with the shared device check
+    taken out: a wrapper refuses before it loads the library."""
+    for mod in (linear_cuda, max_cuda, gsc_cuda):
+        monkeypatch.setattr(mod, "check_input", lambda y: None)
+
+    def refused(what, fn, *args):
+        with pytest.raises(ValueError, match=what + r'.*backend="plain"'):
+            fn(*args)
+    y, w = torch.zeros(8, 4), torch.ones(8)
+    if family == "linear":
+        for bad in ((33, 1, 300), (8, 9, 300), (8, 1, 1025)):
+            refused("H <= 1024", linear_cuda.check_limits, *bad)
+        linear_cuda.check_limits(32, 8, 1024)
+        refused("s_block > 0", linear_cuda._check_smem,
+                cuda_lib.SMEM_LIMIT + 1, 99999)
+        sa = etstep.state_arrays_from(discrete_state_space(5, 3, (1.0,)),
+                                      "cpu")
+        W, lo = torch.zeros(4, 1025), torch.zeros(1)
+        refused("H <= 1024", linear_cuda.linear_et_estep_cuda, y, w, W, 1.0,
+                lo, sa, 5, False, 1.0, 1.0)
+        refused("H <= 1024", linear_cuda.linear_et_decode_cuda, y, W, 1.0,
+                lo, sa, 5, False, 4, 1.0, 1.0)
+    elif family == "bigs":
+        refused("152", bigs_cuda.check_limits, 16, 2)  # 16 + 136 + 4 = 156
+        bigs_cuda.check_limits(15, 2)                  # 15 + 120 + 4 = 139
+    elif family == "max":
+        refused("S <= 128", max_cuda.check_limits, 8, 154)
+        refused("Hp <= 8", max_cuda.check_limits, 9, 100)
+        max_cuda.check_limits(8, 128)
+        sa = etstep.state_arrays_from(binary_state_space(8, 4), "cpu")
+        refused("S <= 128", max_cuda.max_et_estep_cuda, y, w,
+                torch.zeros(4, 16), 1.0, torch.tensor(-1.0), sa, 8, False,
+                1.0, 1.0)
+    else:
+        for Hp, gamma in ((9, 3), (6, 5)):
+            sa = etstep.state_arrays_from(binary_state_space(Hp, gamma),
+                                          "cpu")
+            refused("kernel limits", gsc_cuda.gsc_et_estep_cuda, y, w,
+                    torch.zeros(4, 16), 1.0, 0.1, 0.0, 1.0, sa, Hp, 1.0,
+                    1.0)
 
 
 # -- (g) the big-S row chunks -------------------------------------------------

@@ -628,6 +628,42 @@ def test_max_shards_combine_to_the_unsharded_estep(n, magnitude, rho):
     _jax_close(loop, F_j, s_j)
 
 
+@pytest.mark.parametrize("magnitude", [False, True], ids=["mca", "mmca"])
+def test_max_route_under_a_state_axis_is_the_loop_form(magnitude):
+    """The family's route, ``ops/max_cuda.py::max_et_estep``, under a state
+    axis on CPU tensors: the plain loop form on each rank's slice, hard and
+    soft, bit for bit ``core.maxstep.max_et_estep`` under the same axis,
+    launching nothing."""
+    import torch
+
+    from prosper_tpu_torch.core import etstep, maxstep
+    from prosper_tpu_torch.core.states import binary_state_space
+    from prosper_tpu_torch.ops import cuda_lib, max_cuda
+    from state_threads import run_state_shards
+
+    rng = np.random.default_rng(5)
+    y = (rng.standard_normal((64, 16)) * 2).astype(np.float32)
+    W = rng.standard_normal((16, 8)).astype(np.float32)
+    if not magnitude:
+        W = np.abs(W)
+    w = (rng.random(64) > 0.2).astype(np.float32)
+    sa = etstep.state_arrays_from(binary_state_space(5, 3), "cpu")
+    args = (torch.tensor(y), torch.tensor(w), torch.tensor(W),
+            torch.tensor(1.3), torch.tensor(-1.5), sa, 5, magnitude, 0.8, 1.0)
+    before = dict(cuda_lib.LAUNCHES)
+    for rho in (None, 2.0):
+        def shards(estep):
+            return run_state_shards(2, lambda g: estep(
+                *args, chunk=32, rho=rho, state_axis=g, n_state_shards=2))[0]
+        got, want = shards(max_cuda.max_et_estep), shards(maxstep.max_et_estep)
+        for (F, sums), (F0, sums0) in zip(got, want):
+            assert torch.equal(F, F0)
+            assert set(sums) == set(sums0)
+            for k in sums0:
+                assert torch.equal(sums[k], sums0[k]), (rho, k)
+    assert cuda_lib.LAUNCHES == before
+
+
 @pytest.mark.parametrize("n", [2, 3, 4])
 def test_gsc_shards_combine_to_the_unsharded_estep(n):
     """The level-aligned layout: shard r holds the JAX package's shard r's
