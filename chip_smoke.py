@@ -91,8 +91,10 @@ operands and its end beside phase 6's float32 run; (c) one bf16 E-step of
 phase 12's big-S TSC and of phase 23's BSC on two state ranks against
 their plain versions.  ``python3 chip_smoke.py --phase 24`` runs the
 build, phases 6 and 12 and phase 24 alone.  ``python3 chip_smoke.py
---phase max`` runs the build and phases 7-10 (the max family) alone, and
-``--phase gsc`` the build and phases 15-16 (GSC).
+--phase max`` runs the build and phases 7-10 (the max family) alone,
+``--phase gsc`` the build and phases 15-16 (GSC), and ``--phase linear``
+the build and the linear E-step alone at the patches width (the kernels
+against the plain version on the card, repeats, launch counts, times).
 
 Each path's launch counts are set to 0 just before it and checked just
 after.  Every phase raises on failure.  Prints one JSON line of the
@@ -948,6 +950,15 @@ def bigs_path(torch, np, dev, smi, err, patches_anneal):
             "scanned_launches": scanned_launches, "run12": run12,
             "ms": est[0], "plain_ms": est[1],
             **bigs_bound(N, S, Hp, K)}
+
+
+def linear_estep_bound(N, D, H, Hp, S, K):
+    """``bound`` of the linear E-step's work: the two D x H products and,
+    per (row, state), the logits' and moments' multiply-adds; each input
+    read once, each output written once."""
+    NX = Hp + Hp * Hp
+    return bound(4.0 * N * D * H + 2.0 * N * S * (2 * NX + K + 1),
+                 4.0 * (N * D + 2 * N + 2 * D * H + H * H))
 
 
 def gsc_estep_bound(N, D, H, Hp, gamma):
@@ -3505,7 +3516,9 @@ def main() -> int:
     lib = cuda_lib.load_library()
     for name, smem in (
             ("linear E-step rows kernel (H=300, H'=8, S=154, K=1)",
-             lib.linear_et_rows_smem_bytes(300, 8, 154, 1)),
+             linear_cuda.rows_occupancy(
+                 lib, 300, 8, etstep.state_arrays_from(
+                     discrete_state_space(8, 4, (1.0,)), dev))[0]),
             ("linear decode kernel (H=300, H'=8, S=154, K=1)",
              lib.linear_et_decode_smem_bytes(300, 8, 154, 1)),
             ("max E-step rows kernel (D=256, H=300, H'=6, S=35)",
@@ -3769,8 +3782,7 @@ def main() -> int:
     # (row, state); each input read once, each output written once
     S, K = sa.value_counts.shape
     NX = Hp + Hp * Hp
-    est_bound = bound(4.0 * N * D * H + 2.0 * N * S * (2 * NX + K + 1),
-                      4.0 * (N * D + 2 * N + 2 * D * H + H * H))
+    est_bound = linear_estep_bound(N, D, H, Hp, S, K)
     Nd, L = y_ho.shape[0], 10
     dec_bound = bound(2.0 * Nd * D * H + 2.0 * Nd * S * (NX + Hp),
                       4.0 * (Nd * D + D * H + Nd * (1 + H + 2 * L + Hp)))
@@ -4068,6 +4080,91 @@ def gsc_alone() -> int:
     return 0
 
 
+def linear_alone() -> int:
+    """``python3 chip_smoke.py --phase linear``: the build (with the rows
+    kernel's registers and spills, its shared memory and the blocks an SM
+    holds at the patches width) and the linear E-step alone at the patches
+    width (D=256, H=300, H'=8, gamma=4) on N = 131072 planted-dictionary
+    rows: the kernels against the plain version on the card (y in
+    quarters and W in 1/64ths, so P = y W and the Gram matrix are exact in
+    float32 and the candidates agree; F within rtol 1e-4, the sums within
+    rtol 1e-3), two calls bit-identical, collect_true off equal to on bit
+    for bit but F_true, the launch counts of one call, and both times
+    beside the bound."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from prosper_tpu_torch.core import etstep
+    from prosper_tpu_torch.data.bars import planted_dictionary
+    from prosper_tpu_torch.models import BSC
+    from prosper_tpu_torch.ops import cuda_lib, linear_cuda
+    dev, smi = alone_setup(torch)
+    func = None
+    for line in cuda_lib.BUILD_LOG.splitlines():
+        if "Compiling entry function" in line:
+            func = line.split("'")[1]
+        elif func and "rows_kernel" in func and ("registers" in line
+                                                 or "spill" in line):
+            log("[build]", func, line.strip())
+    D, H, Hp, gamma, N = 256, 300, 8, 4, 131072
+    model = BSC(D, H, Hp, gamma, chunk=8192)
+    sa = model.state_arrays(dev)
+    S, K = sa.value_counts.shape
+    smem, bps = linear_cuda.rows_occupancy(cuda_lib.load_library(), H, Hp,
+                                           sa)
+    log(f"[build] linear E-step rows kernel (H={H}, H'={Hp}, S={S}, K={K}): "
+        f"{smem} bytes of shared memory a block, {bps} blocks an SM")
+    tag = "[linear]"
+    gt = {"W": planted_dictionary(D, H, seed=0), "pi": np.float32(2.0 / H),
+          "sigma": np.float32(1.0)}
+    data = model.generate_data(gt, N, seed=1)
+    init = model.standard_init(data, seed=3, device=dev)
+    y = torch.tensor(quantised(np, data["y"], 0.25), device=dev)
+    W = torch.tensor(quantised(np, init["W"].cpu().numpy(), 1 / 64),
+                     device=dev)
+    w = torch.tensor((np.arange(N) % 7 > 0).astype(np.float32), device=dev)
+    s2, lo = init["sigma"] ** 2, model.log_odds(init)
+    out = {}
+    for beta in (0.6, 1.0):
+        args = (y, w, W, s2, lo, sa, Hp, False, beta, 1.0)
+        F0, ref = etstep.linear_et_estep(*args, chunk=8192)
+        reset_launches(cuda_lib)
+        F1, on = linear_cuda.linear_et_estep_cuda(*args)
+        launches = expect_launches(cuda_lib, tag, estep=1, sgemm_nn=1,
+                                   sgemm_tn=1)
+        F2, again = linear_cuda.linear_et_estep_cuda(*args)
+        _, off = linear_cuda.linear_et_estep_cuda(*args, collect_true=False)
+        torch.cuda.synchronize()
+        if not (torch.equal(F1, F2)
+                and all(torch.equal(on[k], again[k]) for k in on)):
+            raise AssertionError(f"{tag} two calls of the E-step differ")
+        if not all(torch.equal(on[k], off[k]) for k in on if k != "F_true"):
+            raise AssertionError(f"{tag} collect_true off changes the sums")
+        err = max(against_cpu(torch, f"{tag} F", F1, F0.cpu(), 1e-4),
+                  against_cpu(torch, tag, on,
+                              {k: v.cpu() for k, v in ref.items()}, 1e-3))
+        out[f"beta{beta}"] = {"max_abs_err": err, "launches": launches}
+    ms, plain_ms = interleaved_ms(
+        torch, lambda: etstep.linear_et_estep(*args, chunk=8192),
+        lambda: linear_cuda.linear_et_estep_cuda(*args), 5)
+    est_bound = linear_estep_bound(N, D, H, Hp, S, K)
+    log(f"{tag} E-step kernels {ms:.3f} ms vs plain {plain_ms:.3f} ms "
+        f"(N={N}, {plain_ms / ms:.1f} x), bound {est_bound['bound_ms']:.3f} "
+        f"ms by {est_bound['bound_by']} "
+        f"({100 * est_bound['bound_ms'] / ms:.1f} % of it); agree within "
+        f"the tolerances (largest difference "
+        f"{max(v['max_abs_err'] for v in out.values()):.3e}), two calls "
+        f"bit-identical, collect_true off equal but F_true; launches a call "
+        f"{out['beta1.0']['launches']}  [{smi}]")
+    log(json.dumps({"linear": dict(out, ms=ms, plain_ms=plain_ms,
+                                   **est_bound, smem=smem,
+                                   blocks_per_sm=bps, card=smi)}))
+    return 0
+
+
 def phase24_alone() -> int:
     """``python3 chip_smoke.py --phase 24``: the build, phase 6's and phase
     12's runs again, and phase 24, without the other phases."""
@@ -4106,4 +4203,6 @@ if __name__ == "__main__":
         sys.exit(max_alone())
     if sys.argv[1:3] == ["--phase", "gsc"]:
         sys.exit(gsc_alone())
+    if sys.argv[1:3] == ["--phase", "linear"]:
+        sys.exit(linear_alone())
     sys.exit(main())

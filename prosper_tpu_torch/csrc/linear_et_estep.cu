@@ -13,337 +13,124 @@
 //   3. sgemm_tn_splitn   xs = y^T (w <s>)             (D, H), sgemm.cu
 //
 // What bounds this kernel on the H100: neither bytes nor operations.  Per
-// datapoint it reads a row of P and of y (H + D floats) and does about
-// 2*S*(2 H'^2 + 2 H' + K + 1) flops of logits and moments and some
-// 3*(H*K + S) exponentials: at the patches width 50 Kflop and 2 KB, which
-// the card could do in 0.1 ms for 131072 rows.  What it waits for is the
-// latency of short dependent chains (H' iterated argmaxes, the softmax's
-// max, sum and normalisation) and the shared-memory loads of the state
-// tables: about 1300 warp-wide loads per datapoint.
+// datapoint it reads a row of P and of y (H + D floats, ~2.2 KB at the
+// patches width) and writes w <s> back into P; its arithmetic is some
+// 20 Kflop.  The card could do either in about 0.1 ms for 131072 rows.
+// What it waits for is the latency of the short dependent chains a warp
+// walks one after another (selection, the softmax's maxima, masses and
+// normalisation, the moments, the scatter's reads of the block's slice)
+// and the instructions between them: four blocks of eight warps an SM
+// hide that latency, three do not (0.48 ms more at N = 131072), so the
+// kernel lives within 64 registers a thread.  In the dense design it
+// replaced, each singleton term was computed four times (maxima, masses,
+// posterior mean, and a block phase that read P's row again), the logits
+// and moments walked the dense 72- and 74-row state tables (at H' = 8,
+// gamma = 4 some 80 % of their multiply-adds multiply zeros), selection
+// took H' rounds of a block-wide argmax and the ss scatter a block
+// barrier a row.
 //
-// What the design does about it:
-// * The two D x H products are not here: they run as register-tiled GEMMs
-//   over all N rows (sgemm.cu), so the block holds no tile of y, no slice
-//   of W and no D x H accumulator.
-// * The state tables [states | outer | vcounts | absst | prior] sit in
-//   shared memory for the life of the block, state-minor with an odd row
-//   stride: the logits walk them with the lanes along the states, the
-//   moments with the lanes along the table's rows, and both patterns hit
-//   32 distinct banks.  In the logits a lane owns four states at a time,
-//   so one load of a Gram entry feeds four FMAs; in the moments a lane
-//   owns two table rows, so one load of q_s feeds two.  No moment is a
-//   warp reduction any more.
-// * The posterior is not stored: the singleton terms are recomputed from
-//   P[h] where they are needed (a few flops and an expf each), so a row
-//   needs H + S + 2 H'^2 floats of shared memory, not 1 + H*K + S + 2 H.
-// * One warp owns one datapoint and a block is 8 warps, three blocks to an
-//   SM at the patches width (71 KB each): 24 warps an SM hide each
-//   other's latency.
+// What the design does about it (linear_et_estep.cuh):
+// * One warp owns one datapoint, 8 warps to a block.  Each lane holds its
+//   NU = ceil(H/32) units of P's row in registers (units lane + 32 i; the
+//   kernel is a template on NU and on K = 1), loaded once and coalesced.
+//   From them it computes the selection scores, each singleton logit (a
+//   few flops, never read back from memory), one expf per channel and
+//   (h, k) (for K = 1 the annealed ones stay in registers for the
+//   posterior mean), the posterior mean, <s_h^2> for the diagonal of ss
+//   and w <s>, which goes back into P.
+// * Selection: each lane keeps its units' scores as keys whose unsigned
+//   order is the scores' order.  The H'-th largest of the lanes' own
+//   largest keys (a bitonic sort over the lanes) bounds the top H' from
+//   below; the keys at or above it, seldom more than a dozen, are
+//   gathered one a lane, and each counts the gathered keys that beat its
+//   own (larger, or equal at a lower unit: ties to the lowest index, as
+//   torch.argmax): its rank is its slot.  No chain of H' warp-wide
+//   argmaxes; should more than 32 keys qualify, H' rounds of them run.
+// * Quotients by a row's Z (and the scores' by a column norm) are one
+//   IEEE division for the reciprocal, then a product and one correction
+//   (Markstein): the IEEE quotient wherever it is a normal number, without
+//   a division's slow-path call, whose register traffic cost 0.15 ms.
+// * The multi states follow the state space's sparsity through bit masks
+//   built on the host once per state space (ops/linear_cuda.py::
+//   rows_tables): a state's logits walk its non-zero slots and slot pairs
+//   a <= b (a pair a < b counts twice: the Gram matrix is symmetric),
+//   and the moment of each slot and slot pair a >= b walks the states that
+//   hold it, in state order, in pieces shared out over the lanes largest
+//   first (for K = 1 a slot's own pair is the slot's moment times v^2).
+//   At H' = 8, gamma = 4 that is 1,624 and 1,120 multiply-adds a row in
+//   place of 11,088 and 11,396, at most 40 states a lane, and the table
+//   takes 692 words of shared memory in place of 12,705.
+// * Block sums without a barrier a row: s and the singleton diagonal of ss
+//   sum in each warp's own slice of shared memory over its rows, and the
+//   warps add theirs in warp order at the end of the block.  The multi
+//   states' ss entries go to the upper triangle of the block's slice after
+//   one barrier a tile of 8 rows: each address summed, in row order, by the
+//   tile's first row that holds it, which a ballot a row of the tile finds
+//   (the rows' candidate slots stay in shared memory until the tile after
+//   next).  The tile's candidates and pair moments are double-buffered, so
+//   the next tile's rows start while the scatter runs.  reduce_blocks
+//   mirrors the triangle.
 // * Blocks run in parallel and in no order, so a fixed number of
-//   persistent blocks each walks its tiles of 8 datapoints in order,
-//   accumulating into its own workspace slice (H*H + H + K + 5 floats),
-//   and reduce_blocks sums the slices in block order.  No float atomics:
-//   the sums are deterministic, and a step with collect_true off gives
-//   the same sums, bit for bit, as one with it on.  Rows of one tile can
-//   hit the same ss entry, so the scatter runs one row after another (a
-//   block barrier between rows); the H'^2 entries of one row are distinct
-//   units and go in parallel.  Rows with weight 0 skip the scatter.
+//   persistent blocks each walks its tiles in order, accumulating into its
+//   own workspace slice (H*H + H + K + 5 floats), and reduce_blocks sums
+//   the slices in block order.  No float atomics: repeated calls give the
+//   same bits, and a step with collect_true off gives the same sums, bit
+//   for bit, as one with it on, but F_true.  Rows with weight 0 skip the
+//   scatter.
+//
+// Numerics: IEEE float32 under -fmad=false, accurate expf/logf, IEEE
+// quotients; a logit adds its slots' products, its own pairs' and its
+// pairs a < b in slot order; a moment adds its pieces' sums in order.
 
-#include "launch_once.cuh"
-#include "linear_et_frontend.cuh"
+#include "linear_et_estep.cuh"
 
 namespace let {
 
-constexpr int ROWV = 8 + KMAX;         // per-row scalars kept for the sums
-enum { RV_F, RV_FT, RV_ABS, RV_Y2, RV_W, RV_MX, RV_Z, RV_VC = 8 };
+// the instantiations of linear_et_estep_nu*.cu
+extern template cudaError_t run_nu<1, true>(const RowsParams&, int, size_t,
+                                            int*, cudaStream_t);
+extern template cudaError_t run_nu<1, false>(const RowsParams&, int, size_t,
+                                             int*, cudaStream_t);
+extern template cudaError_t run_nu<4, true>(const RowsParams&, int, size_t,
+                                            int*, cudaStream_t);
+extern template cudaError_t run_nu<4, false>(const RowsParams&, int, size_t,
+                                             int*, cudaStream_t);
+extern template cudaError_t run_nu<16, true>(const RowsParams&, int, size_t,
+                                             int*, cudaStream_t);
+extern template cudaError_t run_nu<16, false>(const RowsParams&, int, size_t,
+                                              int*, cudaStream_t);
+extern template cudaError_t run_nu<32, true>(const RowsParams&, int, size_t,
+                                             int*, cudaStream_t);
+extern template cudaError_t run_nu<32, false>(const RowsParams&, int, size_t,
+                                              int*, cudaStream_t);
+template cudaError_t run_nu<10, true>(const RowsParams&, int, size_t, int*,
+                                      cudaStream_t);
+template cudaError_t run_nu<10, false>(const RowsParams&, int, size_t, int*,
+                                       cudaStream_t);
 
-struct RowsSmem {
-  float* tab;     // (Hp + Hp^2 + K + 2) x SP: states | outer | vcounts |
-                  // absst | prior, state-minor, row stride SP = S | 1
-  float* gd;      // H        diag(gram)
-  float* wn;      // H        column norms, floored
-  float* accs;    // H        block sums of w <s>
-  float* accd;    // H        block sums of w <s_h^2> from singletons
-  float* work;    // RWARPS*H scores, then P's row, then w <s>
-  float* L;       // RWARPS*S multi-state likelihood terms, then q
-  float* X;       // RWARPS*(Hp + Hp^2)  candidate projections | Gram
-  float* mom;     // RWARPS*J multi-state moments, J = Hp + Hp^2 + K + 1
-  float* rowv;    // RWARPS*ROWV
-  float* misc;    // KMAX + 5
-  float* vals;    // KMAX     latent values
-  float* lo;      // KMAX     log odds
-  int* cand;      // RWARPS*Hp
-};
-
-__host__ __device__ inline size_t rows_smem_floats(int H, int Hp, int S,
-                                                   int K) {
-  const size_t NX = (size_t)Hp + (size_t)Hp * Hp, J = NX + K + 1;
-  return state_table_floats(Hp, S, K) + 4 * (size_t)H
-         + RWARPS * ((size_t)H + S + NX + J + ROWV + Hp) + 3 * KMAX + 5;
+template <int NU>
+cudaError_t run_k(const RowsParams& p, int n_blocks, size_t smem, int* blocks,
+                  cudaStream_t stream) {
+  return p.K == 1 ? run_nu<NU, true>(p, n_blocks, smem, blocks, stream)
+                  : run_nu<NU, false>(p, n_blocks, smem, blocks, stream);
 }
 
-__device__ inline RowsSmem carve_rows(float* p, const Dims& d) {
-  const size_t NX = (size_t)d.Hp + (size_t)d.Hp * d.Hp, J = NX + d.K + 1;
-  RowsSmem s;
-  s.tab = p;    p += (J + 1) * (size_t)(d.S | 1);
-  s.gd = p;     p += d.H;
-  s.wn = p;     p += d.H;
-  s.accs = p;   p += d.H;
-  s.accd = p;   p += d.H;
-  s.work = p;   p += (size_t)RWARPS * d.H;
-  s.L = p;      p += (size_t)RWARPS * d.S;
-  s.X = p;      p += RWARPS * NX;
-  s.mom = p;    p += RWARPS * J;
-  s.rowv = p;   p += RWARPS * ROWV;
-  s.misc = p;   p += KMAX + 5;
-  s.vals = p;   p += KMAX;
-  s.lo = p;     p += KMAX;
-  s.cand = reinterpret_cast<int*>(p);
-  return s;
+// the kernel for the smallest NU that holds H and for K: its launch, or
+// (blocks given) the blocks an SM holds at once
+inline cudaError_t dispatch(const RowsParams& p, int n_blocks, size_t smem,
+                            int* blocks, cudaStream_t stream) {
+  const int nu = (p.H + 31) / 32;
+  if (nu <= 1) return run_k<1>(p, n_blocks, smem, blocks, stream);
+  if (nu <= 4) return run_k<4>(p, n_blocks, smem, blocks, stream);
+  if (nu <= 10) return run_k<10>(p, n_blocks, smem, blocks, stream);
+  if (nu <= 16) return run_k<16>(p, n_blocks, smem, blocks, stream);
+  if (nu <= 32) return run_k<32>(p, n_blocks, smem, blocks, stream);
+  return cudaErrorInvalidValue;
 }
 
-__host__ __device__ inline size_t ws_stride(int H, int K) {
-  return (size_t)H * H + H + K + 5;
-}
-
-__global__ void __launch_bounds__(RTHREADS, 3)
-rows_kernel(const float* __restrict__ y, const float* __restrict__ weight,
-            float* P,               // (N, H): y W on entry, w <s> on exit
-            Tables t, Dims d, float* __restrict__ F,
-            float* __restrict__ ws, int n_tiles) {
-  extern __shared__ float smem_raw[];
-  const RowsSmem sm = carve_rows(smem_raw, d);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int D = d.D, H = d.H, K = d.K, Hp = d.Hp, S = d.S;
-  const int HP2 = Hp * Hp, NX = Hp + HP2, J = NX + K + 1, SP = S | 1;
-  const size_t stride = ws_stride(H, K);
-  float* wss = ws + (size_t)blockIdx.x * stride;
-  float* wsv = wss + (size_t)H * H;
-  float* wmisc = wsv + H;
-
-  // ---- per-block tables ---------------------------------------------------
-  load_state_table(sm.tab, d, t);
-  for (int h = tid; h < H; h += RTHREADS) {
-    const float g = t.gram[(size_t)h * H + h];
-    sm.gd[h] = g;
-    sm.wn[h] = fmaxf(sqrtf(fmaxf(g, 1e-30f)), 1e-12f);
-    sm.accs[h] = 0.f;
-    sm.accd[h] = 0.f;
-  }
-  for (int i = tid; i < KMAX + 5; i += RTHREADS) sm.misc[i] = 0.f;
-  if (tid < K) {
-    sm.vals[tid] = t.values[tid];
-    sm.lo[tid] = t.log_odds[tid];
-  }
-  for (size_t i = tid; i < stride; i += RTHREADS) wss[i] = 0.f;
-  const Scalars c = load_scalars(d, t);
-  const float inv2s2 = c.inv2s2, beta = c.beta, pb = c.pb;
-  const float* prior = sm.tab + (size_t)J * SP;
-  __syncthreads();
-
-  // the view select_candidates takes: rows of P in device memory
-  Smem sel{};
-  sel.work = sm.work;
-  sel.wn = sm.wn;
-  sel.cand = sm.cand;
-
-  float* work = sm.work + (size_t)warp * H;
-  float* L = sm.L + (size_t)warp * S;
-  float* X = sm.X + (size_t)warp * NX;
-  float* mom = sm.mom + (size_t)warp * J;
-  float* rowv = sm.rowv + warp * ROWV;
-  const int* cand = sm.cand + warp * Hp;
-
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int row0 = tile * RWARPS;
-    const int nrows = min(RWARPS, d.N - row0);
-
-    if (warp < nrows) {
-      const size_t n = (size_t)row0 + warp;
-      const float* Prow = P + n * H;
-      const float w = weight[n];
-      sel.Ps = P + (size_t)row0 * H;
-      select_candidates(warp, lane, d, sel);
-
-      // ---- P's row, the candidates' projections and Gram entries ---------
-      gather_candidates(Prow, cand, work, X, d, t, lane);
-
-      // ---- likelihood terms of the multi states, and the maxima ----------
-      float mx = 0.f, mxt = 0.f;             // the zero state's logit is 0
-      multi_lik(sm.tab, X, L, d, inv2s2, beta, pb, lane, mx, mxt);
-      // ---- the singletons' maxima ----------------------------------------
-      for (int h = lane; h < H; h += 32) {
-        const float p = work[h], g = sm.gd[h];
-        for (int k = 0; k < K; ++k) {
-          const float lik = lik_single(p, g, sm.vals[k], inv2s2);
-          mx = fmaxf(mx, beta * lik + pb * sm.lo[k]);
-          mxt = fmaxf(mxt, lik + sm.lo[k]);
-        }
-      }
-      mx = warp_max(mx);
-      mxt = warp_max(mxt);
-
-      // ---- union masses ---------------------------------------------------
-      float Z = 0.f, Zt = 0.f;
-      for (int h = lane; h < H; h += 32) {
-        const float p = work[h], g = sm.gd[h];
-        for (int k = 0; k < K; ++k) {
-          const float lik = lik_single(p, g, sm.vals[k], inv2s2);
-          Z += expf((beta * lik + pb * sm.lo[k]) - mx);
-          if (d.collect_true) Zt += expf((lik + sm.lo[k]) - mxt);
-        }
-      }
-      for (int s = lane; s < S; s += 32) {
-        const float lik = L[s];
-        Z += expf((beta * lik + pb * prior[s]) - mx);
-        if (d.collect_true) Zt += expf((lik + prior[s]) - mxt);
-      }
-      Z = warp_sum(Z) + expf(-mx);
-      Zt = warp_sum(Zt) + expf(-mxt);
-
-      // ---- q of the multi states in place, then their moments ------------
-      for (int s = lane; s < S; s += 32)
-        L[s] = expf((beta * L[s] + pb * prior[s]) - mx) / Z;
-      __syncwarp();
-      int jb = 0;
-      for (; jb + 64 <= J; jb += 64) {       // two table rows a lane
-        const float* t0 = sm.tab + (size_t)(jb + lane) * SP;
-        const float* t1 = t0 + (size_t)32 * SP;
-        float a0 = 0.f, a1 = 0.f;
-        for (int s = 0; s < S; ++s) {
-          const float q = L[s];
-          a0 = fmaf(q, t0[s], a0);
-          a1 = fmaf(q, t1[s], a1);
-        }
-        mom[jb + lane] = a0;
-        mom[jb + lane + 32] = a1;
-      }
-      for (int j = jb + lane; j < J; j += 32) {
-        const float* t0 = sm.tab + (size_t)j * SP;
-        float a0 = 0.f;
-        for (int s = 0; s < S; ++s) a0 = fmaf(L[s], t0[s], a0);
-        mom[j] = a0;
-      }
-
-      // ---- singletons: posterior mean over all H units, value counts -----
-      float vcl[KMAX];
-#pragma unroll
-      for (int k = 0; k < KMAX; ++k) vcl[k] = 0.f;
-      for (int h = lane; h < H; h += 32) {
-        const float p = work[h], g = sm.gd[h];
-        float acc = 0.f;
-#pragma unroll
-        for (int k = 0; k < KMAX; ++k) {
-          if (k < K) {
-            const float v = sm.vals[k];
-            const float lik = lik_single(p, g, v, inv2s2);
-            const float q = expf((beta * lik + pb * sm.lo[k]) - mx) / Z;
-            acc = k == 0 ? q * v : fmaf(q, v, acc);
-            vcl[k] += q;
-          }
-        }
-        work[h] = acc;
-      }
-      float y2 = 0.f;
-      const float* yr = y + n * D;
-      for (int i = lane; i < D; i += 32) y2 = fmaf(yr[i], yr[i], y2);
-      y2 = warp_sum(y2);
-      float qs_tot = 0.f;
-#pragma unroll
-      for (int k = 0; k < KMAX; ++k) {
-        if (k < K) {
-          vcl[k] = warp_sum(vcl[k]);
-          qs_tot += vcl[k];
-        }
-      }
-      __syncwarp();                          // work and mom are written
-
-      // the multi states' mean goes to the candidates (distinct units)
-      if (lane < Hp) work[cand[lane]] += mom[lane];
-      __syncwarp();
-      for (int h = lane; h < H; h += 32) work[h] *= w;
-
-      if (lane == 0) {
-        const float Fr = (mx + logf(Z))
-            + free_energy_const(y2, inv2s2, c.log_norm, c.log_p0, beta, pb,
-                                H);
-        const float Ftr = d.collect_true
-            ? (mxt + logf(Zt))
-                  + free_energy_const(y2, inv2s2, c.log_norm, c.log_p0, 1.f,
-                                      1.f, H)
-            : Fr;
-        F[n] = Fr;
-        rowv[RV_F] = Fr;
-        rowv[RV_FT] = Ftr;
-        rowv[RV_ABS] = qs_tot + mom[NX + K];
-        rowv[RV_Y2] = y2;
-        rowv[RV_W] = w;
-        rowv[RV_MX] = mx;
-        rowv[RV_Z] = Z;
-#pragma unroll
-        for (int k = 0; k < KMAX; ++k)
-          if (k < K) rowv[RV_VC + k] = vcl[k] + mom[NX + k];
-      }
-    }
-    __syncthreads();
-
-    // ---- s, the singleton diagonal of ss, and w <s> over P's rows ---------
-    for (int h = tid; h < H; h += RTHREADS) {
-      float a = sm.accs[h], b = sm.accd[h];
-      const float g = sm.gd[h];
-      for (int r = 0; r < nrows; ++r) {
-        const float* rv = sm.rowv + r * ROWV;
-        float* Pn = P + ((size_t)row0 + r) * H + h;
-        if (rv[RV_W] != 0.f) {
-          const float p = *Pn;
-          float t2 = 0.f;
-          for (int k = 0; k < K; ++k) {
-            const float v = sm.vals[k];
-            const float lik = lik_single(p, g, v, inv2s2);
-            const float q =
-                expf((beta * lik + pb * sm.lo[k]) - rv[RV_MX]) / rv[RV_Z];
-            t2 = k == 0 ? q * (v * v) : fmaf(q, v * v, t2);
-          }
-          b += t2 * rv[RV_W];
-        }
-        const float sw = sm.work[(size_t)r * H + h];
-        a += sw;
-        *Pn = sw;
-      }
-      sm.accs[h] = a;
-      sm.accd[h] = b;
-    }
-    // ss scatter, one row after another (rows may share entries)
-    for (int r = 0; r < nrows; ++r) {
-      const float w = sm.rowv[r * ROWV + RV_W];
-      if (w != 0.f) {
-        const int* cr = sm.cand + r * Hp;
-        const float* ssc = sm.mom + (size_t)r * J + Hp;
-        for (int i = tid; i < HP2; i += RTHREADS)
-          wss[(size_t)cr[i / Hp] * H + cr[i % Hp]] += ssc[i] * w;
-      }
-      __syncthreads();
-    }
-    if (tid == 0) {
-      for (int r = 0; r < nrows; ++r) {
-        const float* rv = sm.rowv + r * ROWV;
-        const float w = rv[RV_W];
-        for (int k = 0; k < K; ++k) sm.misc[k] += rv[RV_VC + k] * w;
-        sm.misc[K] += rv[RV_ABS] * w;
-        sm.misc[K + 1] += rv[RV_Y2] * w;
-        sm.misc[K + 2] += w;
-        sm.misc[K + 3] += rv[RV_F] * w;
-        sm.misc[K + 4] += rv[RV_FT] * w;
-      }
-    }
-    __syncthreads();
-  }
-
-  for (int h = tid; h < H; h += RTHREADS) {
-    wsv[h] = sm.accs[h];
-    wss[(size_t)h * H + h] += sm.accd[h];
-  }
-  for (int i = tid; i < K + 5; i += RTHREADS) wmisc[i] = sm.misc[i];
+inline bool fits(int H, int Hp, int S, int K) {
+  return H >= 1 && H <= 32 * 32 && Hp >= 1 && Hp <= HPMAX && K >= 1
+         && K <= KMAX && S >= 0;
 }
 
 }  // namespace let
@@ -356,9 +143,24 @@ size_t linear_et_estep_ws_stride(int H, int K) {
   return let::ws_stride(H, K);
 }
 
-// Shared memory of a block of the E-step's rows kernel.
-size_t linear_et_rows_smem_bytes(int H, int Hp, int S, int K) {
-  return let::rows_smem_floats(H, Hp, S, K) * sizeof(float);
+// Shared memory of a block of the E-step's rows kernel, whose state table
+// (ops/linear_cuda.py::rows_tables) is table_ints long.
+size_t linear_et_rows_smem_bytes(int H, int Hp, int S, int K,
+                                 int table_ints) {
+  return let::rows_smem_words(H, Hp, S, K, table_ints) * sizeof(float);
+}
+
+// Blocks of the rows kernel that one SM holds at once, into *blocks.
+int linear_et_rows_blocks_per_sm(int H, int Hp, int S, int K, int table_ints,
+                                 int* blocks) {
+  if (!let::fits(H, Hp, S, K))
+    return static_cast<int>(cudaErrorInvalidValue);
+  let::RowsParams p{};
+  p.H = H;
+  p.K = K;
+  return static_cast<int>(let::dispatch(
+      p, 0, linear_et_rows_smem_bytes(H, Hp, S, K, table_ints), blocks,
+      nullptr));
 }
 
 const char* linear_et_error_string(int err) {
@@ -366,31 +168,30 @@ const char* linear_et_error_string(int err) {
 }
 
 // The per-datapoint stage of the E-step.  P (N, H) holds y W and leaves
-// as w <s>.  sums = [ss (H*H) | s (H) | vc (K) | abs | y2 | n | F | F_true]
+// as w <s>.  table: the state masks of ops/linear_cuda.py::rows_tables,
+// vcounts (K, S) state-minor.
+// sums = [ss (H*H) | s (H) | vc (K) | abs | y2 | n | F | F_true]
 int linear_et_estep_rows(const float* y, const float* weight, float* P,
-                         const float* gram, const float* states,
-                         const float* outer, const float* vcounts,
-                         const float* absst, const float* values,
-                         const float* log_odds, const float* scal, float* F,
-                         float* ws, float* sums, int N, int D, int H, int Hp,
-                         int S, int K, int signed_select, int collect_true,
-                         int n_blocks, void* stream) {
-  let::Tables t{gram, states, outer, vcounts, absst, values,
-                log_odds, scal};
-  let::Dims d{N, D, H, Hp, S, K, 1 + H * K + S, signed_select, collect_true};
+                         const float* gram, const int* table,
+                         const float* vcounts, const float* absst,
+                         const float* values, const float* log_odds,
+                         const float* scal, float* F, float* ws, float* sums,
+                         int N, int D, int H, int Hp, int S, int K,
+                         int table_ints, int signed_select,
+                         int collect_true, int n_blocks, void* stream) {
+  if (!let::fits(H, Hp, S, K) || N < 1 || n_blocks < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = let::rows_smem_floats(H, Hp, S, K) * sizeof(float);
-  static launch_once::DeviceOnce once;
-  cudaError_t e = launch_once::prepare_kernel(let::rows_kernel, once, true);
-  if (e != cudaSuccess) return static_cast<int>(e);
   const int n_tiles = (N + let::RWARPS - 1) / let::RWARPS;
-  let::rows_kernel<<<n_blocks, let::RTHREADS, smem, s>>>(
-      y, weight, P, t, d, F, ws, n_tiles);
-  e = cudaGetLastError();
+  let::RowsParams p{y, weight, P, gram, table, vcounts, absst, values,
+                    log_odds, scal, F, ws, N, D, H, Hp, S, K, table_ints,
+                    signed_select, collect_true, n_tiles};
+  const size_t smem = linear_et_rows_smem_bytes(H, Hp, S, K, table_ints);
+  cudaError_t e = let::dispatch(p, n_blocks, smem, nullptr, s);
   if (e != cudaSuccess) return static_cast<int>(e);
   const size_t stride = let::ws_stride(H, K);
   let::reduce_blocks<<<(unsigned)((stride + 255) / 256), 256, 0, s>>>(
-      ws, sums, n_blocks, stride, 0);
+      ws, sums, stride, n_blocks, H);
   return static_cast<int>(cudaGetLastError());
 }
 

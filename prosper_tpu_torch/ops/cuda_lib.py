@@ -39,11 +39,13 @@ LAUNCHES: Dict[str, int] = {"estep": 0, "decode": 0, "max_estep": 0,
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 SOURCES = ("sgemm.cu", "hgemm_bf16.cu", "hgemm_f16.cu", "linear_et_estep.cu",
-           "linear_et_decode.cu", "max_et_estep.cu", "max_et_estep_hp2_5.cu",
-           "max_et_estep_hp7.cu", "max_et_estep_hp8.cu", "bigs_multi.cu",
-           "gsc_et_estep.cu")
+           "linear_et_estep_nu1_4.cu", "linear_et_estep_nu16.cu",
+           "linear_et_estep_nu32.cu", "linear_et_decode.cu",
+           "max_et_estep.cu", "max_et_estep_hp2_5.cu", "max_et_estep_hp7.cu",
+           "max_et_estep_hp8.cu", "bigs_multi.cu", "gsc_et_estep.cu")
 HEADERS = ("sgemm.cuh", "hgemm_tn.cuh", "linear_et_frontend.cuh",
-           "max_et_estep.cuh", "cp_async.cuh", "launch_once.cuh")
+           "linear_et_estep.cuh", "max_et_estep.cuh", "cp_async.cuh",
+           "launch_once.cuh")
 #: -fno-gnu-unique: the launchers' function-local statics (a kernel's
 #: shared-memory attribute, set once) stay private to each library, so
 #: that two builds loaded in one process (edited copies of the sources, as
@@ -126,10 +128,11 @@ def load_library() -> ctypes.CDLL:
             ("hgemm_tn_splitn_bf16", [p] * 4 + [i] * 6 + [p], i),
             ("hgemm_tn_splitn_f16", [p] * 4 + [i] * 6 + [p], i),
             ("hgemm_tn_bulk_smem_bytes", [], z),
-            ("linear_et_estep_rows", [p] * 14 + [i] * 9 + [p], i),
+            ("linear_et_estep_rows", [p] * 13 + [i] * 10 + [p], i),
             ("linear_et_decode_rows", [p] * 15 + [i] * 9 + [p], i),
             ("linear_et_estep_ws_stride", [i, i], z),
-            ("linear_et_rows_smem_bytes", [i] * 4, z),
+            ("linear_et_rows_smem_bytes", [i] * 5, z),
+            ("linear_et_rows_blocks_per_sm", [i] * 5 + [p], i),
             ("linear_et_decode_smem_bytes", [i] * 4, z),
             ("max_et_estep", [p] * 16 + [i] * 10 + [p], i),
             ("max_et_ws_a_stride", [i], z),

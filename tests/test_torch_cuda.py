@@ -22,6 +22,8 @@ from prosper_tpu_torch.core.states import (binary_state_space,
 from prosper_tpu_torch import utils
 from prosper_tpu_torch.ops import (bigs_cuda, cuda_lib, gemm_cuda, gsc_cuda,
                                    linear_cuda, max_cuda)
+from test_torch_rows_tables import (parent_rows_smem_words,
+                                    rows_smem_words, table_words)
 
 pytestmark = pytest.mark.cuda
 
@@ -74,6 +76,115 @@ def test_estep_kernel_matches_plain(case, beta, device):
                                    msg=k)
         if k != "F_true":
             assert torch.equal(on[k], off[k]), k
+
+
+def _assert_estep_matches_plain(args, device):
+    """The E-step kernels against the plain version (F rtol 1e-4, the sums
+    1e-3, as ``test_estep_kernel_matches_plain``); two calls bit-identical;
+    collect_true off equal to on, bit for bit, but F_true."""
+    F0, ref = etstep.linear_et_estep(*args, chunk=args[0].shape[0])
+    F1, on = linear_cuda.linear_et_estep_cuda(*args, collect_true=True)
+    F2, again = linear_cuda.linear_et_estep_cuda(*args, collect_true=True)
+    _, off = linear_cuda.linear_et_estep_cuda(*args, collect_true=False)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(F1, F0, rtol=1e-4, atol=1e-4)
+    assert torch.equal(F1, F2)
+    for k in ref:
+        torch.testing.assert_close(on[k], ref[k], rtol=1e-3, atol=1e-3,
+                                   msg=k)
+        assert torch.equal(on[k], again[k]), k
+        if k != "F_true":
+            assert torch.equal(on[k], off[k]), k
+
+
+SHARED_CASES = [(1003, 25, 10, 6, 3, (-1.0, 1.0), True),
+                (2003, 256, 300, 8, 4, (1.0,), False)]
+
+
+@pytest.mark.parametrize("case", SHARED_CASES,
+                         ids=lambda c: f"H{c[2]}K{len(c[5])}")
+@pytest.mark.parametrize("beta", [0.6, 1.0])
+def test_estep_kernel_tiles_whose_rows_share_candidates(case, beta, device):
+    """Rows of one tile of 8 that share candidates: every row twice in a
+    row, and a whole tile of one row, so that the rows kernel's ss scatter
+    sums shared addresses (each by the tile's first row that holds it);
+    rows of weight 0 inside tiles, which hold no address; N a multiple of
+    no tile."""
+    y, w, W, lo, sa, Hp, signed = _inputs(case, device, seed=4)
+    y[1::2] = y[0::2][:y[1::2].shape[0]]
+    y[16:24] = y[16]
+    w[40:] = 1.0
+    w[[41, 42, 45, 50, 57, 63, 100]] = 0.0
+    _assert_estep_matches_plain(
+        (y, w, W, torch.tensor(2.5, device=device), lo, sa, Hp, signed,
+         beta, 1.0), device)
+
+
+@pytest.mark.parametrize("Hp,gamma,values",
+                         [(8, 4, (1.0,)), (8, 4, (-1.0, 1.0)),
+                          (6, 3, (-1.0, 1.0, 2.0))],
+                         ids=["K1", "K2", "K3"])
+def test_estep_kernel_value_counts_at_the_patches_width(Hp, gamma, values,
+                                                        device):
+    """K = 1, 2, 3 at H = 300: BSC and TSC at H' = 8, gamma = 4 (TSC's
+    1,680 multi states fit a block since the tables are bit masks), DSC at
+    H' = 6, gamma = 3: its 7,434 multi states at H' = 8, gamma = 4 fit no
+    block, and raise naming backend="plain", as they always did."""
+    case = (2003, 256, 300, Hp, gamma, values, len(values) > 1)
+    y, w, W, lo, sa, Hp, signed = _inputs(case, device, seed=5)
+    _assert_estep_matches_plain(
+        (y, w, W, torch.tensor(2.5, device=device), lo, sa, Hp, signed,
+         0.6, 1.0), device)
+    if len(values) == 3:
+        wide = etstep.state_arrays_from(discrete_state_space(8, 4, values),
+                                        device)
+        with pytest.raises(ValueError, match='backend="plain"'):
+            linear_cuda.linear_et_estep_cuda(y, w, W, 2.5, lo, wide, 8,
+                                             signed, 0.6, 1.0)
+
+
+@pytest.mark.parametrize("signed", [False, True])
+def test_estep_kernel_when_every_score_ties(signed, device):
+    """Every column of W alike: all H scores of a row tie, more than 32
+    units qualify for the candidates, and the selection takes its second
+    way (the lanes' own keys, a rescan by each round's winner); ties go to
+    the lowest units, as in the plain version."""
+    case = (333, 64, 80, 6, 3, (-1.0, 1.0) if signed else (1.0,), signed)
+    y, w, W, lo, sa, Hp, signed = _inputs(case, device, seed=7)
+    W[:, 1:] = W[:, :1]
+    _assert_estep_matches_plain(
+        (y, w, W, torch.tensor(2.5, device=device), lo, sa, Hp, signed,
+         0.6, 1.0), device)
+
+
+WIDE_CASES = [(1024, 8, 4, (1.0,)), (1024, 16, 2, (1.0,)),
+              (790, 17, 2, (1.0,)), (300, 8, 8, (1.0,)),
+              (64, 4, 2, (-4.0, -3.0, -2.0, -1.0, 1.0, 2.0, 3.0, 4.0))]
+
+
+@pytest.mark.parametrize("H,Hp,gamma,values", WIDE_CASES,
+                         ids=lambda c: str(c) if not isinstance(c, tuple)
+                         else f"K{len(c)}")
+def test_estep_kernel_runs_the_widest_models_it_ever_took(H, Hp, gamma,
+                                                         values, device):
+    """Models at the edge of what ``check_limits`` and the shared-memory
+    check admitted before the redesign (H = 1024; H' = 16 and 17 at
+    gamma = 2; every subset of 8 slots; K = 8) still run through the rows
+    kernel and match the plain version; the shared memory a block takes is
+    ``tests/test_torch_rows_tables.py``'s count of it."""
+    K = len(values)
+    case = (333, 32, H, Hp, gamma, values, K > 1)
+    y, w, W, lo, sa, Hp, signed = _inputs(case, device, seed=6)
+    S = sa.states.shape[0]
+    assert 4 * parent_rows_smem_words(H, Hp, S, K) <= cuda_lib.SMEM_LIMIT
+    smem, blocks = linear_cuda.rows_occupancy(cuda_lib.load_library(), H,
+                                              Hp, sa)
+    table = linear_cuda._rows_table(sa).numel()
+    assert table <= table_words(Hp, S, K)
+    assert smem == 4 * rows_smem_words(H, Hp, S, K, table) and blocks >= 1
+    _assert_estep_matches_plain(
+        (y, w, W, torch.tensor(2.5, device=device), lo, sa, Hp, signed,
+         0.6, 1.0), device)
 
 
 @pytest.mark.parametrize("case", CASES, ids=lambda c: f"H{c[2]}K{len(c[5])}")

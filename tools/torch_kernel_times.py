@@ -78,17 +78,57 @@ HTN_NO_COPIES = "      mbar_expect(bar, 0);\n"
 #: (name, file, text to replace, replacement), or (name, file, [(text,
 #: replacement), ...]): parts switched off by `ablate`
 ABLATIONS = [
-    ("rows: candidate selection (also the max and gsc kernels')",
+    ("front end: candidate selection (the decode, max and gsc kernels')",
      "linear_et_frontend.cuh",
      "const int bi = row_argmax(sc, H, lane, &b);",
      "const int bi = a; b = 0.f;"),
-    ("rows: multi-state logits (also the decode's)",
+    ("front end: multi-state logits (the decode's)",
      "linear_et_frontend.cuh", "int sb = 0;", "int sb = S;"),
-    ("rows: multi-state moments", "linear_et_estep.cu", "int jb = 0;",
-     "int jb = J;"),
-    ("rows: ss scatter", "linear_et_estep.cu",
-     "if (w != 0.f) {\n        const int* cr", "if (w > 3e38f) {\n"
-     "        const int* cr"),
+    ("rows: selection (the threshold sort, the gather and the ranks)",
+     "linear_et_estep.cuh",
+     "      select_top<NU>(key, pr, Hp, lane, slot, sm.sel + warp * 3 * 32, cand,\n"
+     "                     X);",
+     "      if (lane < Hp) {\n        cand[lane] = lane;\n        X[lane] = pr[0];\n"
+     "        slot[lane] = (signed char)lane;\n      }\n      __syncwarp();"),
+    ("rows: the selection keys' corrections (P / wn as P * (1 / wn))",
+     "linear_et_estep.cuh",
+     "const float s = div_by(pr[i], sm.wn[h], sm.rwn[h]);",
+     "const float s = pr[i] * sm.rwn[h];"),
+    ("rows: the candidates' Gram entries (read from the L2)",
+     "linear_et_estep.cuh",
+     "X[Hp + i] = p.gram[(size_t)cand[i / Hp] * H + cand[i % Hp]];",
+     "X[Hp + i] = 0.25f;"),
+    ("rows: multi-state logits (each state's slots and slot pairs)",
+     "linear_et_estep.cuh",
+     "for (unsigned m1 = msk; m1 != 0u; m1 &= m1 - 1u) {",
+     "for (unsigned m1 = 0u; m1 != 0u; m1 &= m1 - 1u) {"),
+    ("rows: the multi states' exponentials (an add in their place)",
+     "linear_et_estep.cuh", [
+         ("expf((beta * lik + pb * sm.prior[s]) - mx)",
+          "(1.f + (beta * lik + pb * sm.prior[s]) - mx)"),
+         ("expf((lik + sm.prior[s]) - mxt)",
+          "(1.f + (lik + sm.prior[s]) - mxt)")]),
+    ("rows: multi-state moments (each row's states)", "linear_et_estep.cuh",
+     "for (unsigned bits = rb[wd]; bits != 0u;) {",
+     "for (unsigned bits = 0u; bits != 0u;) {"),
+    ("rows: the singleton pass's exponentials (an add in their place)",
+     "linear_et_estep.cuh", [
+         ("expf((beta * lik + pb * sm.lo[k]) - mx)",
+          "(1.f + (beta * lik + pb * sm.lo[k]) - mx)"),
+         ("expf((lik + sm.lo[k]) - mxt)", "(1.f + (lik + sm.lo[k]) - mxt)")]),
+    ("rows: the quotients' corrections (q = e / Z as e * (1 / Z))",
+     "linear_et_estep.cuh", [("div_by(e1v[i], Z, rZ)", "e1v[i] * rZ"),
+                             ("div_by(L[s], Z, rZ)", "L[s] * rZ")]),
+    ("rows: the warps' sums of w <s> and w <s_h^2> in shared memory",
+     "linear_et_estep.cuh", [("if (w != 0.f) accd[h] += (q * vv) * w;", ""),
+                             ("          accs[h] += pr[i];\n", "")]),
+    ("rows: ss scatter (one barrier a tile)", "linear_et_estep.cuh",
+     "if (warp < nrows && wrb[warp] != 0.f) {",
+     "if (warp < nrows && wrb[warp] > 3e38f) {"),
+    ("rows: the whole rows kernel (launch skipped)", "linear_et_estep.cuh",
+     "  rows_kernel<NU, K1><<<n_blocks, RTHREADS, smem, stream>>>(p);",
+     "  if (false) rows_kernel<NU, K1><<<n_blocks, RTHREADS, smem, stream>>>"
+     "(p);"),
     ("gsc: the supports' solves (logits 0, kappa and Sigma unset)",
      "gsc_et_estep.cu",
      "support_any<G>(m, code, X, Hp, ks + s, S, log_psi, mm, hip);",
